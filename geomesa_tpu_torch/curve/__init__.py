@@ -1,0 +1,29 @@
+"""Space-filling-curve layer: dimension normalization, time binning,
+morton interleaving on int64 tensors, the Z3 curve, and z-range
+decomposition."""
+
+from .binnedtime import (
+    BinnedTime,
+    TimePeriod,
+    bin_to_ms,
+    from_binned_time,
+    max_date_ms,
+    max_offset,
+    time_to_bin,
+    to_binned_time,
+)
+from .normalize import NormalizedDimension, normalized_lat, normalized_lon, normalized_time
+from .ranges import merge_ranges, zranges
+from .sfc import Z3SFC, z3_sfc
+from .zorder import (
+    MAX_2D_BITS,
+    MAX_3D_BITS,
+    combine2,
+    combine3,
+    deinterleave2,
+    deinterleave3,
+    interleave2,
+    interleave3,
+    split2,
+    split3,
+)

@@ -1,0 +1,270 @@
+"""Query planner: strategy → index scan → residual filter → sort/limit.
+
+The orchestration layer mirroring the reference's QueryPlanner
+(geomesa-index-api/.../index/planning/QueryPlanner.scala:41-134): choose a
+strategy (StrategyDecider), run the chosen index's scan to get candidate
+positions, apply the full filter as a vectorized re-check (the reference's
+secondary-filter / FilterTransformIterator role), then projection, sort
+and max-features (configureQuery's hint handling, :157-230).
+
+Exactness contract: whatever the index strategy returns is treated as a
+*candidate superset*; the final mask is always the full filter evaluated
+on candidates, so results are oracle-equal regardless of strategy.
+
+The port serves the strategies of its store's indexes — ``z3`` (with
+several time windows batched into one scan), ``full`` and ``none``, and
+an OR split over them.  Hints it does not serve raise.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..config import QueryProperties
+from ..features.batch import FeatureBatch
+from ..features.feature_type import FeatureType
+from ..filters.ast import Filter, Include
+from ..filters.ecql import parse_ecql
+from ..filters.evaluate import evaluate_filter
+from .explain import Explainer, ExplainNull
+from .strategy import FilterStrategy, StrategyDecider
+
+__all__ = ["Query", "QueryPlanner", "QueryResult", "QueryTimeoutError"]
+
+#: query hints the port does not serve: each raises rather than being
+#: silently ignored
+_UNSERVED_HINTS = ("SAMPLING", "SAMPLE_BY")
+
+
+@dataclass
+class Query:
+    """A query against one schema (the GeoTools Query analog)."""
+
+    filter: Filter = Include
+    properties: list | None = None       # projection; None = all
+    sort_by: str | None = None           # attribute name
+    sort_desc: bool = False
+    max_features: int | None = None
+    crs: str | None = None               # output CRS; None = storage (4326)
+    hints: dict = field(default_factory=dict)
+
+    @classmethod
+    def of(cls, filter_or_ecql="INCLUDE", **kw) -> "Query":
+        f = (parse_ecql(filter_or_ecql)
+             if isinstance(filter_or_ecql, str) else filter_or_ecql)
+        return cls(filter=f, **kw)
+
+
+@dataclass
+class QueryResult:
+    #: materialized hit rows
+    batch: FeatureBatch | None
+    positions: np.ndarray
+    strategy: FilterStrategy
+    plan_time_ms: float
+    scan_time_ms: float
+
+
+class QueryTimeoutError(TimeoutError):
+    """Query exceeded ``geomesa.query.timeout`` (the reference's
+    ThreadManagement reaper killing runaway scans)."""
+
+
+class QueryPlanner:
+    """Plans and runs queries against a store's index set."""
+
+    def __init__(self, sft: FeatureType, store):
+        self.sft = sft
+        self.store = store  # _SchemaStore (datastore.py)
+
+    def run(self, query: Query, explain: Explainer | None = None) -> QueryResult:
+        """Plan and execute."""
+        for hint in _UNSERVED_HINTS:
+            if hint in query.hints:
+                raise NotImplementedError(f"query hint {hint} is not ported")
+        if query.crs:
+            raise NotImplementedError(
+                "output CRS reprojection (Query.crs) is not ported")
+        explain = explain or ExplainNull()
+        store = self.store
+        batch = store.batch
+        explain.push(lambda: f"Planning query on '{self.sft.name}' "
+                             f"({len(batch)} features)")
+        explain(lambda: f"Filter: {query.filter!r}")
+
+        timeout_s = QueryProperties.QUERY_TIMEOUT.to_int()
+        deadline = (time.perf_counter() + timeout_s) if timeout_s else None
+
+        def check_deadline(stage: str):
+            if deadline is not None and time.perf_counter() > deadline:
+                raise QueryTimeoutError(
+                    f"query on {self.sft.name!r} exceeded "
+                    f"{timeout_s}s during {stage}")
+
+        t0 = time.perf_counter()
+        decider = StrategyDecider(
+            self.sft, store.stats_map(), len(batch),
+            allowed_indices=store.query_indices)
+        strategy, _ = decider.decide_with_options(
+            query.filter, explain, forced=query.hints.get("QUERY_INDEX"))
+        plan_ms = (time.perf_counter() - t0) * 1000
+        check_deadline("planning")
+
+        t1 = time.perf_counter()
+        candidates = self._scan(strategy, query, explain)
+        check_deadline("index scan")
+        if candidates is None:  # full scan
+            mask = evaluate_filter(query.filter, batch)
+            positions = np.flatnonzero(mask)
+        elif len(candidates):
+            mask = evaluate_filter(query.filter, batch.take(candidates))
+            positions = candidates[mask]
+        else:
+            positions = np.asarray(candidates, dtype=np.int64)
+        scan_ms = (time.perf_counter() - t1) * 1000
+        check_deadline("filtering")
+        explain(lambda: f"Scan: {len(positions)} hits "
+                        f"(plan {plan_ms:.1f}ms, scan {scan_ms:.1f}ms)")
+
+        positions = self._sort_limit(positions, batch, query)
+        properties = query.properties
+        if properties is None and "COLUMN_GROUP" in query.hints:
+            group = query.hints["COLUMN_GROUP"]
+            groups = self.sft.column_groups
+            if group not in groups:
+                raise ValueError(f"no column group {group!r} on "
+                                 f"{self.sft.name!r}")
+            properties = groups[group]
+        take_cols = None
+        if properties is not None:
+            # projection pushes INTO the take: only the projected
+            # physical columns are gathered for the hit rows
+            take_cols = set()
+            for p in properties:
+                if self.sft.attribute(p).is_geometry:
+                    take_cols.update((f"{p}_x", f"{p}_y", f"{p}_bbox"))
+                else:
+                    take_cols.add(p)
+        result_batch = batch.take(positions, columns=take_cols)
+        if properties is not None:
+            result_batch = _project(result_batch, properties)
+        explain.pop()
+        return QueryResult(result_batch, positions, strategy, plan_ms,
+                           scan_ms)
+
+    # -- strategy execution ----------------------------------------------
+    def _scan(self, strategy: FilterStrategy, query: Query,
+              explain: Explainer) -> np.ndarray | None:
+        store = self.store
+        name = strategy.index
+        if name == "none":
+            return np.empty(0, dtype=np.int64)
+        if name == "or-split":
+            explain(lambda: f"OR-split across {len(strategy.branches)} "
+                            "indexed branches")
+            return self._scan_or_split(strategy, query, explain)
+        if name == "full":
+            explain("Executing full-table scan")
+            return None
+        if name != "z3":
+            raise NotImplementedError(f"strategy {name!r} is not ported")
+        explain(lambda: f"Executing {name} index scan")
+        boxes = [g.envelope.as_tuple() for g in strategy.geometries] or [
+            (-180.0, -90.0, 180.0, 90.0)
+        ]
+        idx = store.z3_index()
+        if len(strategy.intervals) > 1:
+            # batch disjoint time windows into ONE scan (the
+            # multi-window BatchScanner pattern)
+            explain(lambda: f"Auto-batched {len(strategy.intervals)} "
+                            "time windows into one dispatch")
+            parts = idx.query_many(
+                [(boxes, lo, hi) for lo, hi in strategy.intervals])
+            return _union(list(parts))
+        parts = [idx.query(boxes, lo, hi) for lo, hi in strategy.intervals]
+        return _union(parts)
+
+    def _scan_or_split(self, strategy: FilterStrategy, query: Query,
+                       explain: Explainer) -> np.ndarray | None:
+        """Execute an OR-split (FilterSplitter's disjunction rewrite,
+        planning/FilterSplitter.scala:294-307), batching its z3 branches
+        into one multi-window scan; the planner's full-OR residual
+        re-check keeps the union exact."""
+        store = self.store
+        world = (-180.0, -90.0, 180.0, 90.0)
+        z3_windows: list = []
+        rest: list = []
+        for _, st in strategy.branches:
+            bx = [g.envelope.as_tuple() for g in st.geometries] or [world]
+            if st.index == "z3" and st.intervals:
+                z3_windows.extend((bx, lo, hi) for lo, hi in st.intervals)
+            else:
+                rest.append(st)
+        parts = []
+        if len(z3_windows) > 1:
+            explain(lambda: f"Auto-batched {len(z3_windows)} z3 windows "
+                            "into one dispatch")
+            parts.extend(store.z3_index().query_many(z3_windows))
+        elif z3_windows:
+            bx, lo, hi = z3_windows[0]
+            parts.append(store.z3_index().query(bx, lo, hi))
+        for st in rest:
+            cand = self._scan(st, query, explain)
+            if cand is None:
+                # a full-scan branch would lose its rows from the union —
+                # degrade the whole split to one full scan instead
+                return None
+            parts.append(cand)
+        parts = [p for p in parts if len(p)]
+        return _union(parts) if parts else np.empty(0, dtype=np.int64)
+
+    def _sort_limit(self, positions: np.ndarray, batch: FeatureBatch,
+                    query: Query) -> np.ndarray:
+        if query.sort_by:
+            keys = batch.column(query.sort_by)[positions]
+            if keys.dtype == object:
+                # object columns may mix None (masked/sparse values) with
+                # comparables: sort Nones last, stably
+                order = np.asarray(sorted(
+                    range(len(keys)),
+                    key=lambda i: (keys[i] is None, keys[i]
+                                   if keys[i] is not None else 0)),
+                    dtype=np.int64)
+            else:
+                order = np.argsort(keys, kind="stable")
+            if query.sort_desc:
+                order = order[::-1]
+            positions = positions[order]
+        if query.max_features is not None:
+            positions = positions[: query.max_features]
+        return positions
+
+
+def _union(parts: list[np.ndarray]) -> np.ndarray:
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return np.empty(0, dtype=np.int64)
+    return np.unique(np.concatenate(parts))
+
+
+def _project(batch: FeatureBatch, properties: list) -> FeatureBatch:
+    """Column projection (the reference's transform schemas,
+    QueryPlanner.setQueryTransforms)."""
+    keep: dict = {}
+    for p in properties:
+        attr = batch.sft.attribute(p)
+        if attr.is_geometry:
+            for suffix in ("_x", "_y", "_bbox"):
+                if f"{p}{suffix}" in batch.columns:
+                    keep[f"{p}{suffix}"] = batch.columns[f"{p}{suffix}"]
+        else:
+            keep[p] = batch.columns[p]
+    sub_attrs = tuple(a for a in batch.sft.attributes if a.name in properties)
+    sub_sft = FeatureType(batch.sft.name, sub_attrs,
+                          batch.sft.default_geom if batch.sft.default_geom in properties else None,
+                          batch.sft.user_data)
+    return FeatureBatch(sub_sft, keep, batch.ids,
+                        batch.geoms if sub_sft.default_geom else None)

@@ -1,0 +1,218 @@
+"""Filter strategies and cost-based index selection.
+
+Mirrors the reference's strategy machinery: the spatio-temporal
+applicability heuristics (geomesa-index-api/.../index/strategies/
+SpatioTemporalFilterStrategy.scala) and the cost-based decider
+(planning/StrategyDecider.scala:67-112,140-152) that estimates
+per-strategy feature counts from stats and picks the cheapest.
+
+The port offers the strategies of the indexes it has: ``z3`` on point
+schemas with a dtg attribute, the full scan, the empty plan, and an OR
+split over them.  The JAX package's id, attribute, z2 and xz strategies,
+its sketch-fed estimator and its mid-query replanning are not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from ..config import QueryProperties
+from ..features.feature_type import FeatureType
+from ..filters.ast import Filter, Or, _Exclude
+from ..filters.extract import extract_geometries, extract_intervals
+from ..stats.stat import MinMax
+from .explain import Explainer, ExplainNull
+
+__all__ = ["FilterStrategy", "StrategyDecider"]
+
+
+@dataclass
+class FilterStrategy:
+    """A candidate execution strategy: which index serves the query and at
+    what estimated cost (feature count to scan)."""
+
+    #: 'z3' | 'or-split' | 'full' | 'none'
+    index: str
+    cost: float
+    geometries: tuple = ()      # extracted query geometries
+    intervals: tuple = ()       # extracted (lo_ms, hi_ms)
+    branches: tuple = ()        # ('or-split') per-branch FilterStrategy
+    #: what ``cost`` came from: 'stats' (whole-store stats) or
+    #: 'heuristic' (fallback constants)
+    source: str = "heuristic"
+
+    def __repr__(self):
+        return f"FilterStrategy({self.index}, cost={self.cost:.0f})"
+
+
+class StrategyDecider:
+    """Enumerate viable strategies for a filter and pick the cheapest."""
+
+    def __init__(self, sft: FeatureType, stats: dict | None = None,
+                 total_count: int = 0,
+                 allowed_indices: set[str] | None = None):
+        """``allowed_indices`` further restricts the offered strategies
+        beyond the schema's ``geomesa.indices.enabled`` user data (the
+        indexes the store has)."""
+        self.sft = sft
+        self.stats = stats or {}
+        self.total = max(1, total_count)
+        self.allowed_indices = allowed_indices
+
+    # -- cost estimates (StatsBasedEstimator spirit) ----------------------
+    def _spatial_fraction(self, geometries) -> float:
+        """Estimated fraction of the data a query geometry set covers:
+        the intersection with the DATA extent (the maintained bbox
+        sketch) over that extent — a box covering all the data costs
+        ~1.0 even when it is tiny against the world."""
+        if not geometries:
+            return 1.0
+        bb = self.stats.get(f"{self.sft.geom_field}_bbox")
+        if bb is not None and not bb.is_empty:
+            x0, y0, x1, y1 = bb.bounds
+
+            def axis(qlo, qhi, lo, hi):
+                if hi - lo <= 0:   # degenerate extent: in or out
+                    return 1.0 if qlo <= lo <= qhi else 0.0
+                return max(0.0, (min(qhi, hi) - max(qlo, lo)) / (hi - lo))
+
+            inter = sum(axis(g.envelope.as_tuple()[0],
+                             g.envelope.as_tuple()[2], x0, x1)
+                        * axis(g.envelope.as_tuple()[1],
+                               g.envelope.as_tuple()[3], y0, y1)
+                        for g in geometries)
+            return min(1.0, inter)
+        area = sum(g.envelope.area for g in geometries)
+        return min(1.0, area / (360.0 * 180.0))
+
+    def _temporal_fraction(self, intervals) -> float:
+        if not intervals:
+            return 1.0
+        mm: MinMax | None = self.stats.get("dtg_minmax")
+        if mm is None or mm.is_empty or mm.max == mm.min:
+            return 0.1
+        span = float(mm.max - mm.min)
+        covered = 0.0
+        for lo, hi in intervals:
+            lo = mm.min if lo is None else lo
+            hi = mm.max if hi is None else hi
+            covered += max(0.0, min(float(hi), float(mm.max)) - max(float(lo), float(mm.min)))
+        return min(1.0, covered / span)
+
+    def _frac_source(self, spatial: bool, temporal: bool) -> str:
+        """Whether the fraction-product cost for a z-index strategy was
+        stats-backed ('stats') or ran on fallback constants
+        ('heuristic')."""
+        ok = True
+        if spatial:
+            bb = self.stats.get(f"{self.sft.geom_field}_bbox")
+            ok = bb is not None and not bb.is_empty
+        if ok and temporal:
+            mm = self.stats.get("dtg_minmax")
+            ok = mm is not None and not mm.is_empty and mm.max != mm.min
+        return "stats" if ok else "heuristic"
+
+    # -- strategy enumeration ---------------------------------------------
+    def _enabled(self, index: str) -> bool:
+        """Schema-level index restriction (``geomesa.indices.enabled``
+        user data — the reference's per-schema index configuration,
+        RichSimpleFeatureType.getIndices): a disabled index is never
+        offered as a strategy."""
+        if (self.allowed_indices is not None
+                and index not in self.allowed_indices):
+            return False
+        enabled = self.sft.enabled_indices
+        return enabled is None or index in enabled
+
+    def strategies(self, f: Filter) -> list[FilterStrategy]:
+        sft = self.sft
+        out: list[FilterStrategy] = []
+
+        geom = sft.geom_field
+        dtg = sft.dtg_field
+        geoms = extract_geometries(f, geom) if geom else None
+        intervals = extract_intervals(f, dtg) if dtg else None
+
+        if geoms is not None and geoms.disjoint or intervals is not None and intervals.disjoint:
+            return [FilterStrategy("none", 0.0)]
+
+        spatial = bool(geoms and geoms.values)
+        # the z3 POINT index serves half-open intervals too, because it
+        # clamps them to the data's time extent (the reference requires
+        # bounded intervals, SpatioTemporalFilterStrategy — clamping
+        # removes that need here)
+        usable = tuple(intervals.values) if intervals else ()
+        temporal = bool(usable)
+
+        if sft.is_points and dtg and self._enabled("z3") and (
+                temporal or spatial):
+            qgeoms = tuple(geoms.values) if spatial else ()
+            if not temporal:
+                # a pure-spatial query runs on z3 with an OPEN interval,
+                # which the point index clamps to the data's time extent
+                usable = ((None, None),)
+            cost = (self.total * self._spatial_fraction(qgeoms)
+                    * (self._temporal_fraction(usable) if temporal else 1.0))
+            out.append(FilterStrategy(
+                "z3", max(1.0, cost), geometries=qgeoms, intervals=usable,
+                source=self._frac_source(spatial, temporal)))
+
+        # the full-scan cost is the maintained row count — exact
+        out.append(FilterStrategy("full", float(self.total),
+                                  source="stats"))
+        return out
+
+    def decide(self, f: Filter, explain: Explainer | None = None,
+               forced: str | None = None) -> FilterStrategy:
+        """``forced`` pins the strategy to a named index (the reference's
+        QUERY_INDEX hint, index/planning/StrategyDecider.scala:67-79:
+        a requested index bypasses cost comparison)."""
+        return self.decide_with_options(f, explain, forced)[0]
+
+    def decide_with_options(
+            self, f: Filter, explain: Explainer | None = None,
+            forced: str | None = None,
+    ) -> tuple[FilterStrategy, tuple]:
+        """:meth:`decide` plus every option costed."""
+        explain = explain or ExplainNull()
+        chosen, options = self._decide(f)
+        explain.push("Strategy selection:")
+        for o in options:
+            explain(lambda o=o: f"option {o.index}: estimated cost "
+                    f"{o.cost:.0f} [{o.source}]")
+        if forced is not None:
+            match = [o for o in options if o.index == forced]
+            if not match:
+                raise ValueError(
+                    f"QUERY_INDEX hint requested {forced!r} but no such "
+                    f"strategy applies (have: "
+                    f"{sorted(o.index for o in options)})")
+            chosen = min(match, key=lambda o: o.cost)
+            explain(lambda: f"forced by QUERY_INDEX hint: {chosen.index}")
+        if chosen.index == "full" and QueryProperties.BLOCK_FULL_TABLE_SCANS.to_bool():
+            raise RuntimeError(
+                "full-table scan required but blocked "
+                "(geomesa.scan.block.full.table=true)")
+        explain(lambda: f"chosen: {chosen.index} (cost {chosen.cost:.0f}, "
+                f"source {chosen.source})")
+        explain.pop()
+        return chosen, tuple(options)
+
+    def _decide(self, f: Filter) -> tuple[FilterStrategy, list]:
+        if isinstance(f, _Exclude):
+            return FilterStrategy("none", 0.0), []
+        options = self.strategies(f)
+        chosen = min(options, key=lambda o: o.cost)
+        if chosen.index == "full" and isinstance(f, Or):
+            # OR-split (FilterSplitter's disjunction handling,
+            # planning/FilterSplitter.scala:294-307): when every branch of
+            # a top-level OR is individually indexable and the summed
+            # branch costs beat one full scan, serve the query per branch
+            branch = [(p, self._decide(p)[0]) for p in f.filters]
+            if all(st.index != "full" for _, st in branch):
+                total = sum(st.cost for _, st in branch)
+                if total < chosen.cost:
+                    split = FilterStrategy("or-split", total,
+                                           branches=tuple(branch))
+                    return split, options + [split]
+        return chosen, options
