@@ -2,27 +2,42 @@
 """Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--seed 0] [--points 100000000]
-                          [--facade-rows 16000000] [--profile] [--out FILE]
+                          [--facade-rows 16000000] [--places-rows 4000000]
+                          [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch/CUDA;
-2. build: every kernel of ``geomesa_tpu_torch/csrc`` with ``nvcc``, from
-   the sources in this checkout;
+2. build: every kernel of ``geomesa_tpu_torch/csrc`` with ``nvcc``, one
+   compiler per source, all started together, from this checkout;
 3. kernel: each kernel's wrapper on the card against its plain PyTorch
-   version, bit for bit, and both timed with CUDA events;
+   version (z3_mask and z2_mask bit for bit at 2^22 and 2^22 + 37
+   candidates, z2_mask also at 2^24, the capacity its scan reaches on the
+   main path, R = 1 and 8; density_grid at 2^24 clustered and uniform
+   points, 256x256 and 1024x1024 grids, unit weights bit for bit and
+   random weights within rtol 1e-6), timed with CUDA events beside the
+   plain version and, where one exists, a PyTorch library call;
 4. index: ``Z3PointIndex.build`` over ``--points`` GDELT-like points (70%
    Gaussian clusters around 50 cities, 30% uniform, dtg uniform over 2018,
    WEEK bins), a 1M-row append, and 20 BBOX+DURING queries (city, region,
    continent; at least one on the two-phase path), each hit set equal to
    a chunked numpy brute-force oracle;
-5. facade: ``TpuDataStore(device="cuda")`` on schema ``gdelt``:
+5. z2 index: ``Z2PointIndex.build`` over the same points, the same 1M-row
+   append, the 20 queries' boxes without their times, one ``query_many``
+   of 4 box sets, each equal to the oracle, and ``density_world(1024,
+   512)`` equal to a numpy histogram of every point;
+6. facade: ``TpuDataStore(device="cuda")`` on schema ``gdelt``:
    ``--facade-rows`` rows written in 4 batches with a query after the
    first (later writes take the append path), then ECQL BBOX+DURING, an
-   OR of two DURING windows, and INCLUDE, positions equal to the oracle.
+   OR of two DURING windows, BBOX alone (z2), an OR of two BBOXes (one z2
+   scan) and INCLUDE, positions equal to the oracle; ``density_process``
+   over 256x256 for BBOX+DURING, BBOX alone and INCLUDE, and
+   ``density_tile`` at z = 3, counts equal to a numpy oracle; a schema
+   ``places`` without a dtg (``--places-rows`` rows) answering BBOX
+   queries through z2.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
-after phase 5; a kernel of the path that was never launched fails the
+after phase 6; a kernel of the path that was never launched fails the
 run.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or without the ``geomesa_tpu_torch``
@@ -49,6 +64,10 @@ DAY = 86_400_000
 #: capability 9.0)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+#: float64 instructions per second: the data sheet's 34e12 FP64 FLOP/s
+#: outside the tensor cores counts a fused multiply-add as 2
+FP64_OPS_PER_S = 34e12 / 2
+WORLD = (-180.0, -90.0, 180.0, 90.0)
 
 
 def log(msg: str) -> None:
@@ -98,6 +117,43 @@ def oracle(x, y, t, boxes, lo, hi, chunk: int = 1 << 24):
     return np.concatenate(out)
 
 
+def box_oracle(x, y, boxes, chunk: int = 1 << 24):
+    """Brute-force positions of points inside any box, in chunks."""
+    import numpy as np
+    out = []
+    for s in range(0, len(x), chunk):
+        xc, yc = x[s:s + chunk], y[s:s + chunk]
+        m = np.zeros(len(xc), dtype=bool)
+        for b in boxes:
+            m |= (xc >= b[0]) & (xc <= b[2]) & (yc >= b[1]) & (yc <= b[3])
+        out.append(np.flatnonzero(m) + s)
+    return np.concatenate(out)
+
+
+def snap_counts(x, y, env, width: int, height: int, chunk: int = 1 << 24):
+    """numpy histogram of unit-weight points snapped as GridSnap snaps
+    them (floor of the true quotient, clamped to the grid), float64."""
+    import numpy as np
+    xmin, ymin, xmax, ymax = env
+    dx, dy = (xmax - xmin) / width, (ymax - ymin) / height
+    counts = np.zeros(width * height, dtype=np.int64)
+    for s in range(0, len(x), chunk):
+        ix = np.clip(np.floor((x[s:s + chunk] - xmin) / dx), 0, width - 1)
+        iy = np.clip(np.floor((y[s:s + chunk] - ymin) / dy), 0, height - 1)
+        counts += np.bincount(iy.astype(np.int64) * width
+                              + ix.astype(np.int64),
+                              minlength=width * height)
+    return counts.astype(np.float64).reshape(height, width)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
+    """The least time the card could take, in ms, and what sets it."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
     events, after one warm-up call."""
@@ -117,6 +173,49 @@ def cuda_ms(fn, reps: int) -> float:
 def iso(ms: int) -> str:
     return dt.datetime.fromtimestamp(ms / 1000, dt.timezone.utc).strftime(
         "%Y-%m-%dT%H:%M:%SZ")
+
+
+def random_boxes(rng, r_real: int, r: int, bits: int, span, dev):
+    """``r_real`` random int-space boxes of ``bits``-bit dimensions, sides
+    drawn from ``span``, padded to ``r`` with never-matching [1, 1, 0, 0]
+    boxes."""
+    import numpy as np
+    import torch
+    lo = rng.integers(0, 1 << bits, (r_real, 2))
+    ixy = np.concatenate(
+        [lo, np.minimum(lo + rng.integers(*span, (r_real, 2)),
+                        (1 << bits) - 1)], axis=1)
+    ixy = np.concatenate([ixy, np.tile([[1, 1, 0, 0]], (r - r_real, 1))])
+    return torch.tensor(ixy.astype(np.int32), device=dev)
+
+
+def mask_row(name: str, kernel, plain, args, n: int, r: int, nbytes: int,
+             ops: int) -> dict:
+    """Hold a candidate-mask kernel against its plain version bit for bit
+    and time both (kernel, plain, kernel, plain)."""
+    import torch
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(
+            f"{name} kernel disagrees with its plain version at N={n} "
+            f"R={r}: {int((got != want).sum())} mismatches")
+    hits = int(want.sum())
+    if not 0 < hits < n:
+        raise AssertionError(f"degenerate {name} case: {hits} hits")
+    k1 = cuda_ms(lambda: kernel(*args), 50)
+    p1 = cuda_ms(lambda: plain(*args), 10)
+    k2 = cuda_ms(lambda: kernel(*args), 50)
+    p2 = cuda_ms(lambda: plain(*args), 10)
+    b_ms, b_by = bound(nbytes, ops, INT32_OPS_PER_S)
+    row = {"n": n, "r": r, "hits": hits, "max_abs_err": err,
+           "ms": min(k1, k2), "plain_ms": min(p1, p2), "bound_ms": b_ms,
+           "bound_by": b_by}
+    log(f"kernel {name} N={n} R={r}: equal, {hits} hits, {row['ms']:.4f} ms "
+        f"(plain {row['plain_ms']:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+    return row
 
 
 def kernel_phase(rng, dev):
@@ -139,53 +238,138 @@ def kernel_phase(rng, dev):
         thi = tlo + torch.tensor(rng.integers(0, 1 << 21, n, dtype=np.int32),
                                  device=dev)
         for r_real, r in ((1, 1), (5, 8)):
-            lo = rng.integers(0, 1 << 21, (r_real, 2))
-            ixy = np.concatenate(
-                [lo, np.minimum(lo + rng.integers(1 << 16, 1 << 20,
-                                                  (r_real, 2)),
-                                (1 << 21) - 1)], axis=1)
-            ixy = np.concatenate(   # never-matching padded boxes
-                [ixy, np.tile([[1, 1, 0, 0]], (r - r_real, 1))])
-            ixy = torch.tensor(ixy.astype(np.int32), device=dev)
-            got = z3_mask(z, ixy, tlo, thi)
-            want = z3_mask_reference(z, ixy, tlo, thi)
-            torch.cuda.synchronize()
-            err = int((got.to(torch.int32) - want.to(torch.int32))
-                      .abs().max())
-            if err != 0 or not torch.equal(got, want):
-                raise AssertionError(
-                    f"z3_mask kernel disagrees with its plain version at "
-                    f"N={n} R={r}: {int((got != want).sum())} mismatches")
-            hits = int(want.sum())
-            if not 0 < hits < n:
-                raise AssertionError(f"degenerate kernel case: {hits} hits")
-            args = (z, ixy, tlo, thi)
-            k1 = cuda_ms(lambda: z3_mask(*args), 50)
-            p1 = cuda_ms(lambda: z3_mask_reference(*args), 10)
-            k2 = cuda_ms(lambda: z3_mask(*args), 50)
-            p2 = cuda_ms(lambda: z3_mask_reference(*args), 10)
-            nbytes = n * (8 + 4 + 4 + 1) + r * 16
+            ixy = random_boxes(rng, r_real, r, 21, (1 << 16, 1 << 20), dev)
             # 32-bit integer operations per candidate, counted low (the
             # card has no 64-bit integer pipe): each 64-bit shift is one
             # funnel shift per 32-bit half and each xor-then-and one
             # three-input logic op per half, so z >> 1 and z >> 2 take 4,
             # each of the 3 de-interleaves 2 + 5 * 4 = 22; each box 4
             # predicate-chained compares; the time test 2
-            ops = n * (4 + 3 * 22 + 4 * r + 2)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = ops / INT32_OPS_PER_S * 1e3
-            rows.append({"n": n, "r": r, "hits": hits, "max_abs_err": err,
-                         "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                         "bound_ms": max(bytes_ms, ops_ms),
-                         "bound_by": "bytes" if bytes_ms >= ops_ms
-                         else "operations"})
-            log(f"kernel z3_mask N={n} R={r}: equal, {hits} hits, "
-                f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.4f} "
-                f"ms, bound {rows[-1]['bound_ms']:.4f} ms)")
+            rows.append(mask_row("z3_mask", z3_mask, z3_mask_reference,
+                                 (z, ixy, tlo, thi), n, r,
+                                 n * (8 + 4 + 4 + 1) + r * 16,
+                                 n * (4 + 3 * 22 + 4 * r + 2)))
+    return rows
+
+
+def z2_kernel_phase(rng, dev):
+    """The z2 mask kernel against its plain version at 2^22 candidates, a
+    ragged 2^22 + 37, and 2^24: the z2 scan's gather capacity starts at
+    2^15, grows to the power of two above a query's candidates, and never
+    shrinks, so after the continent boxes every z2 query on the main path
+    masks 2^24 slots (R = 1 for one BBOX, 2 for the two-box query)."""
+    import torch
+    from geomesa_tpu_torch.curve import z2_sfc
+    from geomesa_tpu_torch.ops.z2_mask import z2_mask, z2_mask_reference
+
+    rows = []
+    for n in (1 << 22, (1 << 22) + 37, 1 << 24):
+        z = z2_sfc().index(torch.tensor(rng.uniform(-180, 180, n), device=dev),
+                           torch.tensor(rng.uniform(-90, 90, n), device=dev))
+        for r_real, r in ((1, 1), (5, 8)):
+            ixy = random_boxes(rng, r_real, r, 31, (1 << 26, 1 << 30), dev)
+            # 32-bit integer operations per candidate, counted low as in
+            # csrc/z2_mask.cu: z >> 1 is 2, each de-interleave 2 + 5 * 4,
+            # each box 4 compares (the dimensions are 32-bit values)
+            rows.append(mask_row("z2_mask", z2_mask, z2_mask_reference,
+                                 (z, ixy), n, r, n * (8 + 1) + r * 16,
+                                 n * (46 + 4 * r)))
+        del z
+    return rows
+
+
+def density_kernel_phase(rng, centres, dev):
+    """The density kernel against its plain version at 2^24 points,
+    clustered GDELT-like and uniform, over the world at 256x256 and
+    1024x1024, ~50% of the points masked in; unit weights bit for bit,
+    random float64 weights within rtol 1e-6 (float64 atomics sum in an
+    order that changes from run to run, then round to float32)."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch.ops.density_kernel import (
+        density_grid_kernel, density_grid_kernel_reference,
+    )
+
+    n = 1 << 24
+    rows = []
+    for dist in ("clustered", "uniform"):
+        if dist == "clustered":
+            x, y, _ = gdelt_like(rng, n, centres)
+        else:
+            x = rng.uniform(-180.0, 180.0, n)
+            y = rng.uniform(-90.0, 90.0, n)
+        xd, yd = (torch.tensor(a, device=dev) for a in (x, y))
+        mask = torch.tensor(rng.random(n) < 0.5, device=dev)
+        n_in = int(mask.sum())
+        for weights in ("unit", "random"):
+            w = (torch.ones(n, dtype=torch.float64, device=dev)
+                 if weights == "unit" else
+                 torch.tensor(rng.uniform(0.5, 2.0, n), device=dev))
+            for size in (256, 1024):
+                args = (xd, yd, w, mask, WORLD, size, size)
+                got = density_grid_kernel(*args)
+                want = density_grid_kernel_reference(*args)
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                if weights == "unit":
+                    ok = torch.equal(got, want)
+                else:
+                    ok = bool(torch.allclose(got, want, rtol=1e-6, atol=0))
+                if not ok:
+                    raise AssertionError(
+                        f"density kernel disagrees with its plain version "
+                        f"({dist}, {weights}, {size}x{size}): max abs err "
+                        f"{err}")
+                total = float(got.double().sum())
+                if weights == "unit" and total != n_in:
+                    raise AssertionError(f"density grid holds {total} "
+                                         f"points, not {n_in}")
+                # the library yardstick leaves the snap out: one
+                # torch.bincount over cells snapped beforehand
+                xmin, ymin, xmax, ymax = WORLD
+                ix = torch.clamp(torch.floor((xd - xmin) / ((xmax - xmin)
+                                                            / size)),
+                                 0, size - 1).long()
+                iy = torch.clamp(torch.floor((yd - ymin) / ((ymax - ymin)
+                                                            / size)),
+                                 0, size - 1).long()
+                cells = (iy * size + ix)[mask]
+                w_in = w[mask].float().double()
+                k1 = cuda_ms(lambda: density_grid_kernel(*args), 20)
+                p1 = cuda_ms(lambda: density_grid_kernel_reference(*args), 5)
+                l1 = cuda_ms(lambda: torch.bincount(
+                    cells, w_in, minlength=size * size), 20)
+                k2 = cuda_ms(lambda: density_grid_kernel(*args), 20)
+                p2 = cuda_ms(lambda: density_grid_kernel_reference(*args), 5)
+                l2 = cuda_ms(lambda: torch.bincount(
+                    cells, w_in, minlength=size * size), 20)
+                del cells, w_in
+                # this run's data: the mask byte of every point, x, y and w
+                # of the masked-in ones, the float32 grid written once;
+                # ~30 float64 instructions per masked-in point (two
+                # subtract-divide-floor-clamp chains, the division some 10)
+                b_ms, b_by = bound(n + 24 * n_in + 4 * size * size,
+                                   30 * n_in, FP64_OPS_PER_S)
+                rows.append({"n": n, "dist": dist, "weights": weights,
+                             "grid": size, "masked_in": n_in,
+                             "max_abs_err": err, "total": total,
+                             "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                             "library_ms": min(l1, l2),
+                             "bound_ms": b_ms, "bound_by": b_by})
+                log(f"kernel density_grid {dist} {weights} {size}x{size} "
+                    f"N={n}: equal (max abs err {err:g}), "
+                    f"{rows[-1]['ms']:.4f} ms (plain "
+                    f"{rows[-1]['plain_ms']:.4f} ms, bincount "
+                    f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                    f"by {b_by})")
+        del xd, yd, mask, w
+    torch.cuda.empty_cache()
     return rows
 
 
 def index_phase(rng, args, centres, dev, report):
+    """The z3 index phase; returns the indexed points ``(x, y)`` (the
+    appended ones last), the append's row count and the queries."""
     import numpy as np
     import torch
     from geomesa_tpu_torch.index import z3 as z3mod
@@ -275,16 +459,92 @@ def index_phase(rng, args, centres, dev, report):
         f"{sum(q['two_phase'] for q in per_query)}; hits "
         f"{[q['hits'] for q in per_query]}")
     if args.profile:
-        report["index"]["profile"] = profile_queries(idx, qs)
+        report["index"]["profile"] = profile_queries(
+            "z3", lambda q: idx.query(q[1], q[2], q[3]), qs)
+    del idx
+    torch.cuda.empty_cache()
+    return x, y, m, qs
+
+
+def z2_index_phase(args, x, y, m, qs, dev, report):
+    """``Z2PointIndex`` over the z3 phase's points: build, the same
+    append, the queries' boxes without their times, one ``query_many``
+    and the world density grid, each equal to a numpy oracle."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch.index.z2 import Z2PointIndex
+
+    n = len(x) - m
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    idx = Z2PointIndex.build(x[:n], y[:n], device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.append(x[n:], y[n:])
+    torch.cuda.synchronize()
+    append_s = time.perf_counter() - t0
+    if len(idx) != n + m:
+        raise AssertionError(f"z2 index holds {len(idx)} rows, not {n + m}")
+    rep = report["z2_index"] = {
+        "points": n, "build_s": build_s, "build_keys_per_s": n / build_s,
+        "append_rows": m, "append_s": append_s,
+        "append_keys_per_s": m / append_s, "capacity": int(idx.z.shape[0]),
+        "resident_bytes": sum(int(c.numel() * c.element_size())
+                              for c in (idx.z, idx.pos, idx.x, idx.y)),
+        "peak_device_bytes": int(torch.cuda.max_memory_allocated())}
+    log(f"z2 index: built {n} keys in {build_s:.3f} s "
+        f"({n / build_s:.4g} keys/s); appended {m} in {append_s:.3f} s "
+        f"({m / append_s:.4g} keys/s); capacity {idx.z.shape[0]}")
+
+    per_query = []
+    for kind, boxes, _, _ in qs:
+        t0 = time.perf_counter()
+        got = idx.query(boxes)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = box_oracle(x, y, boxes)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"z2 {kind} query {boxes}: {len(got)} "
+                                 f"hits, oracle {len(want)}")
+        per_query.append({"kind": kind, "ms": ms, "hits": int(len(got)),
+                          "capacity_after": idx._capacity})
+    lat = np.array([q["ms"] for q in per_query])
+    rep.update(queries=per_query, query_ms_p50=float(np.median(lat)),
+               query_ms_max=float(lat.max()))
+    log(f"z2 index: {len(qs)} BBOX queries equal to the oracle; p50 "
+        f"{np.median(lat):.3f} ms, max {lat.max():.3f} ms; hits "
+        f"{[q['hits'] for q in per_query]}")
+
+    sets = [q[1] for q in qs[:2]] + [q[1] for q in qs[8:10]]
+    t0 = time.perf_counter()
+    many = idx.query_many(sets)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    for boxes, got in zip(sets, many):
+        if not np.array_equal(got, box_oracle(x, y, boxes)):
+            raise AssertionError(f"z2 query_many set {boxes} disagrees "
+                                 "with the oracle")
+    t0 = time.perf_counter()
+    grid = idx.density_world(1024, 512)
+    world_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(grid, snap_counts(x, y, WORLD, 1024, 512)):
+        raise AssertionError("z2 density_world disagrees with the numpy "
+                             "histogram")
+    rep.update(query_many_ms=many_ms, density_world_ms=world_ms)
+    log(f"z2 index: query_many of {len(sets)} box sets {many_ms:.1f} ms "
+        f"and density_world(1024, 512) {world_ms:.1f} ms, equal to the "
+        "oracle")
+    if args.profile:
+        rep["profile"] = profile_queries("z2", lambda q: idx.query(q[1]), qs)
     del idx
     torch.cuda.empty_cache()
 
 
-def profile_queries(idx, qs) -> dict:
-    """One more pass over the queries under ``torch.profiler``: wall time,
-    device time (its sum and share of the wall), and the kernels that
-    took the most device time.  These queries' launches count with the
-    main path's."""
+def profile_queries(label: str, run, qs) -> dict:
+    """One more pass over the queries (``run(q)`` runs one) under
+    ``torch.profiler``: wall time, device time (its sum and share of the
+    wall), and the kernels that took the most device time.  These
+    queries' launches count with the main path's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -292,8 +552,8 @@ def profile_queries(idx, qs) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _, boxes, lo, hi in qs:
-            idx.query(boxes, lo, hi)
+        for q in qs:
+            run(q)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): an aten op's own row
@@ -309,7 +569,7 @@ def profile_queries(idx, qs) -> dict:
            "top": [{"name": e.key[:80], "calls": e.count,
                     "device_ms": e.self_device_time_total / 1e3}
                    for e in top]}
-    log(f"profile: {len(qs)} queries, wall {wall_ms:.1f} ms, device "
+    log(f"profile {label}: {len(qs)} queries, wall {wall_ms:.1f} ms, device "
         f"{device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}% busy); top: "
         + ", ".join(f"{t['name'][:40]} {t['device_ms']:.2f} ms x{t['calls']}"
                     for t in out["top"][:5]))
@@ -318,7 +578,10 @@ def profile_queries(idx, qs) -> dict:
 
 def facade_phase(rng, args, centres, dev, report):
     import numpy as np
-    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch import TpuDataStore, density_process
+    from geomesa_tpu_torch.index.pyramid import tile_env
+    from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+    from geomesa_tpu_torch.ops.z2_mask import z2_mask
     from geomesa_tpu_torch.ops.z3_mask import z3_mask
 
     ds = TpuDataStore(device=dev)
@@ -330,14 +593,20 @@ def facade_phase(rng, args, centres, dev, report):
     xs, ys, ts = [], [], []
     cx, cy = centres[3]
     box = (cx - 5, cy - 5, cx + 5, cy + 5)
+    bx2, by2 = centres[4]
+    box2 = (bx2 - 2, by2 - 2, bx2 + 2, by2 + 2)
     w1 = (MS_2018 + 40 * DAY, MS_2018 + 47 * DAY - 1)
     w2 = (MS_2018 + 200 * DAY, MS_2018 + 203 * DAY - 1)
-    q_and = (f"BBOX(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]}) AND dtg "
-             f"DURING {iso(w1[0])}/{iso(w1[1])}")
-    q_or = (f"BBOX(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]}) AND (dtg "
-            f"DURING {iso(w1[0])}/{iso(w1[1])} OR dtg DURING "
-            f"{iso(w2[0])}/{iso(w2[1])})")
-    launches0 = z3_mask.launches
+
+    def bbox(b):
+        return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+    q_and = f"{bbox(box)} AND dtg DURING {iso(w1[0])}/{iso(w1[1])}"
+    q_or = (f"{bbox(box)} AND (dtg DURING {iso(w1[0])}/{iso(w1[1])} OR dtg "
+            f"DURING {iso(w2[0])}/{iso(w2[1])})")
+    q_bbox = bbox(box)
+    q_bbox_or = f"{bbox(box)} OR {bbox(box2)}"
+    launches0 = (z3_mask.launches, z2_mask.launches)
     write_s = []
     for i in range(4):
         x, y, t = gdelt_like(rng, per, centres)
@@ -346,18 +615,23 @@ def facade_phase(rng, args, centres, dev, report):
         ds.write("gdelt", {"actor": actors[rng.integers(0, len(actors), per)],
                            "dtg": t, "geom": (x, y)})
         write_s.append(time.perf_counter() - t0)
-        if i == 0:  # builds the z3 index: the later writes append to it
+        if i == 0:  # builds the z3 and z2 indexes: later writes append
             ds.query_result("gdelt", q_and)
+            ds.query_result("gdelt", q_bbox)
     x, y, t = (np.concatenate(p) for p in (xs, ys, ts))
     store = ds._store("gdelt")
-    if store.build_counts != {"z3": 1} or len(store.z3_index()) != 4 * per:
-        raise AssertionError(f"z3 index not appended to: "
-                             f"{store.build_counts}, {len(store.z3_index())}")
+    if (store.build_counts != {"z3": 1, "z2": 1}
+            or len(store.z3_index()) != 4 * per
+            or len(store.z2_index()) != 4 * per):
+        raise AssertionError(f"indexes not appended to: "
+                             f"{store.build_counts}")
     checks = [
         ("bbox_during", q_and, "z3", oracle(x, y, t, [box], *w1)),
         ("bbox_or_during", q_or, "z3",
          np.union1d(oracle(x, y, t, [box], *w1),
                     oracle(x, y, t, [box], *w2))),
+        ("bbox", q_bbox, "z2", box_oracle(x, y, [box])),
+        ("bbox_or_bbox", q_bbox_or, "z2", box_oracle(x, y, [box, box2])),
         ("include", "INCLUDE", "full", np.arange(4 * per)),
     ]
     rows = []
@@ -368,23 +642,132 @@ def facade_phase(rng, args, centres, dev, report):
         if res.strategy.index != strategy:
             raise AssertionError(f"{name}: strategy {res.strategy.index}, "
                                  f"expected {strategy}")
+        if name == "bbox_or_bbox" and len(res.strategy.geometries) != 2:
+            raise AssertionError("the OR of two BBOXes is not one z2 scan")
         if not np.array_equal(res.positions, want):
             raise AssertionError(f"{name}: {len(res.positions)} hits, "
                                  f"oracle {len(want)}")
         rows.append({"query": name, "ms": ms, "hits": int(len(want)),
                      "plan_ms": res.plan_time_ms,
                      "scan_ms": res.scan_time_ms})
-    grew = z3_mask.launches - launches0
-    if grew <= 0:
-        raise AssertionError("z3_mask was not launched in the facade phase")
+    grew = (z3_mask.launches - launches0[0], z2_mask.launches - launches0[1])
+    if min(grew) <= 0:
+        raise AssertionError(f"z3_mask/z2_mask launches in the facade phase: "
+                             f"{grew}")
+
+    # heatmaps through density_process and density_tile, each against a
+    # numpy histogram of the oracle's hits
+    d0 = density_grid_kernel.launches
+    tx = int((cx + 180.0) // 45.0)
+    ty = 7 - int((cy + 90.0) // 22.5)
+    tenv = tile_env(3, tx, ty)
+    dens = [
+        ("bbox_during", lambda: density_process(ds, "gdelt", q_and, box),
+         box, oracle(x, y, t, [box], *w1)),
+        ("bbox", lambda: density_process(ds, "gdelt", q_bbox, box),
+         box, box_oracle(x, y, [box])),
+        ("include", lambda: density_process(ds, "gdelt", "INCLUDE", WORLD),
+         WORLD, None),
+        (f"tile_3_{tx}_{ty}", lambda: ds.density_tile("gdelt", 3, tx, ty),
+         tenv, box_oracle(x, y, [tenv])),
+    ]
+    drows = []
+    for name, run, env, hits in dens:
+        t0 = time.perf_counter()
+        grid = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = (snap_counts(x, y, env, 256, 256) if hits is None
+                else snap_counts(x[hits], y[hits], env, 256, 256))
+        if grid.shape != (256, 256) or not np.array_equal(
+                grid.astype(np.float64), want.astype(np.float32)):
+            raise AssertionError(f"density {name}: grid disagrees with the "
+                                 f"oracle ({float(grid.sum())} against "
+                                 f"{float(want.sum())} points)")
+        drows.append({"query": name, "ms": ms, "points": float(want.sum()),
+                      "dtype": str(grid.dtype)})
+    dgrew = density_grid_kernel.launches - d0
+    if dgrew != len(dens):
+        raise AssertionError(f"density_grid launched {dgrew} times for "
+                             f"{len(dens)} heatmaps")
     report["facade"] = {"rows": 4 * per, "write_s": write_s,
                         "write_rows_per_s": [per / s for s in write_s],
-                        "queries": rows, "z3_mask_launches": grew}
+                        "queries": rows, "density": drows,
+                        "z3_mask_launches": grew[0],
+                        "z2_mask_launches": grew[1],
+                        "density_grid_launches": dgrew}
     log(f"facade: {4 * per} rows in 4 writes "
         f"({', '.join(f'{s:.2f}' for s in write_s)} s); queries equal to "
         f"the oracle: " + ", ".join(f"{r['query']} {r['hits']} hits "
                                     f"{r['ms']:.1f} ms" for r in rows)
-        + f"; z3_mask launches {grew}")
+        + "; heatmaps equal to the oracle: "
+        + ", ".join(f"{r['query']} {r['points']:.0f} points {r['ms']:.1f} ms"
+                    for r in drows)
+        + f"; launches z3_mask {grew[0]}, z2_mask {grew[1]}, density_grid "
+          f"{dgrew}")
+    return ds
+
+
+def places_phase(rng, args, centres, ds, report):
+    """A point schema without a dtg: it stays on the default profile and
+    answers BBOX queries (one box, an OR of two) through z2."""
+    import numpy as np
+
+    ds.create_schema("places", "name:String,*geom:Point")
+    names = np.array(["cafe", "school", "park", "station"], dtype=object)
+    n = args.places_rows
+    xs, ys = [], []
+    cx, cy = centres[5]
+    box = (cx - 3, cy - 3, cx + 3, cy + 3)
+    bx2, by2 = centres[6]
+    box2 = (bx2 - 1, by2 - 1, bx2 + 1, by2 + 1)
+    write_s = []
+    for i in range(2):
+        x, y, _ = gdelt_like(rng, n // 2, centres)
+        xs.append(x), ys.append(y)
+        t0 = time.perf_counter()
+        ds.write("places", {"name": names[rng.integers(0, len(names),
+                                                      n // 2)],
+                            "geom": (x, y)})
+        write_s.append(time.perf_counter() - t0)
+        if i == 0:  # builds the z2 index: the second write appends
+            ds.query_result("places", f"BBOX(geom, {box[0]}, {box[1]}, "
+                                      f"{box[2]}, {box[3]})")
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    if ds._store("places").build_counts != {"z2": 1}:
+        raise AssertionError("places: the z2 index was rebuilt")
+    rows = []
+    for name, boxes in (("bbox", [box]), ("bbox_small", [box2]),
+                        ("bbox_or_bbox", [box, box2])):
+        ecql = " OR ".join(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+                           for b in boxes)
+        t0 = time.perf_counter()
+        res = ds.query_result("places", ecql)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = box_oracle(x, y, boxes)
+        if res.strategy.index != "z2":
+            raise AssertionError(f"places {name}: strategy "
+                                 f"{res.strategy.index}, expected z2")
+        if not np.array_equal(res.positions, want):
+            raise AssertionError(f"places {name}: {len(res.positions)} "
+                                 f"hits, oracle {len(want)}")
+        rows.append({"query": name, "ms": ms, "hits": int(len(want))})
+    report["places"] = {"rows": len(x), "write_s": write_s, "queries": rows}
+    log(f"places: {len(x)} rows without a dtg in 2 writes "
+        f"({', '.join(f'{s:.2f}' for s in write_s)} s); z2 queries equal to "
+        f"the oracle: " + ", ".join(f"{r['query']} {r['hits']} hits "
+                                    f"{r['ms']:.1f} ms" for r in rows))
+
+
+def kernel_entry(name: str, replaces: str, launches: int, rows: list,
+                 row: dict) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line."""
+    return {"name": name, "route": "cuda",
+            "source": f"geomesa_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms")}
 
 
 def main(argv=None) -> int:
@@ -392,9 +775,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--points", type=int, default=100_000_000)
     ap.add_argument("--facade-rows", type=int, default=16_000_000)
+    ap.add_argument("--places-rows", type=int, default=4_000_000)
     ap.add_argument("--profile", action="store_true",
-                    help="profile the index queries once more "
-                         "(torch.profiler) into the report")
+                    help="profile the z3 and z2 index queries once "
+                         "more (torch.profiler) into the report")
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON to this file")
     args = ap.parse_args(argv)
@@ -410,6 +794,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     import numpy as np
+    from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+    from geomesa_tpu_torch.ops.z2_mask import z2_mask
     from geomesa_tpu_torch.ops.z3_mask import z3_mask
 
     t_start = time.perf_counter()
@@ -428,30 +814,44 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     centres = np.stack([rng.uniform(-130.0, 150.0, 50),
                         rng.uniform(-40.0, 60.0, 50)], axis=1)
-    kernel_rows = kernel_phase(rng, dev)
-    report["kernel"] = kernel_rows
+    z3_rows = kernel_phase(rng, dev)
+    z2_rows = z2_kernel_phase(rng, dev)
+    dens_rows = density_kernel_phase(rng, centres, dev)
+    report["kernel"] = {"z3_mask": z3_rows, "z2_mask": z2_rows,
+                        "density_grid": dens_rows}
 
     # the main path: counts set to 0 just before, read just after
-    z3_mask.launches = 0
-    index_phase(rng, args, centres, dev, report)
-    facade_phase(rng, args, centres, dev, report)
-    launches = z3_mask.launches
-    if launches <= 0:
-        raise AssertionError("z3_mask was never launched on the main path")
-    report["main_path_launches"] = {"z3_mask": launches}
+    counters = {"z3_mask": z3_mask, "z2_mask": z2_mask,
+                "density_grid": density_grid_kernel}
+    for fn in counters.values():
+        fn.launches = 0
+    x, y, m, qs = index_phase(rng, args, centres, dev, report)
+    z2_index_phase(args, x, y, m, qs, dev, report)
+    del x, y
+    ds = facade_phase(rng, args, centres, dev, report)
+    places_phase(rng, args, centres, ds, report)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path was never launched on "
+                             f"the main path: {launches}")
+    report["main_path_launches"] = launches
     report["total_s"] = time.perf_counter() - t_start
 
-    big = [r for r in kernel_rows if r["n"] == 1 << 22 and r["r"] == 8][0]
-    kernels = {"kernels": [{
-        "name": "z3_mask", "route": "cuda",
-        "source": "geomesa_tpu_torch/csrc/z3_mask.cu",
-        "replaces": "geomesa_tpu/ops/pallas_kernels.py:404",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": big["ms"], "plain_ms": big["plain_ms"],
-        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
-        "library_ms": None,
-    }]}
+    def pick(rows, **kw):
+        return next(r for r in rows
+                    if all(r[k] == v for k, v in kw.items()))
+
+    src = "geomesa_tpu/ops/pallas_kernels.py"
+    kernels = {"kernels": [
+        kernel_entry("z3_mask", f"{src}:404", launches["z3_mask"], z3_rows,
+                     pick(z3_rows, n=1 << 22, r=8)),
+        # the shape most z2 scans of the main path give the kernel
+        kernel_entry("z2_mask", f"{src}:485", launches["z2_mask"], z2_rows,
+                     pick(z2_rows, n=1 << 24, r=1)),
+        kernel_entry("density_grid", f"{src}:305", launches["density_grid"],
+                     dens_rows, pick(dens_rows, dist="clustered",
+                                     weights="unit", grid=256)),
+    ]}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,5 +1,5 @@
 """Space-filling-curve layer: dimension normalization, time binning,
-morton interleaving on int64 tensors, the Z3 curve, and z-range
+morton interleaving on int64 tensors, the Z2 and Z3 curves, and z-range
 decomposition."""
 
 from .binnedtime import (
@@ -14,7 +14,7 @@ from .binnedtime import (
 )
 from .normalize import NormalizedDimension, normalized_lat, normalized_lon, normalized_time
 from .ranges import merge_ranges, zranges
-from .sfc import Z3SFC, z3_sfc
+from .sfc import Z2SFC, Z3SFC, z2_sfc, z3_sfc
 from .zorder import (
     MAX_2D_BITS,
     MAX_3D_BITS,

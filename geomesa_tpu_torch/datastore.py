@@ -3,18 +3,21 @@
 The analog of the reference's GeoMesaDataStore / MetadataBackedDataStore
 (geomesa-index-api/.../index/geotools/GeoMesaDataStore.scala:48-431;
 createSchema at MetadataBackedDataStore.scala:121): schema lifecycle,
-ingest and query over host columns plus a device-resident Z3 index.
+ingest and query over host columns plus device-resident Z3 and Z2
+indexes, and density heatmap tiles.
 
-Index maintenance model: the z3 index builds lazily on the first query;
-later writes APPEND their rows into its resident sorted columns.  Stats
-are observed on write (the reference's StatsCombiner role) and feed the
-cost-based strategy decider.
+Index maintenance model: each index builds lazily on the first query
+that chooses it; later writes APPEND their rows into its resident sorted
+columns.  Each index owns its columns (appends write into them in place,
+so two indexes never share storage).  Stats are observed on write (the
+reference's StatsCombiner role) and feed the cost-based strategy decider.
 
-What the port serves: point schemas with a dtg attribute on the default
-(non-lean) profile, through the ``z3`` index, full scans and empty
-plans.  The lean profile (first writes of ``LEAN_AUTO_ROWS`` rows or
-more), device meshes, visibilities and authorizations are not ported and
-raise rather than degrade.
+What the port serves: point schemas, with or without a dtg attribute, on
+the default (non-lean) profile, through the ``z3`` and ``z2`` indexes,
+full scans and empty plans.  The lean profile (first writes of
+``LEAN_AUTO_ROWS`` rows or more to a point schema with a dtg attribute),
+device meshes, visibilities and authorizations are not ported and raise
+rather than degrade.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import numpy as np
 from .device import resolve_device
 from .features.batch import FeatureBatch
 from .features.feature_type import FeatureType, parse_spec
+from .index.pyramid import tile_env
+from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
 from .planning.explain import Explainer
 from .planning.planner import Query, QueryPlanner, QueryResult
@@ -50,9 +55,13 @@ def _max_numeric_id(ids: np.ndarray) -> int:
     return int(s[mask].astype(np.int64).max())
 
 
+#: current key-layout version of each ported index
+_CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION}
+
+
 class _SchemaStore:
-    """Per-schema storage: the column batch + the lazily-built z3 index +
-    stats."""
+    """Per-schema storage: the column batch + the lazily-built z3/z2
+    indexes + stats."""
 
     def __init__(self, sft: FeatureType, device):
         self.sft = sft
@@ -70,9 +79,10 @@ class _SchemaStore:
 
     @property
     def query_indices(self) -> set:
-        """Indices the planner may choose: the port serves z3 (plus the
-        full and empty plans every schema has)."""
-        return {"z3"}
+        """Indices the planner may choose: the port serves z3 and z2 (plus
+        the full and empty plans every schema has); the JAX store offers
+        every registered index on the default profile."""
+        return {"z3", "z2"}
 
     def _init_stats(self):
         sft = self.sft
@@ -99,12 +109,15 @@ class _SchemaStore:
         if self._id_set is not None:
             self._id_set.update(batch.ids.astype(str).tolist())
         # incremental index maintenance (IndexAdapter.IndexWriter.write,
-        # api/IndexAdapter.scala:95-106): a built z3 index APPENDS the new
+        # api/IndexAdapter.scala:95-106): a built index APPENDS the new
         # rows into its resident sorted columns
         z3 = self._indexes.get("z3")
         if z3 is not None:
             x, y = batch.geom_xy(self.sft.geom_field)
             z3.append(x, y, batch.column(self.sft.dtg_field))
+        z2 = self._indexes.get("z2")
+        if z2 is not None:
+            z2.append(*batch.geom_xy(self.sft.geom_field))
 
     def stats_map(self) -> dict:
         return self._stats
@@ -119,50 +132,66 @@ class _SchemaStore:
         return next((i for i in ids if i in self._id_set), None)
 
     def index(self, name: str):
-        """Lazily-built index accessor (the port registers only z3)."""
-        if name != "z3":
+        """Lazily-built index accessor with the JAX registry's
+        applicability (index/registry.py): z3 on point schemas with a dtg
+        attribute, z2 on point schemas."""
+        if name not in _CURRENT_INDEX_VERSIONS:
             raise NotImplementedError(f"index {name!r} is not ported")
         sft = self.sft
-        if not (sft.is_points and sft.geom_field and sft.dtg_field):
-            raise ValueError(f"schema {sft.name!r} does not support the "
-                             "'z3' index")
         enabled = sft.enabled_indices
         if enabled is not None and name not in enabled:
             raise ValueError(
                 f"index {name!r} is disabled on schema {sft.name!r} "
                 "(geomesa.indices.enabled)")
+        if not (sft.is_points and sft.geom_field
+                and (name == "z2" or sft.dtg_field)):
+            raise ValueError(f"schema {sft.name!r} does not support the "
+                             f"{name!r} index")
         if name not in self._indexes:
-            self._indexes[name] = self._build_z3()
+            build = self._build_z3 if name == "z3" else self._build_z2
+            self._indexes[name] = build()
             self.build_counts[name] = self.build_counts.get(name, 0) + 1
         return self._indexes[name]
 
     def z3_index(self) -> Z3PointIndex:
         return self.index("z3")
 
+    def z2_index(self) -> Z2PointIndex:
+        return self.index("z2")
+
     def _build_z3(self) -> Z3PointIndex:
         x, y = self.batch.geom_xy()
         dtg = self.batch.column(self.sft.dtg_field)
         return Z3PointIndex.build(
             x, y, dtg, period=self.sft.z3_interval,
-            version=_z3_version(self.sft), device=self.device)
+            version=_index_version(self.sft, "z3"), device=self.device)
+
+    def _build_z2(self) -> Z2PointIndex:
+        # the z2 index owns its x/y copies: the JAX store shares them with
+        # z3 (immutable arrays there), but the port's appends write into
+        # resident columns in place
+        x, y = self.batch.geom_xy()
+        return Z2PointIndex.build(
+            x, y, version=_index_version(self.sft, "z2"), device=self.device)
 
 
-def _z3_version(sft: FeatureType) -> int:
-    """The schema's z3 key-layout version (``geomesa.index.versions``
-    user data pins old layouts; only the current one is ported)."""
+def _index_version(sft: FeatureType, index: str) -> int:
+    """The schema's key-layout version of ``index``
+    (``geomesa.index.versions`` user data, e.g. ``"z3:1,z2:1"``, pins old
+    layouts; only the current ones are ported)."""
     raw = (sft.user_data or {}).get("geomesa.index.versions", "")
-    version = Z3_INDEX_VERSION
+    version = _CURRENT_INDEX_VERSIONS[index]
     if raw and raw != "current":
         for part in raw.split(","):
             name, _, v = part.strip().partition(":")
-            if name == "z3":
+            if name == index:
                 version = int(v)
     return version
 
 
 class TpuDataStore:
-    """In-process spatio-temporal datastore over a device-resident z3
-    index."""
+    """In-process spatio-temporal datastore over device-resident z3 and
+    z2 indexes."""
 
     #: first-write row count at which the JAX store switches a qualifying
     #: schema to the lean profile, which the port does not have
@@ -216,6 +245,9 @@ class TpuDataStore:
             raise NotImplementedError("visibilities are not ported")
         store = self._store(name)
         sft = store.sft
+        # the JAX store flips only point schemas WITH a dtg to the lean
+        # profile; one without a dtg stays on the default profile (z2) at
+        # any size
         if (store.batch is None and sft.is_points and sft.geom_field
                 and sft.dtg_field and not isinstance(data, FeatureBatch)
                 and ids is None):
@@ -271,3 +303,28 @@ class TpuDataStore:
                                np.empty(0, dtype=np.int64),
                                FilterStrategy("none", 0), 0.0, 0.0)
         return QueryPlanner(store.sft, store).run(q, explain)
+
+    # -- aggregation --------------------------------------------------------
+    def density_tile(self, name: str, z: int, x: int, y: int, *,
+                     tile: int = 256, query=None,
+                     timeout_ms: float | None = None) -> np.ndarray:
+        """One ``(tile, tile)`` float64 density grid for slippy-map tile
+        ``(z, x, y)`` on the plate-carrée world grid: the tile runs
+        through :func:`density_process` with the tile envelope ANDed into
+        the filter (CQL string).  The JAX store's lean pyramid branch,
+        admission token, spans and metrics are not ported; a deadline
+        (``timeout_ms``) raises rather than being ignored."""
+        if timeout_ms is not None:
+            raise NotImplementedError(
+                "density_tile deadlines (timeout_ms) are not ported")
+        from .process.density import density_process
+        z, x, y = int(z), int(x), int(y)
+        n = 1 << z
+        if not (0 <= z <= 30) or not (0 <= x < n and 0 <= y < n):
+            raise ValueError(f"tile ({z}/{x}/{y}) out of range")
+        env = tile_env(z, x, y)
+        gf = self.get_schema(name).geom_field
+        bbox = f"BBOX({gf}, {env[0]}, {env[1]}, {env[2]}, {env[3]})"
+        q = bbox if query is None else f"({query}) AND {bbox}"
+        return np.asarray(density_process(self, name, q, env, tile, tile),
+                          np.float64)

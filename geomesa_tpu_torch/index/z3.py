@@ -36,7 +36,7 @@ from ..device import resolve_device
 from ..ops.search import (
     coded_pos_bits, expand_ranges, gather_capacity, pack_coded,
     pack_wire, pad_boxes, pad_pow2, pad_ranges, run_packed_query,
-    searchsorted2,
+    searchsorted2, split_coded,
 )
 from ..ops.z3_mask import z3_mask
 
@@ -595,11 +595,5 @@ class Z3PointIndex:
             lambda capacity: _query_many_packed(
                 *args, capacity=capacity, pos_bits=pos_bits),
             self._capacity)
-        qids = coded >> pos_bits
-        positions = coded & ((np.int64(1) << pos_bits) - 1)
-        out = []
-        for q in range(n_q):
-            hits = positions[qids == q]
-            # a feature can land in several of a query's covering ranges
-            out.append(np.unique(hits))
-        return out
+        # a feature can land in several of a query's covering ranges
+        return split_coded(coded, pos_bits, n_q)

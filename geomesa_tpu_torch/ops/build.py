@@ -23,7 +23,7 @@ __all__ = ["KERNELS", "build", "build_all", "load", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "geomesa_tpu_torch"
 #: every kernel source of the port (csrc/<name>.cu)
-KERNELS = ("z3_mask",)
+KERNELS = ("z3_mask", "z2_mask", "density_grid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -43,24 +43,34 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already built; returns the library's path.  Raises with the
-    compiler's output when the build fails."""
+def _start(name: str):
+    """Start compiling ``csrc/<name>.cu`` unless a library of the same
+    source and flags is already built: ``(lib, process, tmp)``, with
+    ``process`` None when the library exists."""
     src = CSRC / f"{name}.cu"
     tag = hashlib.sha256(src.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{tag}.so"
     if lib.exists():
-        return lib
+        return lib, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return lib, proc, tmp
+
+
+def _finish(lib: Path, proc, tmp) -> Path:
+    """Wait for a build started by :func:`_start`; raises with the
+    compiler's output when it failed."""
+    if proc is None:
+        return lib
     try:
-        res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{err}")
         os.replace(tmp, lib)  # atomic: concurrent builds of one source agree
     finally:
         if os.path.exists(tmp):
@@ -68,9 +78,26 @@ def build(name: str) -> Path:
     return lib
 
 
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags is already built; returns the library's path.  Raises with the
+    compiler's output when the build fails."""
+    return _finish(*_start(name))
+
+
 def build_all() -> dict[str, Path]:
-    """Build every kernel of :data:`KERNELS`."""
-    return {k: build(k) for k in KERNELS}
+    """Build every kernel of :data:`KERNELS`: one ``nvcc`` per source, all
+    started together."""
+    started = {k: _start(k) for k in KERNELS}
+    try:
+        return {k: _finish(*s) for k, s in started.items()}
+    finally:  # one failed: stop the compilers still running
+        for _, proc, tmp in started.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if tmp is not None and os.path.exists(tmp):
+                os.unlink(tmp)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,7 @@ import torch
 
 __all__ = ["searchsorted2", "expand_ranges", "gather_capacity",
            "coded_pos_bits", "wire_dtype", "pack_wire", "pack_coded",
-           "run_packed_query", "pad_pow2", "pad_ranges", "pad_boxes"]
+           "run_packed_query", "split_coded", "pad_pow2", "pad_ranges", "pad_boxes"]
 
 #: bits per word of the split candidate total in the wire header
 _TOTAL_SPLIT = 30
@@ -90,6 +90,29 @@ def run_packed_query(dispatch, capacity: int):
             packed = out[2:]
             return np.sort(packed[packed >= 0]).astype(np.int64), capacity
         capacity = gather_capacity(total)
+
+
+def split_coded(coded: np.ndarray, pos_bits: int,
+                n_queries: int) -> list[np.ndarray]:
+    """Decode a multi-window scan's sorted ``qid << pos_bits | pos`` codes
+    (as :func:`run_packed_query` returns them) into one sorted,
+    duplicate-free int64 position array per query.
+
+    Sorted codes hold each query's hits as one contiguous run, sorted by
+    position, and a feature that lands in several of its query's covering
+    ranges repeats adjacently — so a boundary search and an adjacent
+    comparison replace a mask and ``np.unique`` per query, whose cost
+    varies widely across numpy versions (see PERF.md)."""
+    bounds = np.searchsorted(
+        coded, np.arange(n_queries + 1, dtype=np.int64) << pos_bits)
+    positions = coded & ((np.int64(1) << pos_bits) - 1)
+    out = []
+    for q in range(n_queries):
+        p = positions[bounds[q]:bounds[q + 1]]
+        keep = np.ones(len(p), dtype=bool)
+        keep[1:] = p[1:] != p[:-1]
+        out.append(p[keep])
+    return out
 
 
 def pad_pow2(n: int, minimum: int = 8) -> int:

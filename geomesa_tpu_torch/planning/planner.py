@@ -12,8 +12,8 @@ Exactness contract: whatever the index strategy returns is treated as a
 on candidates, so results are oracle-equal regardless of strategy.
 
 The port serves the strategies of its store's indexes — ``z3`` (with
-several time windows batched into one scan), ``full`` and ``none``, and
-an OR split over them.  Hints it does not serve raise.
+several time windows batched into one scan), ``z2``, ``full`` and
+``none``, and an OR split over them.  Hints it does not serve raise.
 """
 
 from __future__ import annotations
@@ -169,12 +169,14 @@ class QueryPlanner:
         if name == "full":
             explain("Executing full-table scan")
             return None
-        if name != "z3":
+        if name not in ("z3", "z2"):
             raise NotImplementedError(f"strategy {name!r} is not ported")
         explain(lambda: f"Executing {name} index scan")
         boxes = [g.envelope.as_tuple() for g in strategy.geometries] or [
             (-180.0, -90.0, 180.0, 90.0)
         ]
+        if name == "z2":
+            return store.z2_index().query(boxes)
         idx = store.z3_index()
         if len(strategy.intervals) > 1:
             # batch disjoint time windows into ONE scan (the
@@ -191,16 +193,20 @@ class QueryPlanner:
                        explain: Explainer) -> np.ndarray | None:
         """Execute an OR-split (FilterSplitter's disjunction rewrite,
         planning/FilterSplitter.scala:294-307), batching its z3 branches
-        into one multi-window scan; the planner's full-OR residual
-        re-check keeps the union exact."""
+        into one multi-window scan and its z2 branches into one
+        multi-box-set scan; the planner's full-OR residual re-check keeps
+        the union exact."""
         store = self.store
         world = (-180.0, -90.0, 180.0, 90.0)
         z3_windows: list = []
+        z2_sets: list = []
         rest: list = []
         for _, st in strategy.branches:
             bx = [g.envelope.as_tuple() for g in st.geometries] or [world]
             if st.index == "z3" and st.intervals:
                 z3_windows.extend((bx, lo, hi) for lo, hi in st.intervals)
+            elif st.index == "z2":
+                z2_sets.append(bx)
             else:
                 rest.append(st)
         parts = []
@@ -211,6 +217,12 @@ class QueryPlanner:
         elif z3_windows:
             bx, lo, hi = z3_windows[0]
             parts.append(store.z3_index().query(bx, lo, hi))
+        if len(z2_sets) > 1:
+            explain(lambda: f"Auto-batched {len(z2_sets)} z2 box sets "
+                            "into one dispatch")
+            parts.extend(store.z2_index().query_many(z2_sets))
+        elif z2_sets:
+            parts.append(store.z2_index().query(z2_sets[0]))
         for st in rest:
             cand = self._scan(st, query, explain)
             if cand is None:

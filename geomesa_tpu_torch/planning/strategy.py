@@ -7,8 +7,10 @@ SpatioTemporalFilterStrategy.scala) and the cost-based decider
 per-strategy feature counts from stats and picks the cheapest.
 
 The port offers the strategies of the indexes it has: ``z3`` on point
-schemas with a dtg attribute, the full scan, the empty plan, and an OR
-split over them.  The JAX package's id, attribute, z2 and xz strategies,
+schemas with a dtg attribute, ``z2`` on point schemas, the full scan,
+the empty plan, and an OR split over them, in the JAX package's order so
+that ties in the cost comparison resolve alike.  The JAX package's id,
+attribute and xz strategies (non-point schemas fall to the full scan),
 its sketch-fed estimator and its mid-query replanning are not ported.
 """
 
@@ -31,7 +33,7 @@ class FilterStrategy:
     """A candidate execution strategy: which index serves the query and at
     what estimated cost (feature count to scan)."""
 
-    #: 'z3' | 'or-split' | 'full' | 'none'
+    #: 'z3' | 'z2' | 'or-split' | 'full' | 'none'
     index: str
     cost: float
     geometries: tuple = ()      # extracted query geometries
@@ -144,18 +146,31 @@ class StrategyDecider:
         usable = tuple(intervals.values) if intervals else ()
         temporal = bool(usable)
 
-        if sft.is_points and dtg and self._enabled("z3") and (
-                temporal or spatial):
-            qgeoms = tuple(geoms.values) if spatial else ()
-            if not temporal:
-                # a pure-spatial query runs on z3 with an OPEN interval,
-                # which the point index clamps to the data's time extent
-                usable = ((None, None),)
-            cost = (self.total * self._spatial_fraction(qgeoms)
-                    * (self._temporal_fraction(usable) if temporal else 1.0))
+        sp_frac = self._spatial_fraction(geoms.values if geoms else ())
+        tm_frac = self._temporal_fraction(usable)
+
+        if temporal and dtg and sft.is_points and self._enabled("z3"):
+            qgeoms = tuple(geoms.values) if geoms else ()
             out.append(FilterStrategy(
-                "z3", max(1.0, cost), geometries=qgeoms, intervals=usable,
-                source=self._frac_source(spatial, temporal)))
+                "z3", max(1.0, self.total * sp_frac * tm_frac),
+                geometries=qgeoms, intervals=usable,
+                source=self._frac_source(spatial, True)))
+        if spatial and sft.is_points:
+            if self._enabled("z2"):
+                out.append(FilterStrategy(
+                    "z2", max(1.0, self.total * sp_frac),
+                    geometries=tuple(geoms.values),
+                    intervals=tuple(intervals.values) if intervals else (),
+                    source=self._frac_source(True, False)))
+            elif not temporal and dtg and self._enabled("z3"):
+                # no z2 available (e.g. geomesa.indices.enabled=z3): a
+                # pure-spatial query runs on z3 with an OPEN interval,
+                # which the point index clamps to the data's time extent
+                out.append(FilterStrategy(
+                    "z3", max(1.0, self.total * sp_frac),
+                    geometries=tuple(geoms.values),
+                    intervals=((None, None),),
+                    source=self._frac_source(True, False)))
 
         # the full-scan cost is the maintained row count — exact
         out.append(FilterStrategy("full", float(self.total),

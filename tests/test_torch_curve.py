@@ -16,6 +16,7 @@ from geomesa_tpu.curve import (
     interleave3 as j_interleave3,
     max_offset,
     to_binned_time as j_to_binned_time,
+    z2_sfc as j_z2_sfc,
     z3_sfc as j_z3_sfc,
 )
 from geomesa_tpu_torch.curve import (
@@ -24,6 +25,7 @@ from geomesa_tpu_torch.curve import (
     interleave2,
     interleave3,
     to_binned_time,
+    z2_sfc,
     z3_sfc,
 )
 
@@ -96,6 +98,38 @@ def test_z3_index_edges_match_jax(period):
 def test_z3_ranges_match_jax(boxes, window, budget):
     got = z3_sfc("week").ranges(boxes, [window], max_ranges=budget)
     want = j_z3_sfc("week").ranges(boxes, [window], max_ranges=budget)
+    assert got.dtype == np.int64 and len(got) > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_z2_index_edges_match_jax():
+    """Encode/decode at the edges: lon ±180, lat ±90, and values past
+    both ends (which clamp)."""
+    rng = np.random.default_rng(5)
+    x = np.concatenate([rng.uniform(-180, 180, 3000),
+                        [-180.0, 180.0, -181.5, 200.0, 0.0, -0.0]])
+    y = np.concatenate([rng.uniform(-90, 90, 3000),
+                        [-90.0, 90.0, -95.0, 91.0, 0.0, 1e-12]])
+    sfc, jsfc = z2_sfc(), j_z2_sfc()
+    z = sfc.index(_t(x), _t(y))
+    assert z.dtype == torch.int64
+    zj = np.asarray(jsfc.index(x, y, xp=np)).astype(np.int64)
+    np.testing.assert_array_equal(z.numpy(), zj)
+    assert z.max() < (1 << 62) and z.min() >= 0
+    for got, want in zip(sfc.invert(z), jsfc.invert(zj)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("boxes,budget", [
+    ([(-74.5, 40.5, -73.5, 41.5)], 2000),
+    ([(-10.0, -10.0, 10.0, 10.0), (100.0, 20.0, 120.0, 30.0)], 2000),
+    ([(-180.0, -90.0, 180.0, 90.0)], 2000),
+    ([(2.0, 48.0, 2.5, 49.0)], 8),
+    ([(179.0, 89.0, 180.0, 90.0)], 500),
+])
+def test_z2_ranges_match_jax(boxes, budget):
+    got = z2_sfc().ranges(boxes, max_ranges=budget)
+    want = j_z2_sfc().ranges(boxes, max_ranges=budget)
     assert got.dtype == np.int64 and len(got) > 0
     np.testing.assert_array_equal(got, want)
 

@@ -1,6 +1,6 @@
-"""The port stands alone: importing geomesa_tpu_torch and running a query
-loads neither ``jax`` nor any module of ``geomesa_tpu``, and its sources
-import neither.  Checked in a subprocess, because this test process has
+"""The port stands alone: importing geomesa_tpu_torch and running its
+queries (z3, z2) and a heatmap loads neither ``jax`` nor any module of
+``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
 import ast
@@ -27,11 +27,17 @@ ds.write("s", {"actor": np.array(["a"] * n, dtype=object),
                "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))})
 r = ds.query_result("s", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
                          "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+r2 = ds.query_result("s", "BBOX(geom, -5, -5, 5, 5)")
+grid = geomesa_tpu_torch.density_process(ds, "s", "INCLUDE",
+                                         (-10, -10, 10, 10), 16, 16)
+tile = ds.density_tile("s", 1, 1, 0, tile=8)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
 print(json.dumps({"bad": bad, "strategy": r.strategy.index,
-                  "hits": int(len(r.positions))}))
+                  "hits": int(len(r.positions)),
+                  "strategy2": r2.strategy.index,
+                  "density": float(grid.sum()), "tile": float(tile.sum())}))
 """
 
 
@@ -49,6 +55,8 @@ def test_import_and_query_load_no_jax():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     assert out["strategy"] == "z3" and out["hits"] > 0
+    assert out["strategy2"] == "z2"
+    assert out["density"] == 500 and out["tile"] > 0
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),

@@ -142,3 +142,25 @@ def test_padding_matches_jax():
                     js.pad_boxes(ixy, boxes, 4, bqid)):
         np.testing.assert_array_equal(g, w)
     assert ts.gather_capacity(5000) == js.gather_capacity(5000) == 8192
+
+
+@pytest.mark.parametrize("pos_bits,n_q", [(20, 5), (40, 3), (27, 1)])
+def test_split_coded_matches_mask_and_unique(pos_bits, n_q):
+    """The sorted-run decode of multi-window codes equals the JAX
+    package's per-query mask + ``np.unique``, duplicates and empty
+    queries included."""
+    rng = np.random.default_rng(pos_bits)
+    qid = rng.integers(0, n_q, 5000)
+    qid[qid == n_q - 1] = 0 if n_q > 1 else qid[qid == n_q - 1]
+    pos = rng.integers(0, 1 << min(pos_bits, 20), 5000)
+    coded = np.sort((qid.astype(np.int64) << pos_bits) | pos)
+    got = ts.split_coded(coded, pos_bits, n_q)
+    assert len(got) == n_q
+    qids = coded >> pos_bits
+    positions = coded & ((np.int64(1) << pos_bits) - 1)
+    for q in range(n_q):
+        want = np.unique(positions[qids == q])
+        assert got[q].dtype == np.int64
+        np.testing.assert_array_equal(got[q], want)
+    empty = ts.split_coded(np.empty(0, np.int64), pos_bits, n_q)
+    assert [len(e) for e in empty] == [0] * n_q
