@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--points 100000000]
                           [--facade-rows 16000000] [--places-rows 4000000]
-                          [--profile] [--out FILE]
+                          [--mesh-rows 16000000] [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -15,8 +15,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    candidates, z2_mask also at 2^24, the capacity its scan reaches on the
    main path, R = 1 and 8; density_grid at 2^24 clustered and uniform
    points, 256x256 and 1024x1024 grids, unit weights bit for bit and
-   random weights within rtol 1e-6), timed with CUDA events beside the
-   plain version and, where one exists, a PyTorch library call;
+   random weights within rtol 1e-6; hist1d at 16M rows, the mesh phase's
+   per-shard slot count, and 2^22 + 37, 64, 1024 and 65,536 bins, ids
+   past both ends, unit weights bit for bit and random weights within
+   rtol 1e-5), timed with CUDA events beside the plain version and, where
+   one exists, a PyTorch library call;
 4. index: ``Z3PointIndex.build`` over ``--points`` GDELT-like points (70%
    Gaussian clusters around 50 cities, 30% uniform, dtg uniform over 2018,
    WEEK bins), a 1M-row append, and 20 BBOX+DURING queries (city, region,
@@ -34,11 +37,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    over 256x256 for BBOX+DURING, BBOX alone and INCLUDE, and
    ``density_tile`` at z = 3, counts equal to a numpy oracle; a schema
    ``places`` without a dtg (``--places-rows`` rows) answering BBOX
-   queries through z2.
+   queries through z2;
+7. mesh: ``TpuDataStore(mesh=device_mesh(1))`` on schema ``events``
+   (``actor:String,score:Double,dtg:Date,*geom:Point``): ``--mesh-rows``
+   rows in 4 writes with no query between (the sharded z3 index builds
+   once, at that many slots per shard); ``stats`` of Count, MinMax and a
+   64-bin Histogram of ``score``, ``Frequency(actor,4,1024)`` and
+   ``Frequency(score,4,1024)`` on BBOX+DURING, the first spec again on
+   INCLUDE, and TopK (the host-merge reducer); BBOX+DURING (sharded z3)
+   and BBOX (sharded z2) positions; a heatmap through ``density_process``
+   and a tile, both pushed down per shard; then a 1M-row append, which
+   grows the shard to 2^25 slots, and the Histogram spec again, now on
+   the int64 route.  Every result equals a numpy oracle over the rows,
+   and ``hist1d`` launches once per kernel-route Histogram and ``depth``
+   times per Frequency, and never on the int64 route.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
-after phase 6; a kernel of the path that was never launched fails the
-run.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
+after phase 6, and again just before and after phase 7; a kernel of a
+path that was never launched on it fails the run.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or without the ``geomesa_tpu_torch``
 package beside this script, it exits non-zero and prints no result.
@@ -363,6 +379,83 @@ def density_kernel_phase(rng, centres, dev):
                     f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
                     f"by {b_by})")
         del xd, yd, mask, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+def hist1d_kernel_phase(rng, dev):
+    """The hist1d kernel against its plain version at 16M rows (the mesh
+    phase's per-shard slot count) and a ragged 2^22 + 37, at 64 bins (a
+    Histogram stat), 1024 (a Frequency width) and 65,536 (wider than a
+    block's shared memory: the global-atomic branch); ids run 16 past
+    both ends of the bins, ~50% of the rows are masked in; unit weights
+    bit for bit, random weights within rtol 1e-5 (float32 atomics sum in
+    an order that changes from run to run)."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch.ops.hist1d_kernel import hist1d, hist1d_reference
+
+    rows = []
+    for n in (16_000_000, (1 << 22) + 37):
+        mask = torch.tensor(rng.random(n) < 0.5, device=dev)
+        n_in = int(mask.sum())
+        for n_bins in (64, 1024, 65_536):
+            bins = torch.tensor(rng.integers(-16, n_bins + 16, n,
+                                             dtype=np.int32), device=dev)
+            keep = mask & (bins >= 0) & (bins < n_bins)
+            n_kept = int(keep.sum())
+            for weights in ("unit", "random"):
+                w = (torch.ones(n, dtype=torch.float32, device=dev)
+                     if weights == "unit" else
+                     torch.tensor(rng.uniform(0.0, 3.0, n).astype(np.float32),
+                                  device=dev))
+                args = (bins, w, mask, n_bins)
+                got = hist1d(*args)
+                want = hist1d_reference(*args)
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                ok = (torch.equal(got, want) if weights == "unit" else
+                      bool(torch.allclose(got, want, rtol=1e-5, atol=0)))
+                if not ok:
+                    raise AssertionError(
+                        f"hist1d kernel disagrees with its plain version at "
+                        f"N={n} bins={n_bins} ({weights}): max abs err {err}")
+                if weights == "unit" and float(got.double().sum()) != n_kept:
+                    raise AssertionError(f"hist1d counts {got.sum()} rows, "
+                                         f"not {n_kept}")
+                # the library yardstick leaves the mask and the range test
+                # out: one torch.bincount over ids and weights prepared
+                # beforehand
+                ids = torch.where(keep, bins, 0).long()
+                w_in = torch.where(keep, w, 0.0)
+                k1 = cuda_ms(lambda: hist1d(*args), 20)
+                p1 = cuda_ms(lambda: hist1d_reference(*args), 3)
+                l1 = cuda_ms(lambda: torch.bincount(ids, w_in,
+                                                    minlength=n_bins), 10)
+                k2 = cuda_ms(lambda: hist1d(*args), 20)
+                p2 = cuda_ms(lambda: hist1d_reference(*args), 3)
+                l2 = cuda_ms(lambda: torch.bincount(ids, w_in,
+                                                    minlength=n_bins), 10)
+                del ids, w_in, w
+                # this run's data: the mask byte of every row, the bin id
+                # and weight of each masked-in row, the float32 output once;
+                # a range test and an add per masked-in row
+                b_ms, b_by = bound(n + 8 * n_in + 4 * n_bins, 3 * n_in,
+                                   INT32_OPS_PER_S)
+                rows.append({"n": n, "bins": n_bins, "weights": weights,
+                             "masked_in": n_in, "max_abs_err": err,
+                             "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                             "library_ms": min(l1, l2),
+                             "library": "torch.bincount, mask and range "
+                                        "test left out",
+                             "bound_ms": b_ms, "bound_by": b_by})
+                log(f"kernel hist1d N={n} bins={n_bins} {weights}: equal "
+                    f"(max abs err {err:g}), {rows[-1]['ms']:.4f} ms (plain "
+                    f"{rows[-1]['plain_ms']:.4f} ms, bincount "
+                    f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+                    f"by {b_by})")
+            del bins, keep
+        del mask
     torch.cuda.empty_cache()
     return rows
 
@@ -758,6 +851,223 @@ def places_phase(rng, args, centres, ds, report):
                                     f"{r['ms']:.1f} ms" for r in rows))
 
 
+def mesh_phase(rng, args, centres, dev, report):
+    """The mesh-backed store on a one-card mesh: writes, the stats
+    push-down through the hist1d kernel, sharded z3/z2 queries, pushed-down
+    heatmaps, and an append that moves the histograms to the int64
+    route; every result against a numpy oracle over the rows."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.feature_type import parse_spec
+    from geomesa_tpu_torch.index.pyramid import tile_env
+    from geomesa_tpu_torch.ops.hist1d_kernel import hist1d
+    from geomesa_tpu_torch.parallel import stats as pstats
+    from geomesa_tpu_torch.stats.stat import Frequency
+
+    ds = TpuDataStore(device=dev, mesh=device_mesh(1))
+    ds.create_schema("events", "actor:String,score:Double,dtg:Date,*geom:Point")
+    actors = np.array(["USA", "GBR", "FRA", "CHN", "IND", "BRA", "RUS"],
+                      dtype=object)
+    n = args.mesh_rows
+    per = n // 4
+    cols = {"x": [], "y": [], "t": [], "score": [], "actor": []}
+    write_s = []
+
+    def write(m):
+        x, y, t = gdelt_like(rng, m, centres)
+        score = rng.uniform(0.0, 100.0, m)
+        actor = actors[rng.integers(0, len(actors), m)]
+        for k, v in zip(cols, (x, y, t, score, actor)):
+            cols[k].append(v)
+        t0 = time.perf_counter()
+        ds.write("events", {"actor": actor, "score": score, "dtg": t,
+                            "geom": (x, y)})
+        return time.perf_counter() - t0
+
+    for _ in range(4):  # no query between: the index builds once
+        write_s.append(write(per))
+    store = ds._store("events")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    z3 = store.z3_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if z3.capacity != per * 4 or not pstats._hist_kernel_ok(z3):
+        raise AssertionError(f"sharded z3 built at {z3.capacity} slots")
+    # the sharded z2, which the BBOX query below would build, built and
+    # timed apart
+    t0 = time.perf_counter()
+    store.z2_index()
+    torch.cuda.synchronize()
+    z2_build_s = time.perf_counter() - t0
+
+    def rows():
+        return {k: np.concatenate(v) for k, v in cols.items()}
+
+    cx, cy = centres[7]
+    box = (cx - 10, cy - 10, cx + 10, cy + 10)
+    w = (MS_2018 + 100 * DAY, MS_2018 + 114 * DAY - 1)
+    q = (f"BBOX(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]}) AND dtg "
+         f"DURING {iso(w[0])}/{iso(w[1])}")
+    q_bbox = f"BBOX(geom, {box[0]}, {box[1]}, {box[2]}, {box[3]})"
+    spec = "Count();MinMax(score);Histogram(score,64,0,100)"
+
+    def hist_oracle(score):
+        b = np.clip((score - 0.0) / (100.0 / 64), 0, 63).astype(np.int64)
+        return np.bincount(b, minlength=64)
+
+    def freq_oracle(r, hits, attr):
+        """The host sketch (``Frequency.observe``) over the hit rows."""
+        kind = "String" if attr == "actor" else "Double"
+        host = Frequency(attr, 4, 1024)
+        host.observe(FeatureBatch.from_dict(
+            parse_spec("f", f"{attr}:{kind},dtg:Date,*geom:Point"),
+            {attr: r[attr][hits], "dtg": r["t"][hits],
+             "geom": (r["x"][hits], r["y"][hits])}))
+        return host.table
+
+    stat_rows = []
+
+    def run_stats(name, query, sp, check):
+        idx = store.z3_index()
+        route = "kernel" if pstats._hist_kernel_ok(idx) else "int64"
+        h0 = hist1d.launches
+        t0 = time.perf_counter()
+        got = ds.stats("events", query, sp)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(got)
+        grew = hist1d.launches - h0
+        kernel_hists = (sp.count("Histogram(") + 4 * sp.count("Frequency(")
+                        if route == "kernel" else 0)
+        if grew != kernel_hists:
+            raise AssertionError(f"stats {name}: hist1d launched {grew} "
+                                 f"times, expected {kernel_hists} ({route})")
+        stat_rows.append({"stats": name, "ms": ms, "route": route,
+                          "hist1d_launches": grew,
+                          "slots_per_shard": idx.capacity})
+
+    r = rows()
+    hits = oracle(r["x"], r["y"], r["t"], [box], *w)
+
+    def check_moments(hit_rows):
+        def check(got):
+            c, mm, h = got.stats
+            sc = r["score"][hit_rows]
+            if c.count != len(hit_rows) or (mm.min, mm.max) != (
+                    sc.min(), sc.max()):
+                raise AssertionError(f"stats: count {c.count} / minmax "
+                                     f"{mm.min, mm.max}, oracle "
+                                     f"{len(hit_rows)} / {sc.min(), sc.max()}")
+            if not np.array_equal(h.counts, hist_oracle(sc)):
+                raise AssertionError("stats: histogram disagrees with "
+                                     "np.bincount")
+        return check
+
+    def check_freq(attr):
+        want = freq_oracle(r, hits, attr)
+
+        def check(got):
+            if not np.array_equal(got.table, want):
+                raise AssertionError(f"stats: Frequency({attr}) table "
+                                     "disagrees with the host sketch")
+        return check
+
+    run_stats("bbox_during", q, spec, check_moments(hits))
+    run_stats("frequency_actor", q, "Frequency(actor,4,1024)",
+              check_freq("actor"))
+    run_stats("frequency_score", q, "Frequency(score,4,1024)",
+              check_freq("score"))
+    run_stats("include", "INCLUDE", spec, check_moments(np.arange(n)))
+    h0 = hist1d.launches
+    t0 = time.perf_counter()
+    top = ds.stats("events", q, "TopK(actor)")
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    want_top = dict(zip(*np.unique(r["actor"][hits], return_counts=True)))
+    if dict(top.topk(len(actors))) != want_top or hist1d.launches != h0:
+        raise AssertionError("stats: TopK(actor) disagrees with the oracle")
+
+    qrows = []
+    for name, ecql, strategy, want in (
+            ("bbox_during", q, "z3", hits),
+            ("bbox", q_bbox, "z2", box_oracle(r["x"], r["y"], [box]))):
+        t0 = time.perf_counter()
+        res = ds.query_result("events", ecql)
+        ms = (time.perf_counter() - t0) * 1e3
+        if res.strategy.index != strategy or not np.array_equal(
+                res.positions, want):
+            raise AssertionError(f"mesh {name}: {res.strategy.index}, "
+                                 f"{len(res.positions)} hits, oracle "
+                                 f"{len(want)}")
+        qrows.append({"query": name, "ms": ms, "hits": int(len(want))})
+
+    tx = int((cx + 180.0) // 45.0)
+    ty = 7 - int((cy + 90.0) // 22.5)
+    tenv = tile_env(3, tx, ty)
+    drows = []
+    for name, run, env, want_hits in (
+            ("bbox_during", lambda: density_process(ds, "events", q, box),
+             box, hits),
+            (f"tile_3_{tx}_{ty}", lambda: ds.density_tile("events", 3, tx, ty),
+             tenv, box_oracle(r["x"], r["y"], [tenv]))):
+        t0 = time.perf_counter()
+        grid = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = snap_counts(r["x"][want_hits], r["y"][want_hits], env, 256,
+                           256)
+        if grid.shape != (256, 256) or not np.array_equal(
+                grid.astype(np.float64), want.astype(np.float32)):
+            raise AssertionError(f"mesh density {name}: {grid.sum()} "
+                                 f"points, oracle {want.sum()}")
+        drows.append({"query": name, "ms": ms, "points": float(want.sum())})
+
+    profile = None
+    if args.profile:
+        profile = profile_queries("mesh", lambda call: call(), [
+            lambda: ds.stats("events", q, spec),
+            lambda: ds.stats("events", q, "Frequency(score,4,1024)"),
+            lambda: ds.stats("events", "INCLUDE", spec),
+            lambda: ds.query_result("events", q),
+            lambda: density_process(ds, "events", q, box)])
+
+    # the append lands in the built sharded z3 and z2 indexes
+    append_s = write(1_000_000)
+    r = rows()
+    hits = oracle(r["x"], r["y"], r["t"], [box], *w)
+    if pstats._hist_kernel_ok(store.z3_index()):
+        raise AssertionError("the append did not move the shard past the "
+                             "kernel's exactness bound")
+    run_stats("bbox_during_after_append", q, spec, check_moments(hits))
+    rep = report["mesh"] = {
+        "rows": n, "write_s": write_s, "build_s": build_s,
+        "build_keys_per_s": n / build_s, "z2_build_s": z2_build_s,
+        "append_rows": 1_000_000,
+        "append_write_s": append_s,
+        "append_rows_per_s": 1_000_000 / append_s,
+        "capacity_after_append": store.z3_index().capacity,
+        "peak_device_bytes": int(torch.cuda.max_memory_allocated()),
+        "stats": stat_rows, "topk_ms": topk_ms, "queries": qrows,
+        "density": drows, "hits": int(len(hits))}
+    if profile is not None:
+        rep["profile"] = profile
+    log(f"mesh: {n} rows in 4 writes ({', '.join(f'{s:.2f}' for s in write_s)}"
+        f" s); sharded z3 build {build_s:.3f} s, z2 {z2_build_s:.3f} s; "
+        "stats equal to the oracle: "
+        + ", ".join(f"{s['stats']} {s['ms']:.1f} ms ({s['route']}, hist1d "
+                    f"x{s['hist1d_launches']})" for s in stat_rows)
+        + f", TopK {topk_ms:.1f} ms; queries "
+        + ", ".join(f"{q_['query']} {q_['hits']} hits {q_['ms']:.1f} ms"
+                    for q_ in qrows)
+        + "; heatmaps " + ", ".join(f"{d['query']} {d['ms']:.1f} ms"
+                                    for d in drows)
+        + f"; 1M-row append write {append_s:.2f} s, capacity "
+          f"{rep['capacity_after_append']}")
+    del ds, store, z3
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
                  row: dict) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line."""
@@ -776,9 +1086,11 @@ def main(argv=None) -> int:
     ap.add_argument("--points", type=int, default=100_000_000)
     ap.add_argument("--facade-rows", type=int, default=16_000_000)
     ap.add_argument("--places-rows", type=int, default=4_000_000)
+    ap.add_argument("--mesh-rows", type=int, default=16_000_000)
     ap.add_argument("--profile", action="store_true",
-                    help="profile the z3 and z2 index queries once "
-                         "more (torch.profiler) into the report")
+                    help="profile the z3 and z2 index queries, and the mesh "
+                         "phase's stats, query and heatmap, once more "
+                         "(torch.profiler) into the report")
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON to this file")
     args = ap.parse_args(argv)
@@ -795,6 +1107,7 @@ def main(argv=None) -> int:
         return 2
     import numpy as np
     from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+    from geomesa_tpu_torch.ops.hist1d_kernel import hist1d
     from geomesa_tpu_torch.ops.z2_mask import z2_mask
     from geomesa_tpu_torch.ops.z3_mask import z3_mask
 
@@ -817,8 +1130,9 @@ def main(argv=None) -> int:
     z3_rows = kernel_phase(rng, dev)
     z2_rows = z2_kernel_phase(rng, dev)
     dens_rows = density_kernel_phase(rng, centres, dev)
+    hist_rows = hist1d_kernel_phase(rng, dev)
     report["kernel"] = {"z3_mask": z3_rows, "z2_mask": z2_rows,
-                        "density_grid": dens_rows}
+                        "density_grid": dens_rows, "hist1d": hist_rows}
 
     # the main path: counts set to 0 just before, read just after
     counters = {"z3_mask": z3_mask, "z2_mask": z2_mask,
@@ -835,6 +1149,19 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the path was never launched on "
                              f"the main path: {launches}")
     report["main_path_launches"] = launches
+    del ds
+    torch.cuda.empty_cache()
+
+    # the mesh path: every count set to 0 just before, read just after
+    counters["hist1d"] = hist1d
+    for fn in counters.values():
+        fn.launches = 0
+    mesh_phase(rng, args, centres, dev, report)
+    mesh_launches = {k: fn.launches for k, fn in counters.items()}
+    if min(mesh_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the mesh path was never launched "
+                             f"on it: {mesh_launches}")
+    report["mesh_path_launches"] = mesh_launches
     report["total_s"] = time.perf_counter() - t_start
 
     def pick(rows, **kw):
@@ -851,6 +1178,10 @@ def main(argv=None) -> int:
         kernel_entry("density_grid", f"{src}:305", launches["density_grid"],
                      dens_rows, pick(dens_rows, dist="clustered",
                                      weights="unit", grid=256)),
+        # the mesh phase's shape: its per-shard slots, a Histogram stat
+        kernel_entry("hist1d", f"{src}:554", mesh_launches["hist1d"],
+                     hist_rows, pick(hist_rows, n=16_000_000, bins=64,
+                                     weights="unit")),
     ]}
     if args.out:
         with open(args.out, "w") as f:

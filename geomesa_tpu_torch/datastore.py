@@ -14,10 +14,13 @@ reference's StatsCombiner role) and feed the cost-based strategy decider.
 
 What the port serves: point schemas, with or without a dtg attribute, on
 the default (non-lean) profile, through the ``z3`` and ``z2`` indexes,
-full scans and empty plans.  The lean profile (first writes of
-``LEAN_AUTO_ROWS`` rows or more to a point schema with a dtg attribute),
-device meshes, visibilities and authorizations are not ported and raise
-rather than degrade.
+full scans and empty plans; with ``mesh=`` (one process driving a
+:func:`~geomesa_tpu_torch.parallel.device_mesh`) the indexes are their
+sharded variants and ``stats`` and density push down per shard.  The lean
+profile (first writes of ``LEAN_AUTO_ROWS`` rows or more to a point
+schema with a dtg attribute, without a mesh), multi-controller meshes,
+visibilities and authorizations are not ported and raise rather than
+degrade.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ from .features.feature_type import FeatureType, parse_spec
 from .index.pyramid import tile_env
 from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
+from .parallel.scan import ShardedZ3Index
+from .parallel.z2 import ShardedZ2Index
 from .planning.explain import Explainer
 from .planning.planner import Query, QueryPlanner, QueryResult
 from .planning.strategy import FilterStrategy
@@ -61,11 +66,12 @@ _CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION}
 
 class _SchemaStore:
     """Per-schema storage: the column batch + the lazily-built z3/z2
-    indexes + stats."""
+    indexes (sharded over ``mesh`` when one is given) + stats."""
 
-    def __init__(self, sft: FeatureType, device):
+    def __init__(self, sft: FeatureType, device, mesh=None):
         self.sft = sft
         self.device = device
+        self.mesh = mesh
         self.batch: FeatureBatch | None = None
         self._indexes: dict = {}
         #: per-index-type build counter (the no-full-rebuild tests)
@@ -122,6 +128,11 @@ class _SchemaStore:
     def stats_map(self) -> dict:
         return self._stats
 
+    def merge_stat_global(self, s: Stat) -> Stat:
+        """Merge one per-process stat across processes: the identity, as
+        the port has one process."""
+        return s
+
     def find_id_clash(self, ids) -> str | None:
         """First id in ``ids`` that already exists in this store's rows
         (lazy incrementally-maintained id set — O(ids), not O(store))."""
@@ -153,24 +164,31 @@ class _SchemaStore:
             self.build_counts[name] = self.build_counts.get(name, 0) + 1
         return self._indexes[name]
 
-    def z3_index(self) -> Z3PointIndex:
+    def z3_index(self) -> Z3PointIndex | ShardedZ3Index:
         return self.index("z3")
 
-    def z2_index(self) -> Z2PointIndex:
+    def z2_index(self) -> Z2PointIndex | ShardedZ2Index:
         return self.index("z2")
 
-    def _build_z3(self) -> Z3PointIndex:
+    def _build_z3(self):
         x, y = self.batch.geom_xy()
         dtg = self.batch.column(self.sft.dtg_field)
+        if self.mesh is not None:
+            return ShardedZ3Index.build(
+                x, y, dtg, period=self.sft.z3_interval, mesh=self.mesh,
+                version=_index_version(self.sft, "z3"))
         return Z3PointIndex.build(
             x, y, dtg, period=self.sft.z3_interval,
             version=_index_version(self.sft, "z3"), device=self.device)
 
-    def _build_z2(self) -> Z2PointIndex:
+    def _build_z2(self):
         # the z2 index owns its x/y copies: the JAX store shares them with
         # z3 (immutable arrays there), but the port's appends write into
         # resident columns in place
         x, y = self.batch.geom_xy()
+        if self.mesh is not None:
+            return ShardedZ2Index.build(
+                x, y, mesh=self.mesh, version=_index_version(self.sft, "z2"))
         return Z2PointIndex.build(
             x, y, version=_index_version(self.sft, "z2"), device=self.device)
 
@@ -191,22 +209,27 @@ def _index_version(sft: FeatureType, index: str) -> int:
 
 class TpuDataStore:
     """In-process spatio-temporal datastore over device-resident z3 and
-    z2 indexes."""
+    z2 indexes, sharded over a device mesh when one is given."""
 
     #: first-write row count at which the JAX store switches a qualifying
     #: schema to the lean profile, which the port does not have
     LEAN_AUTO_ROWS = 32_000_000
 
-    def __init__(self, device=None, *, mesh=None, auth_provider=None):
+    def __init__(self, device=None, *, mesh=None, multihost: bool = False,
+                 auth_provider=None):
         """``device``: where the indexes live — the CUDA card unless the
         caller names the CPU; with no card and no explicit ``"cpu"`` this
-        raises."""
-        if mesh is not None:
-            raise NotImplementedError("device meshes are not ported")
+        raises.  ``mesh``: a :class:`~geomesa_tpu_torch.parallel.mesh.
+        DeviceMesh`; every index then builds its sharded variant over it
+        (``device`` still places the query path's heatmap grids)."""
+        if multihost:
+            raise NotImplementedError(
+                "multi-controller (multihost) stores are not ported")
         if auth_provider is not None:
             raise NotImplementedError(
                 "authorizations and visibilities are not ported")
         self.device = resolve_device(device)
+        self._mesh = mesh
         self._schemas: dict[str, _SchemaStore] = {}
 
     # -- schema lifecycle (MetadataBackedDataStore.createSchema etc.) ----
@@ -223,7 +246,8 @@ class TpuDataStore:
             raise ValueError(f"schema {sft.name!r} already exists")
         if (sft.user_data or {}).get("geomesa.index.profile") == "lean":
             raise NotImplementedError("the lean index profile is not ported")
-        self._schemas[sft.name] = _SchemaStore(sft, self.device)
+        self._schemas[sft.name] = _SchemaStore(sft, self.device,
+                                               mesh=self._mesh)
         return sft
 
     def get_schema(self, name: str) -> FeatureType:
@@ -245,10 +269,11 @@ class TpuDataStore:
             raise NotImplementedError("visibilities are not ported")
         store = self._store(name)
         sft = store.sft
-        # the JAX store flips only point schemas WITH a dtg to the lean
-        # profile; one without a dtg stays on the default profile (z2) at
-        # any size
-        if (store.batch is None and sft.is_points and sft.geom_field
+        # the JAX store flips only point schemas WITH a dtg, and only
+        # without a mesh, to the lean profile; the rest stay on the
+        # default profile at any size
+        if (store.batch is None and self._mesh is None
+                and sft.is_points and sft.geom_field
                 and sft.dtg_field and not isinstance(data, FeatureBatch)
                 and ids is None):
             first = next(iter(data.values()), ())
@@ -305,6 +330,27 @@ class TpuDataStore:
         return QueryPlanner(store.sft, store).run(q, explain)
 
     # -- aggregation --------------------------------------------------------
+    def stats(self, name: str, query="INCLUDE", spec: str = "Count()"):
+        """Evaluate a Stat DSL over the features matching ``query`` (the
+        reference's stats-count / stats-histogram surface, STATS_STRING
+        hint): pushed down per shard on a mesh store where the filter and
+        spec allow, else over the materialized hits (see
+        :func:`~geomesa_tpu_torch.process.stats_process.stats_process`)."""
+        from .process.stats_process import stats_process
+        return stats_process(self, name, query, spec)
+
+    def _hit_residency(self, store: _SchemaStore, positions: np.ndarray):
+        """Per-hit shard ids, the grouping input of the mesh stats reducer:
+        true residency from a built sharded index's placement segments,
+        else the block split a fresh build would produce (an int).  The
+        JAX package first keeps this process's slice of the hits; with one
+        process every hit is local."""
+        for nm in ("z3", "z2"):
+            idx = store._indexes.get(nm)
+            if idx is not None and getattr(idx, "_segments", None):
+                return idx.shard_of_gids(positions)
+        return self._mesh.size
+
     def density_tile(self, name: str, z: int, x: int, y: int, *,
                      tile: int = 256, query=None,
                      timeout_ms: float | None = None) -> np.ndarray:

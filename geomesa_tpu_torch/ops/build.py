@@ -23,7 +23,7 @@ __all__ = ["KERNELS", "build", "build_all", "load", "BUILD_DIR"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "geomesa_tpu_torch"
 #: every kernel source of the port (csrc/<name>.cu)
-KERNELS = ("z3_mask", "z2_mask", "density_grid")
+KERNELS = ("z3_mask", "z2_mask", "density_grid", "hist1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

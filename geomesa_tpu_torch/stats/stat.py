@@ -311,11 +311,22 @@ def _string_digest(col: np.ndarray) -> np.ndarray:
     hash then derives via the seeded splitmix finalize — which is what
     lets the DEVICE count-min sketch serve string columns bit-identically:
     the digest column ships to the device as plain
-    int64 and the device's numeric hash path takes over unchanged."""
-    return np.fromiter(
-        ((zlib.crc32(b) | (zlib.crc32(b, 0x9E3779B9) << 32))
-         for b in (str(v).encode() for v in col)),
-        dtype=np.uint64, count=len(col))
+    int64 and the device's numeric hash path takes over unchanged.
+
+    The digest depends on ``str(v)`` alone, so it is computed once per
+    distinct string (a column of a few categories costs one dict lookup
+    a row, not two crc32 passes)."""
+    memo: dict = {}
+
+    def digest(v):
+        s = str(v)
+        d = memo.get(s)
+        if d is None:
+            b = s.encode()
+            d = memo[s] = zlib.crc32(b) | (zlib.crc32(b, 0x9E3779B9) << 32)
+        return d
+
+    return np.fromiter(map(digest, col), dtype=np.uint64, count=len(col))
 
 
 def _hash_col(col: np.ndarray, seed: int) -> np.ndarray:

@@ -19,6 +19,9 @@ from geomesa_tpu_torch.index.z3 import Z3PointIndex
 from geomesa_tpu_torch.ops.density_kernel import (
     density_grid_kernel, density_grid_kernel_reference,
 )
+from geomesa_tpu_torch.ops.hist1d_kernel import (
+    hist1d, hist1d_reference, launch_shape,
+)
 from geomesa_tpu_torch.ops.z2_mask import z2_mask, z2_mask_reference
 from geomesa_tpu_torch.ops.z3_mask import z3_mask, z3_mask_reference
 
@@ -262,3 +265,77 @@ def test_density_process_on_card_matches_cpu(cuda_device):
     gpu_tile, cpu_tile = (ds.density_tile("s", 2, 1, 1, tile=64)
                           for ds in stores)
     np.testing.assert_array_equal(gpu_tile, cpu_tile)
+
+
+@pytest.mark.parametrize("n,n_bins", [
+    (1 << 22, 64),              # shared-memory replicas, one per warp
+    ((1 << 22) + 37, 1024),     # ragged tail, a Frequency width
+    (1 << 20, 20_000),          # one shared copy above the 48 KB opt-in
+    (1 << 20, 65_536),          # wider than shared memory: global atomics
+    (1, 1),
+    (0, 64),
+])
+@pytest.mark.parametrize("unit", [True, False])
+def test_hist1d_kernel_matches_reference(cuda_device, n, n_bins, unit):
+    rng = np.random.default_rng(n + n_bins)
+    bins = torch.tensor(rng.integers(-9, n_bins + 9, n).astype(np.int32))
+    w = torch.tensor((np.ones(n) if unit else rng.uniform(0, 3, n))
+                     .astype(np.float32))
+    mask = torch.tensor(rng.random(n) < 0.6)
+    args = [t.to(cuda_device) for t in (bins, w, mask)]
+    before = hist1d.launches
+    got = hist1d(*args, n_bins)
+    torch.cuda.synchronize()
+    assert hist1d.launches == before + (1 if n else 0)
+    assert got.dtype == torch.float32 and got.shape == (n_bins,)
+    want = hist1d_reference(*args, n_bins)
+    if unit:
+        # integer partials below 2^24 are exact in float32
+        assert torch.equal(got, want)
+    else:
+        # float32 atomics sum in an order that changes from run to run
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    copies = launch_shape(max(n, 1), n_bins, 132)[1]
+    assert (copies == 0) == (n_bins == 65_536)
+
+
+def test_hist1d_kernel_rejects_mixed_devices(cuda_device):
+    b = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    w = torch.ones(8, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError):
+        hist1d(b, w, torch.ones(8, dtype=torch.bool), 8)
+
+
+def test_mesh_store_on_card_matches_cpu(cuda_device):
+    """The mesh store on a one-card mesh against the same store on a
+    one-device CPU mesh: positions, heatmaps (the card's float32 grid
+    equals the CPU's float64 counts cast) and stats, the histograms
+    through the hist1d kernel."""
+    from geomesa_tpu_torch import device_mesh
+    rng = np.random.default_rng(13)
+    n = 100_000
+    data = {"actor": rng.choice(["a", "b", "c"], n).astype(object),
+            "score": rng.uniform(0, 100, n),
+            "dtg": rng.integers(MS_2018, MS_2018 + 30 * DAY, n),
+            "geom": (rng.uniform(-20, 20, n), rng.uniform(-10, 10, n))}
+    stores = []
+    for dev, mesh in ((cuda_device, device_mesh(1)),
+                      ("cpu", device_mesh(devices=["cpu"]))):
+        ds = TpuDataStore(device=dev, mesh=mesh)
+        ds.create_schema("s", "actor:String,score:Double,dtg:Date,*geom:Point")
+        ds.write("s", data)
+        stores.append(ds)
+    q = ("BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+         "2018-01-03T00:00:00Z/2018-01-19T00:00:00Z")
+    for ecql in (q, "BBOX(geom, -5, -5, 5, 5)"):
+        g, c = (ds.query_result("s", ecql).positions for ds in stores)
+        np.testing.assert_array_equal(g, c)
+    g, c = (density_process(ds, "s", q, (-20, -10, 20, 10), 64, 32)
+            for ds in stores)
+    np.testing.assert_array_equal(g, c.astype(np.float32))
+    before = hist1d.launches
+    spec = ("Count();MinMax(score);Histogram(score,64,0,100);"
+            "Frequency(actor,4,1024)")
+    g, c = (ds.stats("s", q, spec) for ds in stores)
+    assert g.to_json() == c.to_json()
+    assert hist1d.launches == before + 1 + 4

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from geomesa_tpu.datastore import TpuDataStore as JaxStore
-from geomesa_tpu_torch import TpuDataStore
+from geomesa_tpu.parallel import device_mesh as jax_mesh
+from geomesa_tpu_torch import TpuDataStore, device_mesh
 
 MS_2018 = 1514764800000
 DAY = 86_400_000
@@ -186,7 +187,8 @@ def test_unserved_options_raise(stores):
     with pytest.raises(NotImplementedError):
         tds.write("gdelt", _batch(4, 3), visibility="admin")
     with pytest.raises(NotImplementedError):
-        TpuDataStore(device="cpu", mesh=object())
+        TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"] * 2),
+                     multihost=True)
     with pytest.raises(NotImplementedError):
         TpuDataStore(device="cpu", auth_provider=object())
 
@@ -222,3 +224,121 @@ def test_store_without_device_needs_a_card(monkeypatch):
         TpuDataStore()
     with pytest.raises(RuntimeError):
         TpuDataStore(device="cuda")
+
+
+# -- the mesh-backed store (test_datastore_mesh.py's queries) -------------
+MESH_SPEC = ("name:String:index=true,score:Double,dtg:Date,*geom:Point;"
+             "geomesa.z3.interval=week")
+MESH_N = 30_007
+MESH_ECQL = [
+    # z3
+    "BBOX(geom, -74.5, 40.5, -73.5, 41.5) AND dtg DURING "
+    "2018-01-03T00:00:00Z/2018-01-10T00:00:00Z",
+    # z2
+    "BBOX(geom, -74.2, 40.8, -73.9, 41.1)",
+    # temporal only
+    "dtg DURING 2018-01-05T00:00:00Z/2018-01-06T00:00:00Z",
+    # OR of boxes
+    "BBOX(geom, -74.9, 40.1, -74.6, 40.4) OR "
+    "BBOX(geom, -73.4, 41.6, -73.1, 41.9)",
+    # full scan
+    "score < 1.5",
+    "INTERSECTS(geom, POLYGON ((-74.5 40.5, -74 40.5, -74 41.5, "
+    "-74.5 41.5, -74.5 40.5))) AND dtg AFTER 2018-01-10T00:00:00Z",
+    # the JAX store serves these through its attribute index, which the
+    # port does not have (a full scan here): positions still agree
+    "name = 'beta' AND score > 90",
+]
+
+
+def _mesh_rows(seed, n):
+    rng = np.random.default_rng(seed)
+    return {
+        "name": rng.choice(["alpha", "beta", "gamma", "delta"], n),
+        "score": rng.uniform(0, 100, n),
+        "dtg": rng.integers(MS_2018, MS_2018 + 21 * DAY, n),
+        "geom": (rng.uniform(-75.0, -73.0, n), rng.uniform(40.0, 42.0, n)),
+    }
+
+
+@pytest.fixture(scope="module")
+def mesh_stores():
+    """The port's store on an 8-shard CPU mesh and the JAX store on the
+    8-device virtual mesh: one write, a query building both sharded
+    indexes, then a second write that appends to them."""
+    tds = TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"] * 8))
+    jds = JaxStore(mesh=jax_mesh())
+    first, second = _mesh_rows(77, MESH_N), _mesh_rows(78, 4_001)
+    for ds in (tds, jds):
+        ds.create_schema("events", MESH_SPEC)
+        ds.write("events", first)
+        ds.query_result("events", MESH_ECQL[0])
+        ds.query_result("events", MESH_ECQL[1])
+        ds.write("events", second)
+    return tds, jds
+
+
+@pytest.mark.parametrize("ecql", MESH_ECQL)
+def test_mesh_store_positions_match_jax(mesh_stores, ecql):
+    tds, jds = mesh_stores
+    got = tds.query_result("events", ecql)
+    want = jds.query_result("events", ecql)
+    np.testing.assert_array_equal(got.positions, want.positions)
+    np.testing.assert_array_equal(got.batch.ids, want.batch.ids)
+
+
+def test_mesh_store_shards_and_appends(mesh_stores):
+    from geomesa_tpu_torch.parallel import ShardedZ2Index, ShardedZ3Index
+    tds, jds = mesh_stores
+    st = tds._store("events")
+    assert st.build_counts == {"z3": 1, "z2": 1}
+    assert isinstance(st.z3_index(), ShardedZ3Index)
+    assert isinstance(st.z2_index(), ShardedZ2Index)
+    assert len(st.z3_index()) == len(st.z2_index()) == MESH_N + 4_001
+    jst = jds._store("events")
+    for name in ("z3", "z2"):
+        np.testing.assert_array_equal(st.index(name)._shard_counts,
+                                      jst.index(name)._shard_counts)
+        assert st.index(name)._segments == jst.index(name)._segments
+    for ecql, index in zip(MESH_ECQL, ["z3", "z2", "z3", "z2", "full"]):
+        assert tds.query_result("events", ecql).strategy.index == index
+        assert jds.query_result("events", ecql).strategy.index == index
+
+
+@pytest.mark.parametrize("weight", [None, "score"])
+@pytest.mark.parametrize("ecql", [
+    MESH_ECQL[0],
+    # ANDed bboxes intersect on the push-down
+    "BBOX(geom, -74.8, 40.2, -73.8, 41.2) AND BBOX(geom, -74.2, 40.8, "
+    "-73.2, 41.8) AND dtg DURING 2018-01-02T00:00:00Z/2018-01-12T00:00:00Z",
+    # a residual filter: the query path
+    MESH_ECQL[0] + " AND name = 'alpha'",
+    # disjoint AND: zero
+    "BBOX(geom, -74.8, 40.2, -74.5, 40.4) AND "
+    "BBOX(geom, -73.5, 41.5, -73.2, 41.8)",
+])
+def test_mesh_density_matches_jax(mesh_stores, ecql, weight):
+    """Mesh heatmaps (the per-shard push-down, or the query path under a
+    residual filter) against the JAX mesh store: unit weights bit for
+    bit, weighted within rtol 1e-12 (float64 sums in another order)."""
+    from geomesa_tpu.process import density_process as jax_density
+    from geomesa_tpu_torch import density_process
+    tds, jds = mesh_stores
+    env = (-75.0, 40.0, -73.0, 42.0)
+    got = density_process(tds, "events", ecql, env, 32, 16, weight)
+    want = np.asarray(jax_density(jds, "events", ecql, env, 32, 16, weight))
+    assert got.shape == want.shape == (16, 32)
+    if weight is None:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+    if "-74.5, 40.4" in ecql:
+        assert got.sum() == 0
+
+
+def test_mesh_density_tile_matches_jax(mesh_stores):
+    tds, jds = mesh_stores
+    got = tds.density_tile("events", 6, 18, 17, tile=16)
+    want = np.asarray(jds.density_tile("events", 6, 18, 17, tile=16))
+    np.testing.assert_array_equal(got, want)
+    assert got.sum() > 0

@@ -1,6 +1,7 @@
 """The port stands alone: importing geomesa_tpu_torch and running its
-queries (z3, z2) and a heatmap loads neither ``jax`` nor any module of
-``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
+queries (z3, z2), a heatmap, and a mesh store's query and stats loads
+neither ``jax`` nor any module of ``geomesa_tpu``, and its sources import
+neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
 import ast
@@ -31,13 +32,27 @@ r2 = ds.query_result("s", "BBOX(geom, -5, -5, 5, 5)")
 grid = geomesa_tpu_torch.density_process(ds, "s", "INCLUDE",
                                          (-10, -10, 10, 10), 16, 16)
 tile = ds.density_tile("s", 1, 1, 0, tile=8)
+from geomesa_tpu_torch import device_mesh
+ms = TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"] * 2))
+ms.create_schema("s", "actor:String,dtg:Date,*geom:Point")
+ms.write("s", {"actor": np.array(["a", "b"] * (n // 2), dtype=object),
+               "dtg": rng.integers(1514764800000, 1517443200000, n),
+               "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))})
+mq = ms.query_result("s", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+                          "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+mstat = ms.stats("s", "BBOX(geom, -5, -5, 5, 5)",
+                 "Count();Frequency(actor,4,64)")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
 print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "hits": int(len(r.positions)),
                   "strategy2": r2.strategy.index,
-                  "density": float(grid.sum()), "tile": float(tile.sum())}))
+                  "density": float(grid.sum()), "tile": float(tile.sum()),
+                  "mesh_strategy": mq.strategy.index,
+                  "mesh_hits": int(len(mq.positions)),
+                  "mesh_count": int(mstat.stats[0].count),
+                  "mesh_freq": int(mstat.stats[1].table.sum())}))
 """
 
 
@@ -57,6 +72,9 @@ def test_import_and_query_load_no_jax():
     assert out["strategy"] == "z3" and out["hits"] > 0
     assert out["strategy2"] == "z2"
     assert out["density"] == 500 and out["tile"] > 0
+    assert out["mesh_strategy"] == "z3" and out["mesh_hits"] > 0
+    assert out["mesh_count"] > 0
+    assert out["mesh_freq"] == 4 * out["mesh_count"]
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
