@@ -14,12 +14,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    version (z3_mask and z2_mask bit for bit at 2^22 and 2^22 + 37
    candidates, z2_mask also at 2^24, the capacity its scan reaches on the
    main path, R = 1 and 8; density_grid at 2^24 clustered and uniform
-   points, 256x256 and 1024x1024 grids, unit weights bit for bit and
+   points, 256x256 and 1024x1024 grids, ~50% masked in, and 256x256
+   clustered with every point masked in, unit weights bit for bit and
    random weights within rtol 1e-6; hist1d at 16M rows, the mesh phase's
-   per-shard slot count, and 2^22 + 37, 64, 1024 and 65,536 bins, ids
-   past both ends, unit weights bit for bit and random weights within
-   rtol 1e-5), timed with CUDA events beside the plain version and, where
-   one exists, a PyTorch library call;
+   per-shard slot count, and 2^22 + 37, 64, 1024 and 65,536 bins, ~50%
+   masked in, and 16M rows at 64 bins every row masked in, ids past both
+   ends, unit weights bit for bit and random weights within rtol 1e-5),
+   timed with CUDA events beside the plain version and, where one exists,
+   a PyTorch library call; the ``kernels`` line reads the ~50% rows;
 4. index: ``Z3PointIndex.build`` over ``--points`` GDELT-like points (70%
    Gaussian clusters around 50 cities, 30% uniform, dtg uniform over 2018,
    WEEK bins), a 1M-row append, and 20 BBOX+DURING queries (city, region,
@@ -297,9 +299,11 @@ def z2_kernel_phase(rng, dev):
 def density_kernel_phase(rng, centres, dev):
     """The density kernel against its plain version at 2^24 points,
     clustered GDELT-like and uniform, over the world at 256x256 and
-    1024x1024, ~50% of the points masked in; unit weights bit for bit,
-    random float64 weights within rtol 1e-6 (float64 atomics sum in an
-    order that changes from run to run, then round to float32)."""
+    1024x1024, ~50% of the points masked in; and clustered at 256x256
+    with every point masked in (the mask process/density.py passes).
+    Unit weights bit for bit, random float64 weights within rtol 1e-6
+    (float64 sums in an order that changes from run to run, then rounded
+    to float32)."""
     import numpy as np
     import torch
     from geomesa_tpu_torch.ops.density_kernel import (
@@ -308,6 +312,63 @@ def density_kernel_phase(rng, centres, dev):
 
     n = 1 << 24
     rows = []
+
+    def measure(xd, yd, w, mask, dist, weights, size, share):
+        n_in = int(mask.sum())
+        args = (xd, yd, w, mask, WORLD, size, size)
+        got = density_grid_kernel(*args)
+        want = density_grid_kernel_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        if weights == "unit":
+            ok = torch.equal(got, want)
+        else:
+            ok = bool(torch.allclose(got, want, rtol=1e-6, atol=0))
+        if not ok:
+            raise AssertionError(
+                f"density kernel disagrees with its plain version "
+                f"({dist}, {weights}, {size}x{size}, {share:.0%} in): max "
+                f"abs err {err}")
+        total = float(got.double().sum())
+        if weights == "unit" and total != n_in:
+            raise AssertionError(f"density grid holds {total} points, not "
+                                 f"{n_in}")
+        # the library yardstick leaves the snap out: one torch.bincount
+        # over cells snapped beforehand
+        xmin, ymin, xmax, ymax = WORLD
+        ix = torch.clamp(torch.floor((xd - xmin) / ((xmax - xmin) / size)),
+                         0, size - 1).long()
+        iy = torch.clamp(torch.floor((yd - ymin) / ((ymax - ymin) / size)),
+                         0, size - 1).long()
+        cells = (iy * size + ix)[mask]
+        w_in = w[mask].float().double()
+        k1 = cuda_ms(lambda: density_grid_kernel(*args), 20)
+        p1 = cuda_ms(lambda: density_grid_kernel_reference(*args), 5)
+        l1 = cuda_ms(lambda: torch.bincount(cells, w_in,
+                                            minlength=size * size), 20)
+        k2 = cuda_ms(lambda: density_grid_kernel(*args), 20)
+        p2 = cuda_ms(lambda: density_grid_kernel_reference(*args), 5)
+        l2 = cuda_ms(lambda: torch.bincount(cells, w_in,
+                                            minlength=size * size), 20)
+        del cells, w_in
+        # this run's data: the mask byte of every point, x, y and w of the
+        # masked-in ones, the float32 grid written once; ~30 float64
+        # instructions per masked-in point (two subtract-divide-floor-
+        # clamp chains, the division some 10)
+        b_ms, b_by = bound(n + 24 * n_in + 4 * size * size, 30 * n_in,
+                           FP64_OPS_PER_S)
+        rows.append({"n": n, "dist": dist, "weights": weights,
+                     "grid": size, "masked_in_share": share,
+                     "masked_in": n_in, "max_abs_err": err, "total": total,
+                     "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "library_ms": min(l1, l2),
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log(f"kernel density_grid {dist} {weights} {size}x{size} N={n} "
+            f"{share:.0%} in: equal (max abs err {err:g}), "
+            f"{rows[-1]['ms']:.4f} ms (plain {rows[-1]['plain_ms']:.4f} ms, "
+            f"bincount {rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"by {b_by})")
+
     for dist in ("clustered", "uniform"):
         if dist == "clustered":
             x, y, _ = gdelt_like(rng, n, centres)
@@ -316,68 +377,16 @@ def density_kernel_phase(rng, centres, dev):
             y = rng.uniform(-90.0, 90.0, n)
         xd, yd = (torch.tensor(a, device=dev) for a in (x, y))
         mask = torch.tensor(rng.random(n) < 0.5, device=dev)
-        n_in = int(mask.sum())
         for weights in ("unit", "random"):
             w = (torch.ones(n, dtype=torch.float64, device=dev)
                  if weights == "unit" else
                  torch.tensor(rng.uniform(0.5, 2.0, n), device=dev))
             for size in (256, 1024):
-                args = (xd, yd, w, mask, WORLD, size, size)
-                got = density_grid_kernel(*args)
-                want = density_grid_kernel_reference(*args)
-                torch.cuda.synchronize()
-                err = float((got.double() - want.double()).abs().max())
-                if weights == "unit":
-                    ok = torch.equal(got, want)
-                else:
-                    ok = bool(torch.allclose(got, want, rtol=1e-6, atol=0))
-                if not ok:
-                    raise AssertionError(
-                        f"density kernel disagrees with its plain version "
-                        f"({dist}, {weights}, {size}x{size}): max abs err "
-                        f"{err}")
-                total = float(got.double().sum())
-                if weights == "unit" and total != n_in:
-                    raise AssertionError(f"density grid holds {total} "
-                                         f"points, not {n_in}")
-                # the library yardstick leaves the snap out: one
-                # torch.bincount over cells snapped beforehand
-                xmin, ymin, xmax, ymax = WORLD
-                ix = torch.clamp(torch.floor((xd - xmin) / ((xmax - xmin)
-                                                            / size)),
-                                 0, size - 1).long()
-                iy = torch.clamp(torch.floor((yd - ymin) / ((ymax - ymin)
-                                                            / size)),
-                                 0, size - 1).long()
-                cells = (iy * size + ix)[mask]
-                w_in = w[mask].float().double()
-                k1 = cuda_ms(lambda: density_grid_kernel(*args), 20)
-                p1 = cuda_ms(lambda: density_grid_kernel_reference(*args), 5)
-                l1 = cuda_ms(lambda: torch.bincount(
-                    cells, w_in, minlength=size * size), 20)
-                k2 = cuda_ms(lambda: density_grid_kernel(*args), 20)
-                p2 = cuda_ms(lambda: density_grid_kernel_reference(*args), 5)
-                l2 = cuda_ms(lambda: torch.bincount(
-                    cells, w_in, minlength=size * size), 20)
-                del cells, w_in
-                # this run's data: the mask byte of every point, x, y and w
-                # of the masked-in ones, the float32 grid written once;
-                # ~30 float64 instructions per masked-in point (two
-                # subtract-divide-floor-clamp chains, the division some 10)
-                b_ms, b_by = bound(n + 24 * n_in + 4 * size * size,
-                                   30 * n_in, FP64_OPS_PER_S)
-                rows.append({"n": n, "dist": dist, "weights": weights,
-                             "grid": size, "masked_in": n_in,
-                             "max_abs_err": err, "total": total,
-                             "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                             "library_ms": min(l1, l2),
-                             "bound_ms": b_ms, "bound_by": b_by})
-                log(f"kernel density_grid {dist} {weights} {size}x{size} "
-                    f"N={n}: equal (max abs err {err:g}), "
-                    f"{rows[-1]['ms']:.4f} ms (plain "
-                    f"{rows[-1]['plain_ms']:.4f} ms, bincount "
-                    f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-                    f"by {b_by})")
+                measure(xd, yd, w, mask, dist, weights, size, 0.5)
+        if dist == "clustered":
+            w = torch.ones(n, dtype=torch.float64, device=dev)
+            measure(xd, yd, w, torch.ones(n, dtype=torch.bool, device=dev),
+                    dist, "unit", 256, 1.0)
         del xd, yd, mask, w
     torch.cuda.empty_cache()
     return rows
@@ -387,74 +396,82 @@ def hist1d_kernel_phase(rng, dev):
     """The hist1d kernel against its plain version at 16M rows (the mesh
     phase's per-shard slot count) and a ragged 2^22 + 37, at 64 bins (a
     Histogram stat), 1024 (a Frequency width) and 65,536 (wider than a
-    block's shared memory: the global-atomic branch); ids run 16 past
-    both ends of the bins, ~50% of the rows are masked in; unit weights
-    bit for bit, random weights within rtol 1e-5 (float32 atomics sum in
-    an order that changes from run to run)."""
+    block's shared memory: a histogram spread over a cluster), ~50% of
+    the rows masked in; and at 16M rows and 64 bins with every row masked
+    in (the mesh phase's INCLUDE stats).  Ids run 16 past both ends of the
+    bins; unit weights bit for bit, random weights within rtol 1e-5
+    (float32 atomics sum in an order that changes from run to run)."""
     import numpy as np
     import torch
     from geomesa_tpu_torch.ops.hist1d_kernel import hist1d, hist1d_reference
 
     rows = []
+
+    def measure(bins, w, mask, n_bins, weights, share):
+        n = int(bins.shape[0])
+        n_in = int(mask.sum())
+        keep = mask & (bins >= 0) & (bins < n_bins)
+        n_kept = int(keep.sum())
+        args = (bins, w, mask, n_bins)
+        got = hist1d(*args)
+        want = hist1d_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        ok = (torch.equal(got, want) if weights == "unit" else
+              bool(torch.allclose(got, want, rtol=1e-5, atol=0)))
+        if not ok:
+            raise AssertionError(
+                f"hist1d kernel disagrees with its plain version at N={n} "
+                f"bins={n_bins} ({weights}, {share:.0%} in): max abs err "
+                f"{err}")
+        if weights == "unit" and float(got.double().sum()) != n_kept:
+            raise AssertionError(f"hist1d counts {got.sum()} rows, not "
+                                 f"{n_kept}")
+        # the library yardstick leaves the mask and the range test out:
+        # one torch.bincount over ids and weights prepared beforehand
+        ids = torch.where(keep, bins, 0).long()
+        w_in = torch.where(keep, w, 0.0)
+        k1 = cuda_ms(lambda: hist1d(*args), 20)
+        p1 = cuda_ms(lambda: hist1d_reference(*args), 3)
+        l1 = cuda_ms(lambda: torch.bincount(ids, w_in, minlength=n_bins), 10)
+        k2 = cuda_ms(lambda: hist1d(*args), 20)
+        p2 = cuda_ms(lambda: hist1d_reference(*args), 3)
+        l2 = cuda_ms(lambda: torch.bincount(ids, w_in, minlength=n_bins), 10)
+        del ids, w_in, keep
+        # this run's data: the mask byte of every row, the bin id and
+        # weight of each masked-in row, the float32 output once; a range
+        # test and an add per masked-in row
+        b_ms, b_by = bound(n + 8 * n_in + 4 * n_bins, 3 * n_in,
+                           INT32_OPS_PER_S)
+        rows.append({"n": n, "bins": n_bins, "weights": weights,
+                     "masked_in_share": share, "masked_in": n_in,
+                     "max_abs_err": err, "ms": min(k1, k2),
+                     "plain_ms": min(p1, p2), "library_ms": min(l1, l2),
+                     "library": "torch.bincount, mask and range test left "
+                                "out",
+                     "bound_ms": b_ms, "bound_by": b_by})
+        log(f"kernel hist1d N={n} bins={n_bins} {weights} {share:.0%} in: "
+            f"equal (max abs err {err:g}), {rows[-1]['ms']:.4f} ms (plain "
+            f"{rows[-1]['plain_ms']:.4f} ms, bincount "
+            f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by})")
+
     for n in (16_000_000, (1 << 22) + 37):
         mask = torch.tensor(rng.random(n) < 0.5, device=dev)
-        n_in = int(mask.sum())
         for n_bins in (64, 1024, 65_536):
             bins = torch.tensor(rng.integers(-16, n_bins + 16, n,
                                              dtype=np.int32), device=dev)
-            keep = mask & (bins >= 0) & (bins < n_bins)
-            n_kept = int(keep.sum())
             for weights in ("unit", "random"):
                 w = (torch.ones(n, dtype=torch.float32, device=dev)
                      if weights == "unit" else
                      torch.tensor(rng.uniform(0.0, 3.0, n).astype(np.float32),
                                   device=dev))
-                args = (bins, w, mask, n_bins)
-                got = hist1d(*args)
-                want = hist1d_reference(*args)
-                torch.cuda.synchronize()
-                err = float((got.double() - want.double()).abs().max())
-                ok = (torch.equal(got, want) if weights == "unit" else
-                      bool(torch.allclose(got, want, rtol=1e-5, atol=0)))
-                if not ok:
-                    raise AssertionError(
-                        f"hist1d kernel disagrees with its plain version at "
-                        f"N={n} bins={n_bins} ({weights}): max abs err {err}")
-                if weights == "unit" and float(got.double().sum()) != n_kept:
-                    raise AssertionError(f"hist1d counts {got.sum()} rows, "
-                                         f"not {n_kept}")
-                # the library yardstick leaves the mask and the range test
-                # out: one torch.bincount over ids and weights prepared
-                # beforehand
-                ids = torch.where(keep, bins, 0).long()
-                w_in = torch.where(keep, w, 0.0)
-                k1 = cuda_ms(lambda: hist1d(*args), 20)
-                p1 = cuda_ms(lambda: hist1d_reference(*args), 3)
-                l1 = cuda_ms(lambda: torch.bincount(ids, w_in,
-                                                    minlength=n_bins), 10)
-                k2 = cuda_ms(lambda: hist1d(*args), 20)
-                p2 = cuda_ms(lambda: hist1d_reference(*args), 3)
-                l2 = cuda_ms(lambda: torch.bincount(ids, w_in,
-                                                    minlength=n_bins), 10)
-                del ids, w_in, w
-                # this run's data: the mask byte of every row, the bin id
-                # and weight of each masked-in row, the float32 output once;
-                # a range test and an add per masked-in row
-                b_ms, b_by = bound(n + 8 * n_in + 4 * n_bins, 3 * n_in,
-                                   INT32_OPS_PER_S)
-                rows.append({"n": n, "bins": n_bins, "weights": weights,
-                             "masked_in": n_in, "max_abs_err": err,
-                             "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                             "library_ms": min(l1, l2),
-                             "library": "torch.bincount, mask and range "
-                                        "test left out",
-                             "bound_ms": b_ms, "bound_by": b_by})
-                log(f"kernel hist1d N={n} bins={n_bins} {weights}: equal "
-                    f"(max abs err {err:g}), {rows[-1]['ms']:.4f} ms (plain "
-                    f"{rows[-1]['plain_ms']:.4f} ms, bincount "
-                    f"{rows[-1]['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-                    f"by {b_by})")
-            del bins, keep
+                measure(bins, w, mask, n_bins, weights, 0.5)
+            if n == 16_000_000 and n_bins == 64:
+                measure(bins, torch.ones(n, dtype=torch.float32, device=dev),
+                        torch.ones(n, dtype=torch.bool, device=dev), n_bins,
+                        "unit", 1.0)
+            del bins, w
         del mask
     torch.cuda.empty_cache()
     return rows
@@ -1177,11 +1194,12 @@ def main(argv=None) -> int:
                      pick(z2_rows, n=1 << 24, r=1)),
         kernel_entry("density_grid", f"{src}:305", launches["density_grid"],
                      dens_rows, pick(dens_rows, dist="clustered",
-                                     weights="unit", grid=256)),
+                                     weights="unit", grid=256,
+                                     masked_in_share=0.5)),
         # the mesh phase's shape: its per-shard slots, a Histogram stat
         kernel_entry("hist1d", f"{src}:554", mesh_launches["hist1d"],
                      hist_rows, pick(hist_rows, n=16_000_000, bins=64,
-                                     weights="unit")),
+                                     weights="unit", masked_in_share=0.5)),
     ]}
     if args.out:
         with open(args.out, "w") as f:

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` holds a plain C entry point.  It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into a shared library at first use, keyed
-by a hash of the source and flags, under ``build/geomesa_tpu_torch/`` at
-the root of the checkout, and bound with ``ctypes``.  Nothing is built at
-import time: the CPU-only test runs import every module and build nothing.
+by a hash of the source, the ``csrc/*.cuh`` headers and the flags, under
+``build/geomesa_tpu_torch/`` at the root of the checkout, and bound with
+``ctypes``.  Nothing is built at import time: the CPU-only test runs
+import every module and build nothing.
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ def _start(name: str):
     source and flags is already built: ``(lib, process, tmp)``, with
     ``process`` None when the library exists."""
     src = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(src.read_bytes()
+    # the headers of csrc/ a source may include count towards its hash
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{tag}.so"
     if lib.exists():

@@ -20,54 +20,100 @@ source; :func:`launch_shape` picks its grid and its shared-memory layout.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from .build import load
+from .launch import (
+    BLOCK_ROWS, CLUSTER_SIZES, MAX_SHARED_BYTES, STAGE_BYTES, THREADS, WARPS,
+    Resident, cdiv, pick_cluster,
+)
 
-__all__ = ["hist1d", "hist1d_reference", "launch_shape"]
+__all__ = ["hist1d", "hist1d_reference", "launch_shape", "Hist1dShape",
+           "MAX_SHARED_BYTES", "THREADS"]
 
-#: threads per block (the kernel's ``kThreads``)
-THREADS = 512
-#: shared memory one block may use, after the opt-in (227 KB)
-MAX_SHARED_BYTES = 232_448
 #: shared memory spent on the replicas of a narrow histogram
 COPY_BUDGET_BYTES = 32 * 1024
-BLOCKS_PER_SM = 4
-
-_launch_fn = None
 
 
-def _launcher():
-    global _launch_fn
-    if _launch_fn is None:
-        fn = load("hist1d").hist1d_launch
+class Hist1dShape(NamedTuple):
+    """One launch: ``copies`` replicas per block of a uint32 count and a
+    float sum per bin (``cluster`` 1), unit weights counted in one
+    histogram spread over a cluster of 2..16 blocks, or every row a
+    global atomic into the output (``cluster`` 0); ``blocks`` in the grid; ``smem`` bytes of dynamic
+    shared memory per block."""
+    cluster: int
+    blocks: int
+    copies: int
+    smem: int
+
+
+def launch_shape(n: int, n_bins: int, resident: Resident) -> Hist1dShape:
+    """The launch over ``n`` rows and ``n_bins`` bins.
+
+    A histogram that fits one block's shared memory as a uint32 count and
+    a float sum per bin is kept there, in ``copies`` replicas (one per
+    group of warps, within 32 KB), so few bins do not send a whole block
+    to the same words.  A wider one counts its unit weights in a
+    cluster's distributed shared memory when
+    :func:`~geomesa_tpu_torch.ops.launch.pick_cluster` finds a cluster
+    that holds it, other weights adding straight into the output, as
+    every row does when none does.  The grid fills what the card holds resident
+    (``resident(cluster, smem)`` blocks), no more blocks than there are
+    tiles of rows, and in the shared-memory branches holds the flush
+    (``n_bins`` global atomics per block or cluster) below ``n``."""
+    # one block keeps a uint32 count and a float sum per bin; a cluster
+    # only the counts
+    cluster, smem = pick_cluster(n_bins, 8, resident, sizes=(1,))
+    if cluster == 0:
+        cluster, smem = pick_cluster(n_bins, 4, resident,
+                                     sizes=CLUSTER_SIZES[1:])
+    if cluster == 0:
+        blocks = max(1, min(resident(0, smem), cdiv(n, BLOCK_ROWS)))
+        return Hist1dShape(0, blocks, 0, smem)
+    copies = 1
+    if cluster == 1:
+        copies = max(1, min(WARPS, COPY_BUDGET_BYTES // (8 * n_bins)))
+        smem = copies * 8 * n_bins + STAGE_BYTES
+    units = max(1, min(resident(cluster, smem) // cluster,
+                       cdiv(n, BLOCK_ROWS * cluster), n // n_bins))
+    return Hist1dShape(cluster, units * cluster, copies, smem)
+
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = load("hist1d")
+        fn = lib.hist1d_launch
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        _launch_fn = fn
-    return _launch_fn
+        res = lib.hist1d_resident
+        res.restype = ctypes.c_int
+        res.argtypes = [ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_int)]
+        _lib = lib
+    return _lib
 
 
-def launch_shape(n: int, n_bins: int, sm_count: int) -> tuple[int, int]:
-    """``(blocks, copies)`` of one launch over ``n`` rows.
-
-    ``copies`` is the number of replicas of the histogram a block keeps in
-    shared memory (one per group of warps, so few bins do not send a whole
-    block to the same words), or 0 when one copy does not fit and the
-    kernel adds straight into the output.  The grid fills the card a few
-    blocks per SM, and in the shared-memory case holds the flush (``n_bins``
-    global atomics per block) below ``n``."""
-    row_bytes = 4 * n_bins
-    if row_bytes > MAX_SHARED_BYTES:
-        copies = 0
-    else:
-        copies = max(1, min(THREADS // 32, COPY_BUDGET_BYTES // row_bytes))
-    blocks = min(sm_count * BLOCKS_PER_SM, -(-n // THREADS))
-    if copies:
-        blocks = min(blocks, max(1, n // n_bins))
-    return blocks, copies
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, cluster: int, smem: int) -> int:
+    """Blocks of that shape card ``index`` holds at once (the card's own
+    occupancy query)."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _library().hist1d_resident(cluster, smem, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"hist1d occupancy query failed: CUDA error "
+                           f"{err}")
+    return blocks.value
 
 
 def _check(bins, weights, mask, n_bins: int) -> None:
@@ -110,22 +156,30 @@ def hist1d(bins, weights, mask, n_bins: int) -> torch.Tensor:
         return hist1d_reference(bins, weights, mask, n_bins)
     if bins.device.type != "cuda":
         raise ValueError(f"hist1d: unsupported device {bins.device}")
-    out = torch.zeros(n_bins, dtype=torch.float32, device=bins.device)
     n = int(bins.shape[0])
     if n == 0:
-        return out
-    sm_count = torch.cuda.get_device_properties(
-        bins.device).multi_processor_count
-    blocks, copies = launch_shape(n, n_bins, sm_count)
+        return torch.zeros(n_bins, dtype=torch.float32, device=bins.device)
+    index = bins.device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    shape = _card_shape(index, n, n_bins)
+    out = torch.zeros(n_bins, dtype=torch.float32, device=bins.device)
+    vec = all(t.data_ptr() % 16 == 0 for t in (bins, weights, mask))
     with torch.cuda.device(bins.device):
         stream = torch.cuda.current_stream(bins.device).cuda_stream
-        err = _launcher()(bins.data_ptr(), weights.data_ptr(),
-                          mask.data_ptr(), n, n_bins, blocks, copies,
-                          out.data_ptr(), stream)
+        err = _library().hist1d_launch(
+            bins.data_ptr(), weights.data_ptr(), mask.data_ptr(), n, n_bins,
+            shape.cluster, shape.blocks, shape.copies, shape.smem, int(vec),
+            out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hist1d kernel launch failed: CUDA error {err}")
     hist1d.launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=256)
+def _card_shape(index: int, n: int, n_bins: int) -> Hist1dShape:
+    return launch_shape(n, n_bins, functools.partial(_resident, index))
 
 
 #: kernel launches since the count was last reset (CPU calls never count)

@@ -8,6 +8,8 @@ the suite's JAX conftest::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -16,12 +18,12 @@ from geomesa_tpu_torch import TpuDataStore, density_process
 from geomesa_tpu_torch.curve import z2_sfc, z3_sfc
 from geomesa_tpu_torch.index.z2 import Z2PointIndex
 from geomesa_tpu_torch.index.z3 import Z3PointIndex
+from geomesa_tpu_torch.ops import density_kernel as dk
+from geomesa_tpu_torch.ops import hist1d_kernel as hk
 from geomesa_tpu_torch.ops.density_kernel import (
     density_grid_kernel, density_grid_kernel_reference,
 )
-from geomesa_tpu_torch.ops.hist1d_kernel import (
-    hist1d, hist1d_reference, launch_shape,
-)
+from geomesa_tpu_torch.ops.hist1d_kernel import hist1d, hist1d_reference
 from geomesa_tpu_torch.ops.z2_mask import z2_mask, z2_mask_reference
 from geomesa_tpu_torch.ops.z3_mask import z3_mask, z3_mask_reference
 
@@ -157,7 +159,13 @@ def test_z2_mask_kernel_rejects_bad_inputs(cuda_device):
         z2_mask(z, ixy[:2].cpu())
 
 
-def _density_inputs(n, seed, device, unit=True, clustered=False):
+def _resident(module):
+    """The card's own occupancy query of a kernel module."""
+    return functools.partial(module._resident, torch.cuda.current_device())
+
+
+def _density_inputs(n, seed, device, unit=True, clustered=False,
+                    share=0.5):
     rng = np.random.default_rng(seed)
     if clustered:
         c = rng.uniform(-20, 20, (8, 2))
@@ -169,8 +177,17 @@ def _density_inputs(n, seed, device, unit=True, clustered=False):
         x = rng.uniform(-25, 25, n)
         y = rng.uniform(-12, 12, n)
     w = np.ones(n) if unit else rng.uniform(0.5, 2.0, n)
-    mask = rng.random(n) < 0.5
+    mask = rng.random(n) < share
     return [torch.tensor(a).to(device) for a in (x, y, w, mask)]
+
+
+def _density_check(got, want, unit):
+    if unit:
+        assert torch.equal(got, want)
+    else:
+        # float64 sums in an order that changes from run to run, then
+        # rounded to float32
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("n,w,h,unit,clustered", [
@@ -179,6 +196,9 @@ def _density_inputs(n, seed, device, unit=True, clustered=False):
     (100_003, 7, 5, False, False),
     (1, 3, 3, True, False),
     (200_000, 256, 128, False, True),
+    ((1 << 20) + 1, 256, 256, True, True),   # not a multiple of 16 rows
+    (300, 256, 256, True, True),              # below one 512-row tile
+    (300, 1024, 1024, False, False),
 ])
 def test_density_kernel_matches_reference(cuda_device, n, w, h, unit,
                                           clustered):
@@ -190,27 +210,135 @@ def test_density_kernel_matches_reference(cuda_device, n, w, h, unit,
     assert density_grid_kernel.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (h, w)
     want = density_grid_kernel_reference(*args, env, w, h)
+    _density_check(got, want, unit)
+
+
+@pytest.mark.parametrize("w,h,cluster", [
+    (218, 128, 1),        # the largest grid one block holds
+    (27_905, 1, 2),       # one cell more
+    (872, 512, 16),       # the largest at two blocks an SM
+    (446_465, 1, 8),      # one cell more
+    (892, 1024, 16),      # the largest a cluster holds
+    (913_409, 1, 0),      # one cell more: global atomics
+])
+@pytest.mark.parametrize("unit", [True, False])
+def test_density_kernel_branch_edges(cuda_device, w, h, cluster, unit):
+    """Each side of each branch edge of launch_shape, on the card's own
+    occupancy."""
+    n = 1 << 21
+    args = _density_inputs(n, w, cuda_device, unit)
+    env = (-20.0, -10.0, 20.0, 10.0)
+    shape = dk.launch_shape(n, w, h, _resident(dk))
+    assert shape.cluster == cluster
+    got = density_grid_kernel(*args, env, w, h)
+    _density_check(got, density_grid_kernel_reference(*args, env, w, h),
+                   unit)
+
+
+@pytest.mark.parametrize("w,h", [(256, 256), (7, 5), (1024, 1024)])
+@pytest.mark.parametrize("unit", [True, False])
+def test_density_kernel_hot_cell(cuda_device, w, h, unit):
+    """Every point in one cell, every point masked in: the warp merge and
+    the same-address adds of every branch."""
+    n = (1 << 20) + 3
+    rng = np.random.default_rng(w)
+    x = torch.full((n,), 1.25, dtype=torch.float64, device=cuda_device)
+    y = torch.full((n,), -0.5, dtype=torch.float64, device=cuda_device)
+    wt = (torch.ones(n, dtype=torch.float64, device=cuda_device) if unit
+          else torch.tensor(rng.uniform(0.5, 2.0, n), device=cuda_device))
+    mask = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    env = (-20.0, -10.0, 20.0, 10.0)
+    got = density_grid_kernel(x, y, wt, mask, env, w, h)
+    _density_check(got, density_grid_kernel_reference(x, y, wt, mask, env,
+                                                      w, h), unit)
+    assert int((got != 0).sum()) == 1
+
+
+@pytest.mark.parametrize("w,h", [(256, 256), (1024, 1024)])
+@pytest.mark.parametrize("unit", [True, False])
+def test_density_kernel_few_hot_cells(cuda_device, w, h, unit):
+    """Points spread over a few cells, half masked in: warps enter and
+    leave the merge of hot cells as their cells repeat or not."""
+    n = (1 << 20) + 7
+    rng = np.random.default_rng(w + 11)
+    hot = rng.random(n) < 0.8
+    x = np.where(hot, 1.0 + 0.05 * rng.integers(0, 4, n),
+                 rng.uniform(-20, 20, n))
+    y = np.where(hot, 0.5, rng.uniform(-10, 10, n))
+    wt = np.ones(n) if unit else rng.uniform(0.5, 2.0, n)
+    args = [torch.tensor(a).to(cuda_device)
+            for a in (x, y, wt, rng.random(n) < 0.5)]
+    env = (-20.0, -10.0, 20.0, 10.0)
+    _density_check(density_grid_kernel(*args, env, w, h),
+                   density_grid_kernel_reference(*args, env, w, h), unit)
+
+
+@pytest.mark.parametrize("unit", [True, False])
+def test_density_kernel_all_masked_in(cuda_device, unit):
+    """256x256 over clustered points, every point masked in (the mask
+    process/density.py passes)."""
+    n = 1 << 22
+    args = _density_inputs(n, 5, cuda_device, unit, clustered=True,
+                           share=1.0)
+    env = (-20.0, -10.0, 20.0, 10.0)
+    got = density_grid_kernel(*args, env, 256, 256)
+    _density_check(got, density_grid_kernel_reference(*args, env, 256, 256),
+                   unit)
     if unit:
-        assert torch.equal(got, want)
-    else:
-        # float64 atomics sum in an order that changes from run to run,
-        # then round to float32
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        assert float(got.double().sum()) == n
 
 
-def test_density_kernel_far_points_and_empty_mask(cuda_device):
+@pytest.mark.parametrize("w,h", [(256, 256), (7, 5), (1024, 1024)])
+def test_density_kernel_mixed_weights(cuda_device, w, h):
+    """Unit weights (counted in shared memory) and other weights (global
+    float64 atomics) in one launch."""
+    n = (1 << 20) + 5
+    x, y, wt, mask = _density_inputs(n, 7, cuda_device, False, True)
+    wt[::2] = 1.0
+    env = (-20.0, -10.0, 20.0, 10.0)
+    _density_check(density_grid_kernel(x, y, wt, mask, env, w, h),
+                   density_grid_kernel_reference(x, y, wt, mask, env, w, h),
+                   False)
+
+
+@pytest.mark.parametrize("w,h,cluster", [
+    (7, 5, 1),            # a private grid per block
+    (256, 256, 4),        # a grid spread over a cluster
+    (1024, 1024, 0),      # global atomics
+])
+@pytest.mark.parametrize("unit", [True, False])
+def test_density_kernel_far_points_and_empty_mask(cuda_device, w, h,
+                                                  cluster, unit):
+    """Points ~1e12 cells outside the envelope clamp to its edges; an
+    all-false mask gives a zero grid (the reduce pass over nothing
+    accumulated)."""
     x = torch.tensor([-1e12, 1e12, 0.0, 3e11], device=cuda_device,
                      dtype=torch.float64)
     y = torch.tensor([1e12, -1e12, 0.0, 0.0], device=cuda_device,
                      dtype=torch.float64)
-    w = torch.ones(4, dtype=torch.float64, device=cuda_device)
+    wt = (torch.ones(4, dtype=torch.float64, device=cuda_device) if unit
+          else torch.tensor([0.75, 1.5, 2.25, 0.5], dtype=torch.float64,
+                            device=cuda_device))
     env = (-1.0, -1.0, 1.0, 1.0)
+    assert dk.launch_shape(4, w, h, _resident(dk)).cluster == cluster
     for mask in (torch.ones(4, dtype=torch.bool, device=cuda_device),
                  torch.zeros(4, dtype=torch.bool, device=cuda_device)):
-        got = density_grid_kernel(x, y, w, mask, env, 16, 16)
+        got = density_grid_kernel(x, y, wt, mask, env, w, h)
         assert torch.equal(got, density_grid_kernel_reference(
-            x, y, w, mask, env, 16, 16))
-        assert float(got.sum()) == float(mask.sum())
+            x, y, wt, mask, env, w, h))
+        assert float(got.sum()) == float(wt[mask].sum())
+
+
+@pytest.mark.parametrize("w,h", [(256, 256), (7, 5), (1024, 1024)])
+def test_density_kernel_unaligned(cuda_device, w, h):
+    """Inputs not 16-byte aligned take the row-a-lane path."""
+    n = (1 << 20) + 9
+    x, y, wt, mask = _density_inputs(n, 3, cuda_device, True, True)
+    env = (-20.0, -10.0, 20.0, 10.0)
+    sub = [t[1:] for t in (x, y, wt, mask)]
+    assert sub[0].data_ptr() % 16 != 0
+    _density_check(density_grid_kernel(*sub, env, w, h),
+                   density_grid_kernel_reference(*sub, env, w, h), True)
 
 
 def test_density_kernel_rejects_mixed_devices(cuda_device):
@@ -295,8 +423,121 @@ def test_hist1d_kernel_matches_reference(cuda_device, n, n_bins, unit):
     else:
         # float32 atomics sum in an order that changes from run to run
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
-    copies = launch_shape(max(n, 1), n_bins, 132)[1]
-    assert (copies == 0) == (n_bins == 65_536)
+    shape = hk.launch_shape(max(n, 1), n_bins, _resident(hk))
+    # 65,536 bins: a histogram spread over a cluster
+    assert (shape.cluster > 1) == (n_bins == 65_536)
+
+
+def _hist_check(got, want, unit):
+    if unit:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("n_bins,cluster", [
+    (28_544, 1),        # the widest one block holds
+    (28_545, 2),        # one bin more
+    (446_464, 16),      # the widest at two blocks an SM
+    (446_465, 8),       # one bin more
+    (913_408, 16),      # the widest a cluster holds
+    (913_409, 0),       # one bin more: global atomics
+])
+@pytest.mark.parametrize("unit", [True, False])
+def test_hist1d_kernel_branch_edges(cuda_device, n_bins, cluster, unit):
+    """Each side of each branch edge of launch_shape, on the card's own
+    occupancy."""
+    n = 1 << 21
+    rng = np.random.default_rng(n_bins)
+    bins = torch.tensor(rng.integers(-9, n_bins + 9, n).astype(np.int32))
+    w = torch.tensor((np.ones(n) if unit else rng.uniform(0, 3, n))
+                     .astype(np.float32))
+    mask = torch.tensor(rng.random(n) < 0.6)
+    args = [t.to(cuda_device) for t in (bins, w, mask)]
+    assert hk.launch_shape(n, n_bins, _resident(hk)).cluster == cluster
+    _hist_check(hist1d(*args, n_bins), hist1d_reference(*args, n_bins),
+                unit)
+
+
+@pytest.mark.parametrize("n_bins", [64, 65_536, 913_409])
+@pytest.mark.parametrize("unit", [True, False])
+def test_hist1d_kernel_hot_bin(cuda_device, n_bins, unit):
+    """Every row in one bin, every row masked in.  Random weights over
+    fewer rows: float32 sums of millions of rows in one bin drift past
+    rtol 1e-5 in any order."""
+    n = (1 << 22) + 5 if unit else (1 << 16) + 5
+    rng = np.random.default_rng(n_bins)
+    bins = torch.full((n,), 5, dtype=torch.int32, device=cuda_device)
+    w = (torch.ones(n, dtype=torch.float32, device=cuda_device) if unit
+         else torch.tensor(rng.uniform(0, 3, n).astype(np.float32),
+                           device=cuda_device))
+    mask = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    got = hist1d(bins, w, mask, n_bins)
+    want = hist1d_reference(bins, w, mask, n_bins)
+    if unit:
+        assert torch.equal(got, want) and float(got[5]) == n
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("n_bins", [65_536, 913_409])
+@pytest.mark.parametrize("unit", [True, False])
+def test_hist1d_kernel_skewed_bins(cuda_device, n_bins, unit):
+    """Zipf-skewed bins, half masked in: warps enter and leave the merge
+    of hot bins as their bins repeat or not.  Random weights over fewer
+    rows, as for one hot bin."""
+    n = (1 << 22) + 5 if unit else (1 << 16) + 5
+    rng = np.random.default_rng(n_bins + 3)
+    bins = np.minimum(rng.zipf(1.3, n), n_bins + 9) - 1
+    w = np.ones(n) if unit else rng.uniform(0, 3, n)
+    args = [torch.tensor(a).to(cuda_device)
+            for a in (bins.astype(np.int32), w.astype(np.float32),
+                      rng.random(n) < 0.5)]
+    _hist_check(hist1d(*args, n_bins), hist1d_reference(*args, n_bins),
+                unit)
+
+
+@pytest.mark.parametrize("n,n_bins,share", [
+    (300, 64, 0.6),                # below one 512-row tile
+    ((1 << 20) + 1, 1024, 0.6),    # not a multiple of 16 rows
+    (1 << 22, 64, 1.0),            # every row masked in (INCLUDE stats)
+])
+def test_hist1d_kernel_tails_and_all_in(cuda_device, n, n_bins, share):
+    rng = np.random.default_rng(n)
+    bins = torch.tensor(rng.integers(-9, n_bins + 9, n).astype(np.int32))
+    w = torch.ones(n, dtype=torch.float32)
+    mask = torch.tensor(rng.random(n) < share)
+    args = [t.to(cuda_device) for t in (bins, w, mask)]
+    _hist_check(hist1d(*args, n_bins), hist1d_reference(*args, n_bins),
+                True)
+
+
+@pytest.mark.parametrize("n_bins", [64, 65_536, 913_409])
+def test_hist1d_kernel_mixed_weights(cuda_device, n_bins):
+    """Unit weights (counted in shared memory) and other weights (global
+    float atomics) in one launch."""
+    n = (1 << 21) + 3
+    rng = np.random.default_rng(n_bins + 2)
+    bins = torch.tensor(rng.integers(-9, n_bins + 9, n).astype(np.int32))
+    w = torch.tensor(rng.uniform(0, 3, n).astype(np.float32))
+    w[::2] = 1.0
+    mask = torch.tensor(rng.random(n) < 0.6)
+    args = [t.to(cuda_device) for t in (bins, w, mask)]
+    _hist_check(hist1d(*args, n_bins), hist1d_reference(*args, n_bins),
+                False)
+
+
+@pytest.mark.parametrize("n_bins", [64, 65_536, 913_409])
+def test_hist1d_kernel_unaligned(cuda_device, n_bins):
+    """Inputs not 16-byte aligned take the row-a-lane path."""
+    n = (1 << 21) + 9
+    rng = np.random.default_rng(n_bins + 1)
+    bins = torch.tensor(rng.integers(-9, n_bins + 9, n).astype(np.int32))
+    w = torch.ones(n, dtype=torch.float32)
+    mask = torch.tensor(rng.random(n) < 0.6)
+    sub = [t.to(cuda_device)[1:] for t in (bins, w, mask)]
+    assert sub[0].data_ptr() % 16 != 0
+    _hist_check(hist1d(*sub, n_bins), hist1d_reference(*sub, n_bins), True)
 
 
 def test_hist1d_kernel_rejects_mixed_devices(cuda_device):

@@ -22,7 +22,10 @@ from geomesa_tpu.process.density import density_process as j_density_process
 from geomesa_tpu_torch import TpuDataStore, density_process
 from geomesa_tpu_torch.ops import density as td
 from geomesa_tpu_torch.ops.density_kernel import (
-    density_grid_kernel, density_grid_kernel_reference,
+    density_grid_kernel, density_grid_kernel_reference, launch_shape,
+)
+from geomesa_tpu_torch.ops.launch import (
+    MAX_SHARED_BYTES, STAGE_BYTES, THREADS,
 )
 
 MS_2018 = 1514764800000
@@ -148,6 +151,62 @@ def test_kernel_checks_its_inputs():
         density_grid_kernel(x, y, wts, mask, ENV, 0, 8)
     with pytest.raises(ValueError):
         density_grid_kernel(x, y, wts, mask, ENV[:3], 8, 8)
+
+
+def _h100(cluster, smem, max_cluster=16):
+    """A model of an H100's occupancy query: 132 SMs of 228 KB (1 KB
+    reserved per block), 2048 threads each; clusters inside 8 GPCs of 16
+    SMs; none above ``max_cluster``."""
+    per_sm = min(2048 // THREADS, 233_472 // (smem + 1024))
+    if cluster <= 1:
+        return 132 * per_sm
+    if cluster > max_cluster:
+        return 0
+    return 8 * (16 * per_sm // cluster) * cluster
+
+
+@pytest.mark.parametrize("width,height,cluster", [
+    (7, 5, 1),
+    (218, 128, 1),        # 27,904 cells: the largest grid one block holds
+    (27_905, 1, 2),       # one cell more: a cluster of two
+    (256, 256, 4),        # the heatmap grid: 64 KB of counts a block
+    (872, 512, 16),       # 446,464 cells: the largest at two blocks an SM
+    (446_465, 1, 8),      # one cell more: 8 blocks, one an SM
+    (892, 1024, 16),      # 913,408 cells: the largest a cluster holds
+    (913_409, 1, 0),      # one cell more: global float64 atomics
+    (1024, 1024, 0),
+])
+def test_launch_shape(width, height, cluster):
+    """The branch the density kernel takes: unit weights counted in a
+    private uint32 grid per block, or in one spread over a cluster's
+    distributed shared memory, or with global atomics past what a
+    cluster of 16 holds; the partial count grids each cover at least two
+    points a cell."""
+    n = 1 << 24
+    cells = width * height
+    shape = launch_shape(n, width, height, _h100)
+    assert shape.cluster == cluster
+    assert shape.smem <= MAX_SHARED_BYTES
+    assert 1 <= shape.blocks <= _h100(shape.cluster, shape.smem)
+    if cluster:
+        assert shape.blocks % cluster == 0
+        assert shape.parts == shape.blocks // cluster
+        assert 4 * -(-cells // cluster) + STAGE_BYTES <= shape.smem
+        assert shape.parts * 2 * cells <= n
+    else:
+        assert (shape.parts, shape.smem) == (1, STAGE_BYTES)
+    # a few points: one block or cluster, one count grid
+    few = launch_shape(10, width, height, _h100)
+    assert (few.blocks, few.parts) == (max(cluster, 1), 1)
+
+
+def test_launch_shape_follows_the_card():
+    """A cluster size the card cannot hold is not chosen."""
+    def portable(c, smem):
+        return _h100(c, smem, max_cluster=8)
+    assert launch_shape(1 << 24, 892, 1024, portable).cluster == 0
+    assert launch_shape(1 << 24, 892, 512, portable).cluster == 8
+    assert launch_shape(1 << 24, 256, 256, portable).cluster == 4
 
 
 # -- density_process and density_tile on the store facade --------------------

@@ -17,6 +17,7 @@ from geomesa_tpu.ops.pallas_kernels import hist1d_pallas
 from geomesa_tpu_torch.ops.hist1d_kernel import (
     MAX_SHARED_BYTES, THREADS, hist1d, hist1d_reference, launch_shape,
 )
+from geomesa_tpu_torch.ops.launch import STAGE_BYTES
 
 
 def _case(seed, n, n_bins, weights):
@@ -113,22 +114,62 @@ def test_hist1d_reference_is_the_cpu_path():
     assert torch.equal(hist1d(*args), hist1d_reference(*args))
 
 
-@pytest.mark.parametrize("n_bins,copies", [
-    (64, THREADS // 32),             # one replica per warp
-    (1024, 8),
-    (58_112, 1),                     # one copy fills the 227 KB exactly
-    (58_113, 0),                     # wider: the global-atomic branch
-    (65_536, 0),
+def _h100(cluster, smem, max_cluster=16):
+    """A model of an H100's occupancy query: 132 SMs of 228 KB (1 KB
+    reserved per block), 2048 threads each; clusters inside 8 GPCs of 16
+    SMs; none above ``max_cluster``."""
+    per_sm = min(2048 // THREADS, 233_472 // (smem + 1024))
+    if cluster <= 1:
+        return 132 * per_sm
+    if cluster > max_cluster:
+        return 0
+    return 8 * (16 * per_sm // cluster) * cluster
+
+
+@pytest.mark.parametrize("n_bins,cluster,copies", [
+    (64, 1, THREADS // 32),         # one replica per warp
+    (1024, 1, 4),
+    (13_952, 1, 1),                 # the widest at two blocks an SM
+    (28_544, 1, 1),                 # the widest one block holds (227 KB)
+    (28_545, 2, 1),                 # one bin more: a cluster of two
+    (65_536, 4, 1),                 # 64 KB of counts a block
+    (446_464, 16, 1),               # the widest at two blocks an SM
+    (446_465, 8, 1),                # one bin more: one block an SM
+    (913_408, 16, 1),               # the widest a cluster holds (227 KB x 16)
+    (913_409, 0, 0),                # one bin more: global atomics
 ])
-def test_launch_shape(n_bins, copies):
-    """The shared-memory layout the kernel gets: replicas of a narrow
-    histogram, one copy of a wide one, none (global atomics) past the
-    227 KB a block may hold."""
-    blocks, got = launch_shape(16_000_000, n_bins, 132)
-    assert got == copies
-    assert got * 4 * n_bins <= MAX_SHARED_BYTES
-    assert 1 <= blocks <= 132 * 4
-    if copies:
-        # the flush (n_bins global atomics per block) stays below N
-        assert blocks * n_bins <= 16_000_000
-    assert launch_shape(10, 64, 132)[0] == 1
+def test_launch_shape(n_bins, cluster, copies):
+    """The branch the kernel takes: replicas of a count and a float sum
+    per bin in one block, counts spread over a cluster's distributed
+    shared memory, global atomics past what a cluster of 16 holds."""
+    n = 16_000_000
+    shape = launch_shape(n, n_bins, _h100)
+    assert (shape.cluster, shape.copies) == (cluster, copies)
+    assert shape.smem <= MAX_SHARED_BYTES
+    assert 1 <= shape.blocks <= _h100(shape.cluster, shape.smem)
+    if cluster:
+        assert shape.blocks % cluster == 0
+        held = (8 * n_bins * copies if cluster == 1
+                else 4 * -(-n_bins // cluster))
+        assert held + STAGE_BYTES <= shape.smem
+        # the flush (n_bins global atomics per block or cluster) stays
+        # below N
+        assert shape.blocks // cluster * n_bins <= n
+    else:
+        assert shape.smem == STAGE_BYTES
+    # a few rows: one block, or one cluster
+    assert launch_shape(10, n_bins, _h100).blocks == max(cluster, 1)
+
+
+def test_launch_shape_follows_the_card():
+    """A cluster size the card cannot hold is not chosen: without
+    non-portable clusters (at most 8) the widest histograms go to global
+    atomics, and the rest to the next cluster size that fits."""
+    def portable(c, smem):
+        return _h100(c, smem, max_cluster=8)
+    assert launch_shape(16_000_000, 913_408, portable).cluster == 0
+    assert launch_shape(16_000_000, 446_464, portable).cluster == 8
+    assert launch_shape(16_000_000, 64, portable).cluster == 1
+    # a card of 8 SMs holds fewer blocks
+    small = launch_shape(16_000_000, 64, lambda c, s: _h100(c, s) // 132 * 8)
+    assert small.blocks == _h100(1, small.smem) // 132 * 8
