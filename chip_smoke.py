@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--points 100000000]
                           [--facade-rows 16000000] [--places-rows 4000000]
-                          [--mesh-rows 16000000] [--profile] [--out FILE]
+                          [--mesh-rows 16000000] [--lean-rows 128000000]
+                          [--lean-slots 16777216] [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -52,11 +53,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    grows the shard to 2^25 slots, and the Histogram spec again, now on
    the int64 route.  Every result equals a numpy oracle over the rows,
    and ``hist1d`` launches once per kernel-route Histogram and ``depth``
-   times per Frequency, and never on the int64 route.
+   times per Frequency, and never on the int64 route;
+8. lean: ``TpuDataStore(device="cuda")`` on schema ``scale``
+   (``score:Double,dtg:Date,*geom:Point``, no profile set) with
+   ``geomesa.lean.hbm.budget`` at 164 B a generation slot (one full and
+   four keys generations beside the sentinel charges): ``--lean-rows``
+   GDELT-like rows in 4 writes, the first of which switches the schema
+   to the lean profile, ending with generations in all three tiers
+   (full, keys, host); 8 BBOX+DURING queries (3 city, 3 region, 2
+   continent) and 2 BBOX-only ones, positions and implicit ids equal to
+   the oracle; ``Count()`` on INCLUDE (pushed down) and on BBOX+DURING;
+   256x256 ``density_process`` heatmaps over a BBOX+DURING and the world
+   (pushed down, held to the per-tier contract: value-exact on
+   full-tier rows, cell-inclusive on keys and host rows, binned at the
+   z-cell centre), a ``score``-weighted heatmap (the query path and the
+   density kernel, rtol 1e-5), ``density_tile`` at z = 1 (a slice of the
+   world sweep) and z = 3 (a bbox scan); then ``compact``, after which
+   the generation count has fallen and two queries and the world heatmap
+   still equal the oracle.  Kernel launches of three queries are
+   counted with ``torch.profiler``.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
-after phase 6, and again just before and after phase 7; a kernel of a
-path that was never launched on it fails the run.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
+after phase 6, and again just before and after phase 7 and phase 8; a
+kernel of a path that was never launched on it fails the run (on the
+lean path, density_grid).  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or without the ``geomesa_tpu_torch``
 package beside this script, it exits non-zero and prints no result.
@@ -1085,6 +1105,331 @@ def mesh_phase(rng, args, centres, dev, report):
     torch.cuda.empty_cache()
 
 
+def lean_norm(v, lo: float, hi: float, bits: int = 21):
+    """numpy BitNormalizedDimension.normalize: floor((v - lo) · 2^bits /
+    (hi - lo)), clamped to [0, 2^bits - 1] (v >= hi → the top cell)."""
+    import numpy as np
+    n = 1 << bits
+    i = np.floor((np.maximum(v, lo) - lo) * (n / (hi - lo)))
+    return np.clip(i, 0, n - 1).astype(np.int64)
+
+
+def lean_denorm(i, lo: float, hi: float, bits: int = 21):
+    """numpy BitNormalizedDimension.denormalize: the cell's centre."""
+    return lo + (i + 0.5) * ((hi - lo) / (1 << bits))
+
+
+def lean_density_oracle(cols, layout, boxes, lo, hi, env, width: int,
+                        height: int, chunk: int = 1 << 24):
+    """numpy oracle of the lean density contract, per tier: rows of a
+    full-tier generation pass the exact box and [lo, hi] tests, rows of
+    a keys- or host-tier generation the z-cell tests (normalized box
+    bounds, (week bin, time cell) between those of lo and hi); every
+    passing row bins at its z-cell centre (floor over ``env``, clipped).
+    ``layout`` is the index's ``(base, n, tier)`` per generation."""
+    import numpy as np
+    from geomesa_tpu_torch.curve.binnedtime import (
+        TimePeriod, max_offset, to_binned_time)
+    x, y, t = cols
+    t_max = float(max_offset(TimePeriod.WEEK))
+    nb = [[int(lean_norm(np.float64(b[0]), -180, 180)),
+           int(lean_norm(np.float64(b[1]), -90, 90)),
+           int(lean_norm(np.float64(b[2]), -180, 180)),
+           int(lean_norm(np.float64(b[3]), -90, 90))] for b in boxes]
+    (b_lo,), (o_lo,) = to_binned_time(np.array([lo]), TimePeriod.WEEK)
+    (b_hi,), (o_hi,) = to_binned_time(np.array([hi]), TimePeriod.WEEK)
+    c_lo = int(lean_norm(np.float64(o_lo), 0.0, t_max))
+    c_hi = int(lean_norm(np.float64(o_hi), 0.0, t_max))
+    counts = np.zeros(width * height, dtype=np.int64)
+    for base, n, tier in layout:
+        for s in range(base, base + n, chunk):
+            e = min(s + chunk, base + n)
+            xc, yc, tc = x[s:e], y[s:e], t[s:e]
+            ix = lean_norm(xc, -180, 180)
+            iy = lean_norm(yc, -90, 90)
+            m = np.zeros(e - s, dtype=bool)
+            if tier == "full":
+                for b in boxes:
+                    m |= ((xc >= b[0]) & (xc <= b[2]) & (yc >= b[1])
+                          & (yc <= b[3]))
+                m &= (tc >= lo) & (tc <= hi)
+            else:
+                for b in nb:
+                    m |= ((ix >= b[0]) & (ix <= b[2]) & (iy >= b[1])
+                          & (iy <= b[3]))
+                sel = np.flatnonzero(m)
+                bins, offs = to_binned_time(tc[sel], TimePeriod.WEEK)
+                it = lean_norm(offs.astype(np.float64), 0.0, t_max)
+                ok = (((bins > b_lo) | ((bins == b_lo) & (it >= c_lo)))
+                      & ((bins < b_hi) | ((bins == b_hi) & (it <= c_hi))))
+                m[sel] = ok
+            xd = lean_denorm(ix[m], -180, 180)
+            yd = lean_denorm(iy[m], -90, 90)
+            gx = np.clip(((xd - env[0]) / max(env[2] - env[0], 1e-12)
+                          * width).astype(np.int64), 0, width - 1)
+            gy = np.clip(((yd - env[1]) / max(env[3] - env[1], 1e-12)
+                          * height).astype(np.int64), 0, height - 1)
+            counts += np.bincount(gy * width + gx,
+                                  minlength=width * height)
+    return counts.astype(np.float64).reshape(height, width)
+
+
+def snap_weighted(x, y, w, env, width: int, height: int):
+    """numpy weighted histogram of points snapped as GridSnap snaps them,
+    the weights cast to float32 and summed in float64."""
+    import numpy as np
+    xmin, ymin, xmax, ymax = env
+    dx, dy = (xmax - xmin) / width, (ymax - ymin) / height
+    ix = np.clip(np.floor((x - xmin) / dx), 0, width - 1).astype(np.int64)
+    iy = np.clip(np.floor((y - ymin) / dy), 0, height - 1).astype(np.int64)
+    return np.bincount(iy * width + ix,
+                       weights=w.astype(np.float32).astype(np.float64),
+                       minlength=width * height).reshape(height, width)
+
+
+def device_launches(fn) -> dict:
+    """Kernel launches of one call of ``fn`` under ``torch.profiler``:
+    device-side events (kernels, copies, sets) and launch calls on the
+    host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    return {"device_events": int(sum(
+                e.count for e in avg
+                if e.device_type == torch.autograd.DeviceType.CUDA)),
+            "launch_calls": int(sum(
+                e.count for e in avg if e.key.startswith("cudaLaunchKernel")))}
+
+
+def lean_phase(rng, args, centres, qs, dev, report):
+    """The lean profile: ``--lean-rows`` GDELT-like rows (with a ``score``)
+    written in 4 batches to a schema with no profile set, whose first
+    write switches it to lean; a budget that leaves all three tiers;
+    BBOX+DURING and BBOX queries, Count, heatmaps (pushed down and
+    weighted) and tiles against numpy oracles, before and after
+    ``compact``."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore, density_process
+    from geomesa_tpu_torch.index.pyramid import tile_env
+    from geomesa_tpu_torch.index.z3_lean import LeanZ3Index
+
+    cuda = dev.type == "cuda"
+    slots = args.lean_slots
+    # one full generation (40 B a slot), four keys ones (16 B) and the
+    # sentinel charges (16 + 40 B) take 160 B a slot; a fifth keys one
+    # would take 176
+    budget = 164 * slots
+    ud = [f"geomesa.lean.hbm.budget={budget}",
+          # opportunistic compaction off: compact() below merges at the
+          # index's class factor
+          "geomesa.lean.compaction.factor=0"]
+    if slots != LeanZ3Index.GENERATION_SLOTS:
+        ud.append(f"geomesa.lean.generation.slots={slots}")
+    ds = TpuDataStore(device=dev)
+    ds.create_schema("scale", "score:Double,dtg:Date,*geom:Point;"
+                     + ",".join(ud))
+    store = ds._store("scale")
+    per = args.lean_rows // 4
+    if per < TpuDataStore.LEAN_AUTO_ROWS:
+        raise AssertionError(f"{per} rows a write do not reach the lean "
+                             f"switch ({TpuDataStore.LEAN_AUTO_ROWS})")
+    write_s = []
+    for i in range(4):
+        x, y, t = gdelt_like(rng, per, centres)
+        score = rng.uniform(0.0, 100.0, per)
+        t0 = time.perf_counter()
+        ds.write("scale", {"score": score, "dtg": t, "geom": (x, y)})
+        store.z3_index().block()
+        write_s.append(time.perf_counter() - t0)
+        if i == 0 and not (store.lean and store.sft.user_data.get(
+                "geomesa.index.profile") == "lean"):
+            raise AssertionError("the first write did not switch the "
+                                 "schema to the lean profile")
+    del x, y, t, score
+    idx = store.z3_index()
+    n = 4 * per
+    x, y = store.batch.geom_xy()
+    t = store.batch.column("dtg")
+    score = store.batch.column("score")
+    tiers = idx.tier_counts()
+    if len(idx) != n or min(tiers.values()) == 0:
+        raise AssertionError(f"lean store of {len(idx)} rows, tiers {tiers}")
+    layout = [(g.base, g.n, g.tier) for g in idx.generations]
+    t_min, t_max = int(t.min()), int(t.max())
+    rep = {"rows": n, "slots": slots, "budget_bytes": budget,
+           "write_s": write_s, "write_rows_per_s": [per / s for s in write_s],
+           "tiers": tiers, "generations": len(idx.generations),
+           "device_bytes": idx.device_bytes(),
+           "host_key_bytes": idx.host_key_bytes(),
+           "memory_allocated": (int(torch.cuda.memory_allocated())
+                                if cuda else None)}
+    log(f"lean: {n} rows in 4 writes ({', '.join(f'{s:.2f}' for s in write_s)}"
+        f" s); tiers {tiers}; accounted device bytes {rep['device_bytes']}, "
+        f"allocated {rep['memory_allocated']}")
+
+    def bbox(b):
+        return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+    picks = ([q for q in qs if q[0] == "city"][:3]
+             + [q for q in qs if q[0] == "region"][:3]
+             + [q for q in qs if q[0] == "continent"][:2])
+    checks = []
+    for kind, boxes, lo, hi in picks:
+        # DURING takes whole seconds: the oracle reads the bounds as parsed
+        lo_s, hi_s = lo - lo % 1000, hi - hi % 1000
+        checks.append((kind, f"{bbox(boxes[0])} AND dtg DURING {iso(lo)}/"
+                             f"{iso(hi)}", boxes, lo_s, hi_s))
+    for kind, boxes, _lo, _hi in (picks[0], picks[3]):
+        checks.append((f"{kind}-bbox", bbox(boxes[0]), boxes, None, None))
+
+    def run_query(kind, ecql, boxes, lo, hi):
+        t0 = time.perf_counter()
+        res = ds.query_result("scale", ecql)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = (box_oracle(x, y, boxes) if lo is None
+                else oracle(x, y, t, boxes, lo, hi))
+        if res.strategy.index != "z3" or not np.array_equal(res.positions,
+                                                            want):
+            raise AssertionError(
+                f"lean {kind} {ecql}: strategy {res.strategy.index}, "
+                f"{len(res.positions)} hits, oracle {len(want)}")
+        ids = list(res.batch.ids[:3])
+        if ids != [str(int(p)) for p in want[:3]]:
+            raise AssertionError(f"lean {kind}: implicit ids {ids}")
+        return {"query": kind, "ms": ms, "hits": int(len(want))}
+
+    rows = []
+    for c in checks:
+        d0 = idx.dispatch_count
+        row = run_query(*c)
+        row["dispatches"] = idx.dispatch_count - d0
+        rows.append(row)
+    lat = np.array([r["ms"] for r in rows])
+    rep.update(queries=rows, query_ms_p50=float(np.median(lat)),
+               query_ms_max=float(lat.max()))
+    if cuda:
+        rep["launches_per_query"] = {
+            c[0]: device_launches(lambda c=c: ds.query_result("scale", c[1]))
+            for c in (checks[0], checks[6], checks[8])}
+    if args.profile:
+        rep["profile"] = profile_queries(
+            "lean", lambda c: ds.query_result("scale", c[1]), checks)
+    log(f"lean: {len(rows)} queries equal to the oracle; p50 "
+        f"{np.median(lat):.3f} ms, max {lat.max():.3f} ms; hits "
+        f"{[r['hits'] for r in rows]}; launches "
+        f"{rep.get('launches_per_query')}")
+
+    # Count: pushed down on INCLUDE, materialized on BBOX+DURING (the
+    # keys and host tiers are cell-granular)
+    kind, q_and, boxes, lo, hi = checks[3]
+    crow = []
+    for name, ecql, want in (("include", "INCLUDE", n),
+                             (kind, q_and, len(oracle(x, y, t, boxes, lo,
+                                                      hi)))):
+        t0 = time.perf_counter()
+        got = ds.stats("scale", ecql, "Count()").count
+        ms = (time.perf_counter() - t0) * 1e3
+        if got != want:
+            raise AssertionError(f"lean Count {name}: {got}, oracle {want}")
+        crow.append({"query": name, "ms": ms, "count": int(got)})
+    rep["count"] = crow
+
+    # heatmaps: pushed down (the per-tier contract), weighted (the query
+    # path and the density kernel), tiles
+    box = boxes[0]
+    lo_c, hi_c = max(lo, t_min), min(hi, t_max)
+    tx = int((box[0] + box[2]) / 2 + 180.0) // 180
+    ty = 1 - int((box[1] + box[3]) / 2 + 90.0) // 90
+    t3x = int(((box[0] + box[2]) / 2 + 180.0) // 45.0)
+    t3y = 7 - int(((box[1] + box[3]) / 2 + 90.0) // 22.5)
+    env3 = tile_env(3, t3x, t3y)
+
+    def world_oracle(res):
+        return lean_density_oracle((x, y, t), layout, [WORLD], t_min, t_max,
+                                   WORLD, res, res)
+
+    def tile1_oracle():
+        g = world_oracle(512)
+        return g[(1 - ty) * 256:(2 - ty) * 256, tx * 256:(tx + 1) * 256]
+
+    dens = [
+        (kind, lambda: density_process(ds, "scale", q_and, box),
+         lambda: lean_density_oracle((x, y, t), layout, [box], lo_c, hi_c,
+                                     box, 256, 256)),
+        ("world", lambda: density_process(ds, "scale", "INCLUDE", WORLD),
+         lambda: world_oracle(256)),
+        (f"tile_1_{tx}_{ty}", lambda: ds.density_tile("scale", 1, tx, ty),
+         tile1_oracle),
+        (f"tile_3_{t3x}_{t3y}", lambda: ds.density_tile("scale", 3, t3x,
+                                                         t3y),
+         lambda: lean_density_oracle((x, y, t), layout, [env3], t_min,
+                                     t_max, env3, 256, 256)),
+    ]
+    drows = []
+    for name, run, want_fn in dens:
+        t0 = time.perf_counter()
+        grid = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = want_fn()
+        if grid.shape != (256, 256) or not np.array_equal(grid, want):
+            raise AssertionError(f"lean density {name}: grid disagrees with "
+                                 f"the oracle ({float(grid.sum())} against "
+                                 f"{float(want.sum())} points)")
+        drows.append({"query": name, "ms": ms, "points": float(want.sum())})
+    hits = oracle(x, y, t, boxes, lo, hi)
+    t0 = time.perf_counter()
+    grid = density_process(ds, "scale", q_and, box, weight_attr="score")
+    ms = (time.perf_counter() - t0) * 1e3
+    want = snap_weighted(x[hits], y[hits], score[hits], box, 256, 256)
+    if not np.allclose(grid, want, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"lean weighted density: grid disagrees with "
+                             f"the oracle ({float(grid.sum())} against "
+                             f"{float(want.sum())})")
+    drows.append({"query": f"{kind}-weighted", "ms": ms,
+                  "points": int(len(hits)), "dtype": str(grid.dtype)})
+    rep["density"] = drows
+    log("lean: counts and heatmaps equal to the oracle: "
+        + ", ".join(f"{r['query']} {r['ms']:.1f} ms" for r in crow + drows))
+
+    # compaction: fewer generations, the same answers
+    gens_before = len(idx.generations)
+    t0 = time.perf_counter()
+    res = ds.compact("scale")
+    idx.block()
+    compact_s = time.perf_counter() - t0
+    if res["z3"]["generations"] >= gens_before:
+        raise AssertionError(f"compaction left {res} from {gens_before} "
+                             f"generations")
+    layout = [(g.base, g.n, g.tier) for g in idx.generations]
+    after = [run_query(*checks[0]), run_query(*checks[6])]
+    t0 = time.perf_counter()
+    grid = density_process(ds, "scale", "INCLUDE", WORLD)
+    wms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(grid, world_oracle(256)):
+        raise AssertionError("lean world heatmap after compaction disagrees "
+                             "with the oracle")
+    rep["compact"] = {"s": compact_s, "result": res["z3"],
+                      "generations_before": gens_before,
+                      "queries": after, "world_ms": wms,
+                      "device_bytes": idx.device_bytes(),
+                      "memory_allocated": (int(torch.cuda.memory_allocated())
+                                           if cuda else None)}
+    log(f"lean: compact in {compact_s:.3f} s, {gens_before} → "
+        f"{res['z3']['generations']} generations, tiers {res['z3']['tiers']}; "
+        f"queries and world heatmap still equal to the oracle")
+    report["lean"] = rep
+    del ds, store, idx
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
                  row: dict) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line."""
@@ -1104,10 +1449,14 @@ def main(argv=None) -> int:
     ap.add_argument("--facade-rows", type=int, default=16_000_000)
     ap.add_argument("--places-rows", type=int, default=4_000_000)
     ap.add_argument("--mesh-rows", type=int, default=16_000_000)
+    ap.add_argument("--lean-rows", type=int, default=128_000_000)
+    ap.add_argument("--lean-slots", type=int, default=1 << 24,
+                    help="slots per lean generation (the index's default)")
     ap.add_argument("--profile", action="store_true",
-                    help="profile the z3 and z2 index queries, and the mesh "
-                         "phase's stats, query and heatmap, once more "
-                         "(torch.profiler) into the report")
+                    help="profile the z3 and z2 index queries, the mesh "
+                         "phase's stats, query and heatmap, and the lean "
+                         "queries once more (torch.profiler) into the "
+                         "report")
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON to this file")
     args = ap.parse_args(argv)
@@ -1179,6 +1528,16 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the mesh path was never launched "
                              f"on it: {mesh_launches}")
     report["mesh_path_launches"] = mesh_launches
+
+    # the lean path: every count set to 0 just before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    lean_phase(rng, args, centres, qs, dev, report)
+    lean_launches = {k: fn.launches for k, fn in counters.items()}
+    if lean_launches["density_grid"] <= 0:
+        raise AssertionError(f"density_grid was never launched on the lean "
+                             f"path: {lean_launches}")
+    report["lean_path_launches"] = lean_launches
     report["total_s"] = time.perf_counter() - t_start
 
     def pick(rows, **kw):

@@ -10,12 +10,19 @@ the host, and density heatmaps (``density_process``,
 kernel (``csrc/density_grid.cu``).  On a device mesh
 (``TpuDataStore(mesh=device_mesh())``) the indexes shard over the mesh
 and ``stats`` / heatmaps push down per shard; the stats' histograms and
-count-min sketches run the ``csrc/hist1d.cu`` kernel.
+count-min sketches run the ``csrc/hist1d.cu`` kernel.  A lean-profile
+schema (``geomesa.index.profile=lean``, or a first write of
+``TpuDataStore.LEAN_AUTO_ROWS`` rows) is held by the tiered generational
+:class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index`: key generations on
+the card (with or without their payload) or spilled to host RAM as the
+budget dictates, with heatmaps, tiles and counts pushed down next to the
+keys.
 
 The port imports ``torch`` and numpy, never ``jax`` and nothing of
 ``geomesa_tpu``.  Its entry points (:class:`TpuDataStore`,
 ``Z3PointIndex.build``, ``Z2PointIndex.build``, ``ShardedZ3Index.build``,
-``ShardedZ2Index.build``, ``density_process``, ``stats_process``) run on
+``ShardedZ2Index.build``, ``LeanZ3Index``, ``density_process``,
+``stats_process``) run on
 the CUDA card unless the caller passes ``device="cpu"`` (for a mesh,
 ``device_mesh(devices=["cpu"] * n)``).
 """
@@ -23,6 +30,7 @@ the CUDA card unless the caller passes ``device="cpu"`` (for a mesh,
 from .datastore import TpuDataStore
 from .index.z2 import Z2PointIndex
 from .index.z3 import Z3PointIndex
+from .index.z3_lean import LeanZ3Index
 from .parallel import (
     ShardedZ2Index, ShardedZ3Index, device_mesh, merged_stats,
     sharded_frequency_scan, sharded_stats_scan,
@@ -31,7 +39,8 @@ from .planning.planner import Query, QueryResult
 from .process.density import density_process
 from .process.stats_process import stats_process
 
-__all__ = ["TpuDataStore", "Z2PointIndex", "Z3PointIndex", "Query",
+__all__ = ["TpuDataStore", "Z2PointIndex", "Z3PointIndex", "LeanZ3Index",
+           "Query",
            "QueryResult", "density_process", "stats_process",
            "device_mesh", "ShardedZ3Index", "ShardedZ2Index",
            "sharded_stats_scan", "sharded_frequency_scan", "merged_stats"]

@@ -15,7 +15,8 @@ import os
 from dataclasses import dataclass
 from typing import Any
 
-__all__ = ["SystemProperty", "QueryProperties", "DEFAULT_MAX_RANGES"]
+__all__ = ["SystemProperty", "QueryProperties", "DensityProperties",
+           "DEFAULT_MAX_RANGES"]
 
 
 @dataclass(frozen=True)
@@ -59,6 +60,16 @@ class QueryProperties:
     #: reference's BlockFullTableScans)
     BLOCK_FULL_TABLE_SCANS = SystemProperty(
         "geomesa.scan.block.full.table", False)
+
+
+class DensityProperties:
+    """Density-tile knobs (docs/density.md)."""
+
+    #: world grid resolution (cells per axis, a power of two) up to which
+    #: a lean tile is a slice of the whole-world sweep; finer tiles run a
+    #: bbox density scan over the tile's envelope.  The JAX package also
+    #: builds its density pyramids at this base; the port has none.
+    PYRAMID_BASE = SystemProperty("geomesa.density.pyramid.base", 512)
 
 
 #: default scan-ranges budget (import-time snapshot users can override per

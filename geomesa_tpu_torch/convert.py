@@ -6,6 +6,14 @@ for a ``Z3PointIndex`` ``bins``, ``z``, ``pos``, ``x``, ``y``, ``dtg``,
 ``n_rows``, ``t_min_ms``, ``t_max_ms``, ``period`` and ``version``; for a
 ``Z2PointIndex`` ``z``, ``pos``, ``x``, ``y``, ``n_rows`` and ``version``.
 
+A ``LeanZ3Index``'s state holds its settings (``period``, ``version``,
+``generation_slots``, ``hbm_budget_bytes``, ``payload_on_device``,
+``compaction_factor``), ``n_rows``, the time extent, the host payload
+``(x, y, t)`` and, per generation, ``tier``, ``n``, ``base``, ``gen_id``
+and its columns: ``bins``, ``z`` and ``pos`` (the whole capacity of a
+device tier, the ``n`` rows of a host run) and, on the full tier, ``x``,
+``y`` and ``t``.
+
 A sharded index's state holds each column as an ``(n_shards, capacity)``
 array, row ``s`` being shard ``s``'s slots (the JAX package's global
 arrays reshaped), plus ``shard_counts``, ``segments`` (the residency
@@ -21,10 +29,12 @@ import torch
 from .device import resolve_device
 from .index.z2 import Z2PointIndex
 from .index.z3 import Z3PointIndex
+from .index.z3_lean import HostRun, LeanZ3Index, _Generation
 from .parallel.scan import ShardedZ3Index
 from .parallel.z2 import ShardedZ2Index
 
-__all__ = ["sharded_index_state", "sharded_z2_index_from_state",
+__all__ = ["lean_z3_index_from_state", "lean_z3_index_state",
+           "sharded_index_state", "sharded_z2_index_from_state",
            "sharded_z3_index_from_state", "z2_index_from_state",
            "z2_index_state", "z3_index_from_state", "z3_index_state"]
 
@@ -141,6 +151,69 @@ def sharded_index_state(idx) -> dict:
         state.update(t_min_ms=idx.t_min_ms, t_max_ms=idx.t_max_ms,
                      period=str(idx.period.value))
     return state
+
+
+def lean_z3_index_state(idx) -> dict:
+    """The state of a ``LeanZ3Index`` (of either package) as numpy arrays
+    and ints (see the module doc)."""
+    gens = []
+    for g in idx.generations:
+        d = {"tier": g.tier, "n": int(g.n), "base": int(g.base),
+             "gen_id": int(g.gen_id)}
+        if g.tier == "host":
+            run = g.run
+            # a stacked run's bins live in its segment table
+            d.update(bins=np.repeat(run._bin_vals, np.diff(run._bin_starts)),
+                     z=np.array(run.z), pos=np.array(run.pos))
+        else:
+            names = (("bins", "z", "pos", "x", "y", "t")
+                     if g.tier == "full" else ("bins", "z", "pos"))
+            d.update({k: _to_numpy(getattr(g, k)) for k in names})
+        gens.append(d)
+    x, y, t = (np.array(a) for a in idx._payload_flat())
+    return {"generations": gens, "n_rows": len(idx),
+            "t_min_ms": idx.t_min_ms, "t_max_ms": idx.t_max_ms,
+            "period": str(idx.period.value), "version": int(idx.version),
+            "generation_slots": int(idx.generation_slots),
+            "hbm_budget_bytes": int(idx.hbm_budget_bytes),
+            "payload_on_device": bool(idx.payload_on_device),
+            "compaction_factor": int(idx.compaction_factor),
+            "payload": (x, y, t)}
+
+
+def lean_z3_index_from_state(state: dict, device=None) -> LeanZ3Index:
+    """A port ``LeanZ3Index`` holding ``state``'s generations: device
+    tiers on ``device`` (copied), host runs in host RAM."""
+    idx = LeanZ3Index(
+        period=str(state["period"]), version=int(state["version"]),
+        generation_slots=int(state["generation_slots"]),
+        hbm_budget_bytes=int(state["hbm_budget_bytes"]),
+        payload_on_device=bool(state["payload_on_device"]),
+        compaction_factor=int(state["compaction_factor"]), device=device)
+    dev = idx.device
+    for d in state["generations"]:
+        if d["tier"] == "host":
+            gen = _Generation.merged_host(
+                HostRun(*(np.array(d[k]) for k in ("bins", "z", "pos"))),
+                base=int(d["base"]))
+        else:
+            cols = [torch.tensor(np.asarray(d[k]), device=dev)
+                    for k in ("bins", "z", "pos")]
+            payload = (tuple(torch.tensor(np.asarray(d[k]), device=dev)
+                             for k in ("x", "y", "t"))
+                       if d["tier"] == "full" else None)
+            gen = _Generation.from_columns(d["tier"], *cols, n=int(d["n"]),
+                                           base=int(d["base"]),
+                                           payload=payload)
+        gen.gen_id = int(d["gen_id"])
+        idx.generations.append(gen)
+    idx._gen_counter = max([g.gen_id for g in idx.generations], default=0)
+    idx._n_rows = int(state["n_rows"])
+    for k in ("t_min_ms", "t_max_ms"):
+        v = state[k]
+        setattr(idx, k, None if v is None else int(v))
+    idx._payload = [tuple(np.asarray(a) for a in state["payload"])]
+    return idx
 
 
 def _to_numpy(a) -> np.ndarray:

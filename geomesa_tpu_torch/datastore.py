@@ -13,14 +13,22 @@ so two indexes never share storage).  Stats are observed on write (the
 reference's StatsCombiner role) and feed the cost-based strategy decider.
 
 What the port serves: point schemas, with or without a dtg attribute, on
-the default (non-lean) profile, through the ``z3`` and ``z2`` indexes,
-full scans and empty plans; with ``mesh=`` (one process driving a
+the default profile, through the ``z3``, ``z2`` and ``id`` indexes, full
+scans and empty plans; with ``mesh=`` (one process driving a
 :func:`~geomesa_tpu_torch.parallel.device_mesh`) the indexes are their
-sharded variants and ``stats`` and density push down per shard.  The lean
-profile (first writes of ``LEAN_AUTO_ROWS`` rows or more to a point
-schema with a dtg attribute, without a mesh), multi-controller meshes,
-visibilities and authorizations are not ported and raise rather than
-degrade.
+sharded variants and ``stats`` and density push down per shard.
+
+The LEAN (scale) profile — a schema created with
+``geomesa.index.profile=lean``, or a point schema with a dtg whose first
+write (without a mesh) holds ``LEAN_AUTO_ROWS`` rows or more — stores its
+columns chunked (:class:`~geomesa_tpu_torch.features.lean.LeanBatch`,
+implicit feature ids) and indexes them in the tiered generational
+:class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index` (plus implicit-id
+lookups); heatmaps, tiles and ``Count()`` push down next to its keys.
+Lean stores over a mesh, lean schemas with indexed attributes or
+non-point geometries, density pyramids, fused serving, deletes,
+persistence, multi-controller meshes, visibilities and authorizations
+are not ported and raise rather than degrade.
 """
 
 from __future__ import annotations
@@ -30,11 +38,14 @@ import re
 import numpy as np
 
 from .device import resolve_device
-from .features.batch import FeatureBatch
+from .features.batch import FeatureBatch, build_columns
 from .features.feature_type import FeatureType, parse_spec
+from .features.lean import ChunkView, LeanBatch
+from .index.id import IdIndex, LeanIdIndex
 from .index.pyramid import tile_env
 from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
+from .index.z3_lean import LeanZ3Index
 from .parallel.scan import ShardedZ3Index
 from .parallel.z2 import ShardedZ2Index
 from .planning.explain import Explainer
@@ -65,14 +76,22 @@ _CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION}
 
 
 class _SchemaStore:
-    """Per-schema storage: the column batch + the lazily-built z3/z2
-    indexes (sharded over ``mesh`` when one is given) + stats."""
+    """Per-schema storage: the column batch + the lazily-built z3/z2/id
+    indexes (z3/z2 sharded over ``mesh`` when one is given) + stats; on
+    the lean profile a chunked batch + the tiered lean z3 index."""
+
+    #: default opportunistic LSM compaction factor for the lean index:
+    #: merge when ≥ F sealed same-tier same-size-class runs accumulate
+    #: (``geomesa.lean.compaction.factor`` user data overrides; 0
+    #: disables the opportunistic trigger — explicit compact() still
+    #: works)
+    LEAN_COMPACTION_FACTOR = 8
 
     def __init__(self, sft: FeatureType, device, mesh=None):
         self.sft = sft
         self.device = device
         self.mesh = mesh
-        self.batch: FeatureBatch | None = None
+        self.batch: FeatureBatch | LeanBatch | None = None
         self._indexes: dict = {}
         #: per-index-type build counter (the no-full-rebuild tests)
         self.build_counts: dict[str, int] = {}
@@ -81,14 +100,107 @@ class _SchemaStore:
         self.next_fid: int = 0
         #: lazily-built id set for O(m) explicit-id collision checks
         self._id_set: set | None = None
+        #: lean profile (``geomesa.index.profile=lean`` user data, or
+        #: switched on by a large first write, see TpuDataStore.write)
+        self.lean = ((sft.user_data or {}).get(
+            "geomesa.index.profile") == "lean")
         self._init_stats()
+        if self.lean:
+            self._init_lean()
 
     @property
     def query_indices(self) -> set:
-        """Indices the planner may choose: the port serves z3 and z2 (plus
-        the full and empty plans every schema has); the JAX store offers
-        every registered index on the default profile."""
-        return {"z3", "z2"}
+        """Indices the planner may choose (plus the full and empty plans
+        every schema has): z3, z2 and id on the default profile — the JAX
+        store's xz and attribute indexes are not ported — and the lean
+        profile's z3 scale index and implicit-id lookups."""
+        if self.lean:
+            return {"z3", "id"}
+        return {"z3", "z2", "id"}
+
+    # -- lean profile ------------------------------------------------------
+    def _init_lean(self) -> None:
+        sft = self.sft
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "lean-profile schemas over a device mesh are not ported")
+        if sft.geom_field and not sft.is_points:
+            raise NotImplementedError(
+                "non-point lean-profile schemas (the lean xz indexes) are "
+                "not ported")
+        if not (sft.is_points and sft.geom_field and sft.dtg_field):
+            raise ValueError(
+                "geomesa.index.profile=lean requires a point geometry "
+                "plus a dtg attribute (z3 scale index)")
+        # the JAX store's lean attribute tier serves these types
+        lexicoded = {"int", "integer", "long", "float", "double", "date",
+                     "string"}
+        attrs = [a.name for a in sft.attributes
+                 if a.indexed and not a.is_geometry
+                 and a.name != sft.dtg_field and a.type in lexicoded]
+        if attrs:
+            raise NotImplementedError(
+                f"lean-profile attribute indexes are not ported (indexed "
+                f"attributes {attrs} on {sft.name!r})")
+        self.lean = True
+        self.batch = LeanBatch(sft)
+
+    def _lean_payload(self):
+        """(x, y, t) for the lean index's exact re-check — the store's own
+        finalized columns (ONE host copy, shared by reference)."""
+        x, y = self.batch.geom_xy()
+        t = np.asarray(self.batch.column(self.sft.dtg_field), np.int64)
+        return x, y, t
+
+    def _lean_index(self) -> LeanZ3Index:
+        """The live lean scale index, created by the first write (before
+        the batch grows) and maintained incrementally by every write."""
+        idx = self._indexes.get("z3")
+        if idx is None:
+            idx = LeanZ3Index(
+                period=self.sft.z3_interval,
+                version=_index_version(self.sft, "z3"),
+                generation_slots=self._lean_user_int(
+                    "geomesa.lean.generation.slots", None),
+                hbm_budget_bytes=self._lean_user_int(
+                    "geomesa.lean.hbm.budget", LeanZ3Index.HBM_BUDGET_BYTES),
+                compaction_factor=self._lean_user_int(
+                    "geomesa.lean.compaction.factor",
+                    self.LEAN_COMPACTION_FACTOR),
+                device=self.device)
+            idx.payload_provider = self._lean_payload
+            self._indexes["z3"] = idx
+            self.build_counts["z3"] = self.build_counts.get("z3", 0) + 1
+        return idx
+
+    def _lean_user_int(self, key: str, default):
+        """An integer lean knob from the schema's user data
+        (``geomesa.lean.hbm.budget`` bytes, ``geomesa.lean.generation.
+        slots``, ``geomesa.lean.compaction.factor``), else ``default``."""
+        raw = (self.sft.user_data or {}).get(key)
+        return int(raw) if raw not in (None, "") else default
+
+    def _lean_write(self, chunk: ChunkView) -> None:
+        """Streaming ingest: observe stats on the chunk, append its
+        columns by reference, and push its keys into the live index —
+        O(chunk) per write."""
+        for s in self._stats.values():
+            s.observe(chunk)
+        # index BEFORE the batch grows (it is created empty)
+        idx = self._lean_index()
+        self.batch.append_batch(chunk)
+        x, y = chunk.geom_xy(self.sft.geom_field)
+        idx.append(np.asarray(x, np.float64), np.asarray(y, np.float64),
+                   np.asarray(chunk.column(self.sft.dtg_field), np.int64))
+
+    def compact_lean(self, budget_ms: float | None = None) -> dict:
+        """Explicit LSM maintenance of the lean scale index (the role the
+        reference delegates to Accumulo/HBase major compaction); empty for
+        default-profile schemas and lean ones not yet written."""
+        idx = self._indexes.get("z3") if self.lean else None
+        if idx is None:
+            return {}
+        return {"z3": idx.compact(budget_ms=budget_ms)}
 
     def _init_stats(self):
         sft = self.sft
@@ -110,6 +222,8 @@ class _SchemaStore:
 
     def write(self, batch: FeatureBatch):
         self.batch = batch if self.batch is None else self.batch.concat(batch)
+        # the id index is a sorted snapshot of the ids: rebuilt lazily
+        self._indexes.pop("id", None)
         for s in self._stats.values():
             s.observe(batch)
         if self._id_set is not None:
@@ -145,7 +259,21 @@ class _SchemaStore:
     def index(self, name: str):
         """Lazily-built index accessor with the JAX registry's
         applicability (index/registry.py): z3 on point schemas with a dtg
-        attribute, z2 on point schemas."""
+        attribute, z2 on point schemas, id on every schema; on the lean
+        profile the lean z3 index and implicit-id lookups only."""
+        if self.lean:
+            if name == "z3":
+                return self._lean_index()
+            if name == "id":
+                return LeanIdIndex(len(self.batch))
+            raise ValueError(
+                f"index {name!r} is not available on lean-profile "
+                f"schema {self.sft.name!r} (z3/id only)")
+        if name == "id":
+            if "id" not in self._indexes:
+                self._indexes["id"] = IdIndex.build(self.batch.ids)
+                self.build_counts["id"] = self.build_counts.get("id", 0) + 1
+            return self._indexes["id"]
         if name not in _CURRENT_INDEX_VERSIONS:
             raise NotImplementedError(f"index {name!r} is not ported")
         sft = self.sft
@@ -169,6 +297,9 @@ class _SchemaStore:
 
     def z2_index(self) -> Z2PointIndex | ShardedZ2Index:
         return self.index("z2")
+
+    def id_index(self) -> IdIndex | LeanIdIndex:
+        return self.index("id")
 
     def _build_z3(self):
         x, y = self.batch.geom_xy()
@@ -209,19 +340,23 @@ def _index_version(sft: FeatureType, index: str) -> int:
 
 class TpuDataStore:
     """In-process spatio-temporal datastore over device-resident z3 and
-    z2 indexes, sharded over a device mesh when one is given."""
+    z2 indexes, sharded over a device mesh when one is given, and the
+    tiered lean z3 index for lean-profile schemas."""
 
-    #: first-write row count at which the JAX store switches a qualifying
-    #: schema to the lean profile, which the port does not have
+    #: first-write row count at which a qualifying schema (points with a
+    #: dtg, no mesh, auto ids) switches to the lean profile
     LEAN_AUTO_ROWS = 32_000_000
 
     def __init__(self, device=None, *, mesh=None, multihost: bool = False,
-                 auth_provider=None):
+                 auth_provider=None, catalog_dir: str | None = None):
         """``device``: where the indexes live — the CUDA card unless the
         caller names the CPU; with no card and no explicit ``"cpu"`` this
         raises.  ``mesh``: a :class:`~geomesa_tpu_torch.parallel.mesh.
         DeviceMesh`; every index then builds its sharded variant over it
         (``device`` still places the query path's heatmap grids)."""
+        if catalog_dir is not None:
+            raise NotImplementedError(
+                "catalog persistence and lean snapshots are not ported")
         if multihost:
             raise NotImplementedError(
                 "multi-controller (multihost) stores are not ported")
@@ -244,8 +379,6 @@ class TpuDataStore:
                 "underscore and dash only")
         if sft.name in self._schemas:
             raise ValueError(f"schema {sft.name!r} already exists")
-        if (sft.user_data or {}).get("geomesa.index.profile") == "lean":
-            raise NotImplementedError("the lean index profile is not ported")
         self._schemas[sft.name] = _SchemaStore(sft, self.device,
                                                mesh=self._mesh)
         return sft
@@ -269,10 +402,10 @@ class TpuDataStore:
             raise NotImplementedError("visibilities are not ported")
         store = self._store(name)
         sft = store.sft
-        # the JAX store flips only point schemas WITH a dtg, and only
-        # without a mesh, to the lean profile; the rest stay on the
-        # default profile at any size
-        if (store.batch is None and self._mesh is None
+        # auto-profile: only point schemas WITH a dtg, and only without a
+        # mesh, flip to the lean profile, BEFORE any default-profile state
+        # exists; the rest stay on the default profile at any size
+        if (not store.lean and store.batch is None and self._mesh is None
                 and sft.is_points and sft.geom_field
                 and sft.dtg_field and not isinstance(data, FeatureBatch)
                 and ids is None):
@@ -280,11 +413,24 @@ class TpuDataStore:
             n_first = (len(first[0]) if isinstance(first, tuple)
                        else len(first))
             if n_first >= self.LEAN_AUTO_ROWS:
-                # the JAX store flips to the lean profile here
-                raise NotImplementedError(
-                    f"a first write of {n_first} rows (>= "
-                    f"{self.LEAN_AUTO_ROWS}) needs the lean index profile, "
-                    "which is not ported")
+                store._init_lean()
+                sft.user_data["geomesa.index.profile"] = "lean"
+        if store.lean:
+            if ids is not None or (isinstance(data, FeatureBatch)
+                                   and data.ids_explicit):
+                raise ValueError(
+                    "lean-profile schemas use implicit feature ids "
+                    "(row number); explicit ids are not supported")
+            if isinstance(data, FeatureBatch):
+                chunk = ChunkView(sft, dict(data.columns), len(data))
+            else:
+                cols, _ = build_columns(sft, data)
+                chunk = ChunkView(sft, cols,
+                                  len(next(iter(cols.values()))) if cols
+                                  else 0)
+            store._lean_write(chunk)
+            store.next_fid = len(store.batch)
+            return len(chunk)
         batch = (data if isinstance(data, FeatureBatch)
                  else FeatureBatch.from_dict(store.sft, data, ids=ids))
         if not batch.ids_explicit:
@@ -355,9 +501,13 @@ class TpuDataStore:
                      tile: int = 256, query=None,
                      timeout_ms: float | None = None) -> np.ndarray:
         """One ``(tile, tile)`` float64 density grid for slippy-map tile
-        ``(z, x, y)`` on the plate-carrée world grid: the tile runs
-        through :func:`density_process` with the tile envelope ANDed into
-        the filter (CQL string).  The JAX store's lean pyramid branch,
+        ``(z, x, y)`` on the plate-carrée world grid.  With no ``query``, a
+        lean schema serves the tile from its scale index's density path
+        (:func:`~geomesa_tpu_torch.index.pyramid.density_tile`: a slice of
+        the world sweep while ``tile·2^z`` stays at or below
+        ``geomesa.density.pyramid.base``, a bbox scan beyond).  Otherwise
+        the tile runs through :func:`density_process` with the tile
+        envelope ANDed into the filter (CQL string).  The JAX store's
         admission token, spans and metrics are not ported; a deadline
         (``timeout_ms``) raises rather than being ignored."""
         if timeout_ms is not None:
@@ -368,9 +518,38 @@ class TpuDataStore:
         n = 1 << z
         if not (0 <= z <= 30) or not (0 <= x < n and 0 <= y < n):
             raise ValueError(f"tile ({z}/{x}/{y}) out of range")
+        store = self._store(name)
+        if query is None and store.lean:
+            return np.asarray(store.z3_index().density_tile(z, x, y, tile),
+                              np.float64)
         env = tile_env(z, x, y)
         gf = self.get_schema(name).geom_field
         bbox = f"BBOX({gf}, {env[0]}, {env[1]}, {env[2]}, {env[3]})"
         q = bbox if query is None else f"({query}) AND {bbox}"
         return np.asarray(density_process(self, name, q, env, tile, tile),
                           np.float64)
+
+    # -- lean maintenance ---------------------------------------------------
+    def compact(self, name: str, budget_ms: float | None = None) -> dict:
+        """Explicit LSM compaction of a lean schema's generational index
+        (the maintenance analog of the reference's ``compact`` command):
+        fold sealed same-tier sorted runs into O(log) merged runs so query
+        and density fan-out stops growing with ingest history.
+        ``budget_ms`` bounds the work; interrupted compaction resumes on
+        the next call.  Returns ``{"z3": {"merged_groups", "generations",
+        "tiers"}}`` — empty for default-profile schemas."""
+        return self._store(name).compact_lean(budget_ms=budget_ms)
+
+    # -- not ported ---------------------------------------------------------
+    def build_pyramids(self, name: str) -> int:
+        raise NotImplementedError("density pyramids are not ported")
+
+    def query_windows(self, name: str, windows, **kw):
+        raise NotImplementedError(
+            "batched window queries (query_windows) are not ported")
+
+    def query_fused(self, name: str, query="INCLUDE", **kw):
+        raise NotImplementedError("the fused serving plane is not ported")
+
+    def delete(self, name: str, query=None, ids=None) -> int:
+        raise NotImplementedError("deletes and tombstones are not ported")

@@ -12,8 +12,9 @@ Exactness contract: whatever the index strategy returns is treated as a
 on candidates, so results are oracle-equal regardless of strategy.
 
 The port serves the strategies of its store's indexes — ``z3`` (with
-several time windows batched into one scan), ``z2``, ``full`` and
-``none``, and an OR split over them.  Hints it does not serve raise.
+several time windows batched into one scan), ``z2``, ``id``, ``full`` and
+``none``, and an OR split over them; on a lean store ``z3`` runs on the
+tiered lean index.  Hints it does not serve raise.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import numpy as np
 from ..config import QueryProperties
 from ..features.batch import FeatureBatch
 from ..features.feature_type import FeatureType
-from ..filters.ast import Filter, Include
+from ..filters.ast import And, Filter, IdFilter, Include, Not, Or
 from ..filters.ecql import parse_ecql
 from ..filters.evaluate import evaluate_filter
 from .explain import Explainer, ExplainNull
@@ -120,7 +121,15 @@ class QueryPlanner:
             mask = evaluate_filter(query.filter, batch)
             positions = np.flatnonzero(mask)
         elif len(candidates):
-            mask = evaluate_filter(query.filter, batch.take(candidates))
+            # lean column stores re-check through an id-free ChunkView: a
+            # take() would mint O(candidates) feature-id strings just to
+            # throw them away.  Id-predicated filters still need real ids.
+            if (hasattr(batch, "take_view")
+                    and not _filter_needs_ids(query.filter)):
+                sub = batch.take_view(candidates)
+            else:
+                sub = batch.take(candidates)
+            mask = evaluate_filter(query.filter, sub)
             positions = candidates[mask]
         else:
             positions = np.asarray(candidates, dtype=np.int64)
@@ -169,9 +178,11 @@ class QueryPlanner:
         if name == "full":
             explain("Executing full-table scan")
             return None
-        if name not in ("z3", "z2"):
+        if name not in ("z3", "z2", "id"):
             raise NotImplementedError(f"strategy {name!r} is not ported")
         explain(lambda: f"Executing {name} index scan")
+        if name == "id":
+            return store.id_index().query(strategy.ids)
         boxes = [g.envelope.as_tuple() for g in strategy.geometries] or [
             (-180.0, -90.0, 180.0, 90.0)
         ]
@@ -253,6 +264,19 @@ class QueryPlanner:
         if query.max_features is not None:
             positions = positions[: query.max_features]
         return positions
+
+
+def _filter_needs_ids(f: Filter) -> bool:
+    """Does any node of the filter read feature ids?  (IdFilter is the one
+    evaluate_filter branch touching ``batch.ids`` — id-free filters may
+    re-check over an id-less ChunkView.)"""
+    if isinstance(f, IdFilter):
+        return True
+    if isinstance(f, (And, Or)):
+        return any(_filter_needs_ids(p) for p in f.filters)
+    if isinstance(f, Not):
+        return _filter_needs_ids(f.filter)
+    return False
 
 
 def _union(parts: list[np.ndarray]) -> np.ndarray:

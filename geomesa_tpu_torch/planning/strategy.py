@@ -6,10 +6,12 @@ SpatioTemporalFilterStrategy.scala) and the cost-based decider
 (planning/StrategyDecider.scala:67-112,140-152) that estimates
 per-strategy feature counts from stats and picks the cheapest.
 
-The port offers the strategies of the indexes it has: ``z3`` on point
-schemas with a dtg attribute, ``z2`` on point schemas, the full scan,
-the empty plan, and an OR split over them, in the JAX package's order so
-that ties in the cost comparison resolve alike.  The JAX package's id,
+The port offers the strategies of the indexes it has: ``id`` for
+feature-id filters, ``z3`` on point schemas with a dtg attribute, ``z2``
+on point schemas, the full scan, the empty plan, and an OR split over
+them, in the JAX package's order so that ties in the cost comparison
+resolve alike.  A lean store allows only ``z3`` and ``id``, so a
+pure-spatial query runs on z3 with an open interval.  The JAX package's
 attribute and xz strategies (non-point schemas fall to the full scan),
 its sketch-fed estimator and its mid-query replanning are not ported.
 """
@@ -20,7 +22,7 @@ from dataclasses import dataclass
 
 from ..config import QueryProperties
 from ..features.feature_type import FeatureType
-from ..filters.ast import Filter, Or, _Exclude
+from ..filters.ast import And, Filter, IdFilter, Or, _Exclude
 from ..filters.extract import extract_geometries, extract_intervals
 from ..stats.stat import MinMax
 from .explain import Explainer, ExplainNull
@@ -33,11 +35,12 @@ class FilterStrategy:
     """A candidate execution strategy: which index serves the query and at
     what estimated cost (feature count to scan)."""
 
-    #: 'z3' | 'z2' | 'or-split' | 'full' | 'none'
+    #: 'z3' | 'z2' | 'id' | 'or-split' | 'full' | 'none'
     index: str
     cost: float
     geometries: tuple = ()      # extracted query geometries
     intervals: tuple = ()       # extracted (lo_ms, hi_ms)
+    ids: tuple = ()             # extracted feature ids
     branches: tuple = ()        # ('or-split') per-branch FilterStrategy
     #: what ``cost`` came from: 'stats' (whole-store stats) or
     #: 'heuristic' (fallback constants)
@@ -45,6 +48,18 @@ class FilterStrategy:
 
     def __repr__(self):
         return f"FilterStrategy({self.index}, cost={self.cost:.0f})"
+
+
+def _collect_id_filters(f: Filter) -> tuple:
+    """Feature ids of the id filters at the top AND level."""
+    if isinstance(f, IdFilter):
+        return tuple(f.ids)
+    if isinstance(f, And):
+        out = []
+        for p in f.filters:
+            out.extend(_collect_id_filters(p))
+        return tuple(out)
+    return ()
 
 
 class StrategyDecider:
@@ -130,6 +145,10 @@ class StrategyDecider:
         sft = self.sft
         out: list[FilterStrategy] = []
 
+        ids = _collect_id_filters(f)
+        if ids and self._enabled("id"):
+            out.append(FilterStrategy("id", float(len(ids)), ids=ids))
+
         geom = sft.geom_field
         dtg = sft.dtg_field
         geoms = extract_geometries(f, geom) if geom else None
@@ -163,7 +182,8 @@ class StrategyDecider:
                     intervals=tuple(intervals.values) if intervals else (),
                     source=self._frac_source(True, False)))
             elif not temporal and dtg and self._enabled("z3"):
-                # no z2 available (e.g. geomesa.indices.enabled=z3): a
+                # no z2 available (the lean profile serves only the z3
+                # scale index, or geomesa.indices.enabled=z3): a
                 # pure-spatial query runs on z3 with an OPEN interval,
                 # which the point index clamps to the data's time extent
                 out.append(FilterStrategy(

@@ -6,11 +6,13 @@ On a mesh-backed store, pure bbox+time queries over point schemas with a
 dtg take the PUSH-DOWN path: the grid accumulates per shard through the
 density kernel and the partial grids are summed
 (``ShardedZ3Index.density``) — no hit ever materializes on the host, the
-reference's server-side DensityScan + client-merge split.  Every other
-query runs the query path: its hits are snapped to the grid on the
-store's device by :func:`~geomesa_tpu_torch.ops.density.density_grid_auto`
-(the density kernel on the card).  The JAX package's lean-profile
-push-down is not ported (the port has no lean profile).
+reference's server-side DensityScan + client-merge split.  On a lean
+store, unweighted pure bbox+time queries push down next to the lean
+index's keys (:meth:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index.
+density`).  Every other query runs the query path: its hits are snapped
+to the grid on the store's device by
+:func:`~geomesa_tpu_torch.ops.density.density_grid_auto` (the density
+kernel on the card).
 """
 
 from __future__ import annotations
@@ -70,22 +72,39 @@ def density_process(store, schema: str, query, env,
     """Run ``query`` and accumulate matching features into a (height,
     width) weighted grid over envelope ``env`` (xmin, ymin, xmax, ymax).
 
-    Returns float64 from the CPU path and float32 from the card's kernel,
-    as the JAX package returns float64 off the TPU and float32 on it."""
-    if getattr(store, "_mesh", None) is not None:
-        from ..planning.planner import Query
+    Returns float64 from the CPU path and the lean push-down, and float32
+    from the card's kernel, as the JAX package returns float64 off the
+    TPU and float32 on it.
+
+    **Exactness contract on lean tiered stores** (docs/density.md): the
+    lean push-down is value-exact on full-tier generations; demoted
+    (keys/host-tier) generations have no payload to mask against, so
+    their bbox/time masks compare at z-cell granularity (~1.7e-4° a
+    cell) — exact for whole-extent queries, and for a partial window they
+    may over-include points within one z cell outside its edges (never
+    excluding a true hit).  Weighted heatmaps need row access and run the
+    query path (value-exact)."""
+    from ..planning.planner import Query
+    mesh = getattr(store, "_mesh", None)
+    st = store._store(schema)
+    lean = getattr(st, "lean", False)
+    if mesh is not None or lean:
         q = query if isinstance(query, Query) else Query.of(query)
         sft = store.get_schema(schema)
-        st = store._store(schema)
         if (sft.is_points and sft.dtg_field and st.batch is not None
                 and len(st.batch)):
             plan = _bbox_time_only(q.filter, sft.geom_field, sft.dtg_field)
             if plan is not None:
                 boxes, lo, hi = plan
-                weights = (st.batch.column(weight_attr).astype(np.float64)
-                           if weight_attr else None)
-                return st.z3_index().density(boxes, lo, hi, env, width,
-                                             height, weights=weights)
+                if lean:
+                    if weight_attr is None:
+                        return st.z3_index().density(boxes, lo, hi, env,
+                                                     width, height)
+                else:
+                    weights = (st.batch.column(weight_attr)
+                               .astype(np.float64) if weight_attr else None)
+                    return st.z3_index().density(boxes, lo, hi, env, width,
+                                                 height, weights=weights)
     result = store.query_result(schema, query)
     batch = result.batch
     if len(batch) == 0:

@@ -25,10 +25,18 @@ def stats_process(store, schema: str, query, stat_spec: str) -> Stat:
     the hits.  Everything else materializes the hits and, on a mesh,
     folds per-shard partials through the Stat monoid (the reference's
     per-node StatsScan + client Reducer, iterators/StatsScan.scala:125).
-    The JAX package's lean-profile push-downs are not ported (the port
-    has no lean profile)."""
+
+    On a lean store a Count()-only spec is answered from the keys when the
+    count is provably exact (:func:`_lean_count_pushdown`); every other
+    spec materializes the hits.  The JAX package's lean sketch push-down,
+    which is exact or declines, is not ported, so its answers are the
+    materialized ones."""
     mesh = getattr(store, "_mesh", None)
-    if mesh is not None:
+    if getattr(store._store(schema), "lean", False):
+        pushed = _lean_count_pushdown(store, schema, query, stat_spec)
+        if pushed is not None:
+            return pushed
+    elif mesh is not None:
         pushed = _collective_stats(store, schema, query, stat_spec)
         if pushed is not None:
             return pushed
@@ -42,6 +50,50 @@ def stats_process(store, schema: str, query, stat_spec: str) -> Stat:
     stat = parse_stat(stat_spec)
     if len(result.batch):
         stat.observe(result.batch)
+    return stat
+
+
+def _lean_count_pushdown(store, schema: str, query, stat_spec: str):
+    """Count() on a lean store answered from the keys with NO candidate
+    materialization (StatsScan.scala's Count aggregate): the tiered
+    ``range_count``.  Returns None — falling back to the materializing
+    path — unless the count is provably EXACT: every generation full-tier
+    (value-exact device masks), or a whole-extent scan (cell-granular
+    masks cover everything by construction)."""
+    from ..planning.planner import Query
+
+    stat = parse_stat(stat_spec)
+    stats = stat.stats if isinstance(stat, SeqStat) else [stat]
+    if not all(isinstance(s, CountStat) for s in stats):
+        return None
+    q = query if isinstance(query, Query) else Query.of(query)
+    sft = store.get_schema(schema)
+    st = store._store(schema)
+    if not (sft.is_points and sft.dtg_field and st.batch is not None):
+        return None
+    plan = _bbox_time_only(q.filter, sft.geom_field, sft.dtg_field)
+    if plan is None:
+        return None
+    boxes, lo, hi = plan
+    idx = st.z3_index()
+    tiers = idx.tier_counts()
+    if tiers["keys"] or tiers["host"]:
+        # cell-granular tiers are exact only for whole-extent scans
+        bb = st.stats_map().get(f"{sft.geom_field}_bbox")
+        if bb is None or bb.is_empty:
+            return None
+        x0, y0, x1, y1 = bb.bounds
+        covered = any(b[0] <= x0 and b[1] <= y0
+                      and b[2] >= x1 and b[3] >= y1 for b in boxes)
+        t_open = ((lo is None or (idx.t_min_ms is not None
+                                  and lo <= idx.t_min_ms))
+                  and (hi is None or (idx.t_max_ms is not None
+                                      and hi >= idx.t_max_ms)))
+        if not (covered and t_open):
+            return None
+    count = idx.range_count(boxes, lo, hi)
+    for s in stats:
+        s.count = int(count)
     return stat
 
 

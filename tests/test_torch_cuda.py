@@ -580,3 +580,65 @@ def test_mesh_store_on_card_matches_cpu(cuda_device):
     g, c = (ds.stats("s", q, spec) for ds in stores)
     assert g.to_json() == c.to_json()
     assert hist1d.launches == before + 1 + 4
+
+
+def test_lean_store_on_card_matches_cpu(cuda_device):
+    """A lean store on the card against the same store on the CPU, at
+    2^14-slot generations under a budget that leaves all three tiers:
+    the tier layout, positions, pushed-down heatmaps (float64 counts,
+    equal), a weighted heatmap (the density kernel's float32 grid
+    against the CPU's float64 sums, rtol 1e-5), Count, and the answers
+    after compaction.  The card's device generations stay on the card."""
+    slots = 1 << 14
+    budget = slots * (40 + 16 + 40) + slots * 16 * 3
+    spec = ("score:Double,dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+            f"geomesa.lean.generation.slots={slots},"
+            f"geomesa.lean.hbm.budget={budget},"
+            "geomesa.lean.compaction.factor=0")
+    rng = np.random.default_rng(21)
+    chunks = []
+    for _ in range(4):
+        m = 35_000
+        chunks.append({"score": rng.uniform(0, 100, m),
+                       "dtg": rng.integers(MS_2018, MS_2018 + 60 * DAY, m),
+                       "geom": (rng.uniform(-20, 20, m),
+                                rng.uniform(-10, 10, m))})
+    stores = []
+    for dev in (cuda_device, "cpu"):
+        ds = TpuDataStore(device=dev)
+        ds.create_schema("s", spec)
+        for c in chunks:
+            ds.write("s", c)
+        stores.append(ds)
+    gidx, cidx = (ds._store("s").index("z3") for ds in stores)
+    assert gidx.tier_counts() == cidx.tier_counts() == {
+        "full": 1, "keys": 3, "host": 5}
+    for g in gidx.generations:
+        if g.tier != "host":
+            assert g.z.device.type == "cuda"
+    q = ("BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+         "2018-01-03T00:00:00Z/2018-01-19T00:00:00Z")
+    queries = (q, "BBOX(geom, -5, -5, 5, 5)", "BBOX(geom, -20, -10, 0, 0) "
+               "AND dtg DURING 2018-02-01T00:00:00Z/2018-02-20T00:00:00Z")
+    for ecql in queries:
+        g, c = (ds.query_result("s", ecql).positions for ds in stores)
+        np.testing.assert_array_equal(g, c)
+    for query, env in ((q, (-5, -5, 5, 5)),
+                       ("INCLUDE", (-180, -90, 180, 90)),
+                       ("INCLUDE", (-20, -10, 20, 10))):
+        g, c = (density_process(ds, "s", query, env, 64, 32)
+                for ds in stores)
+        np.testing.assert_array_equal(g, c)
+    before = density_grid_kernel.launches
+    g, c = (density_process(ds, "s", q, (-5, -5, 5, 5), 64, 32,
+                            weight_attr="score") for ds in stores)
+    assert density_grid_kernel.launches == before + 1
+    np.testing.assert_allclose(g, c, rtol=1e-5, atol=0.0)
+    for ecql in (q, "INCLUDE"):
+        g, c = (ds.stats("s", ecql, "Count()").count for ds in stores)
+        assert g == c
+    g, c = (ds.compact("s") for ds in stores)
+    assert g == c and g["z3"]["merged_groups"] >= 1
+    for ecql in queries:
+        g, c = (ds.query_result("s", ecql).positions for ds in stores)
+        np.testing.assert_array_equal(g, c)

@@ -194,11 +194,19 @@ def test_unserved_options_raise(stores):
 
 
 def test_lean_sized_first_write_raises(monkeypatch):
+    """A lean-sized first write switches a point schema with a dtg to the
+    lean profile, as the JAX store does; where that profile needs a part
+    the port does not have (the lean attribute tier of an indexed
+    attribute), the write raises."""
     tds = TpuDataStore(device="cpu")
     tds.create_schema("big", SPEC)
+    tds.create_schema("attr", "actor:String:index=true,dtg:Date,*geom:Point")
     monkeypatch.setattr(TpuDataStore, "LEAN_AUTO_ROWS", 100)
+    tds.write("big", _batch(5, 100))
+    assert tds._store("big").lean
     with pytest.raises(NotImplementedError, match="lean"):
-        tds.write("big", _batch(5, 100))
+        tds.write("attr", _batch(5, 100))
+    assert not tds._store("attr").lean
 
 
 def test_lean_sized_first_write_without_dtg_stays_default(monkeypatch):

@@ -1,0 +1,281 @@
+"""Port parity: the lean (scale) profile inside the store facade of
+geomesa_tpu_torch against geomesa_tpu's ``TpuDataStore`` — the same
+schema, seeded rows and filters through both stores, at 2^12-slot
+generations under a budget that leaves all three tiers (full, keys,
+host).
+
+Held equal: positions, strategy names and implicit feature ids of ECQL
+queries, heatmaps pushed down next to the keys (exactly) and weighted
+ones through the query path (rtol 1e-5), tiles, ``stats`` (Count pushed
+down and materialized, MinMax materialized), compaction, and the
+first-write switch to the lean profile.  Every lean feature the port
+leaves out raises ``NotImplementedError``.
+"""
+
+import numpy as np
+import pytest
+
+from geomesa_tpu.datastore import TpuDataStore as JaxStore
+from geomesa_tpu.process.density import density_process as jax_density
+from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
+from geomesa_tpu_torch.features.lean import LeanBatch
+from geomesa_tpu_torch.index.z3_lean import LeanZ3Index
+
+MS_2018 = 1514764800000
+DAY = 86_400_000
+SLOTS = 1 << 12
+N = 30_000
+#: one full and three keys generations beside the sentinel charges
+BUDGET = SLOTS * (40 + 16 + 40) + SLOTS * 16 * 3
+SPEC = ("actor:String,score:Double,dtg:Date,*geom:Point;"
+        "geomesa.index.profile=lean,"
+        f"geomesa.lean.generation.slots={SLOTS},"
+        f"geomesa.lean.hbm.budget={BUDGET},"
+        "geomesa.lean.compaction.factor=0")
+BOX = (-74.5, 40.5, -73.5, 41.5)
+ENV = (-75.0, 40.0, -73.0, 42.0)
+WORLD = (-180.0, -90.0, 180.0, 90.0)
+
+
+def _chunks(seed=17, n=N, step=9_000):
+    rng = np.random.default_rng(seed)
+    for s in range(0, n, step):
+        m = min(step, n - s)
+        yield {"actor": rng.choice(["a", "b", "c"], m).astype(object),
+               "score": rng.uniform(0, 100, m),
+               "dtg": rng.integers(MS_2018, MS_2018 + 40 * DAY, m),
+               "geom": (rng.uniform(-75, -73, m), rng.uniform(40, 42, m))}
+
+
+@pytest.fixture(scope="module")
+def stores():
+    jds, tds = JaxStore(), TpuDataStore(device="cpu")
+    for ds in (jds, tds):
+        ds.create_schema("evt", SPEC)
+    for chunk in _chunks():   # chunked writes straddle generations
+        jds.write("evt", chunk)
+        tds.write("evt", chunk)
+    return jds, tds
+
+
+def test_lean_profile_active(stores):
+    jds, tds = stores
+    st = tds._store("evt")
+    assert st.lean and isinstance(st.batch, LeanBatch)
+    idx = st.index("z3")
+    assert isinstance(idx, LeanZ3Index)
+    # one index across all chunked writes (incremental appends)
+    assert st.build_counts == {"z3": 1}
+    jidx = jds._store("evt").index("z3")
+    assert idx.tier_counts() == jidx.tier_counts() == {
+        "full": 1, "keys": 3, "host": 4}
+    assert idx.device_bytes() == jidx.device_bytes()
+    assert [(g.n, g.base, g.tier) for g in idx.generations] == [
+        (g.n, g.base, g.tier) for g in jidx.generations]
+
+
+ECQL = [
+    "BBOX(geom,-74.5,40.5,-73.5,41.5) AND dtg DURING "
+    "2018-01-03T00:00:00Z/2018-01-10T00:00:00Z",
+    "BBOX(geom,-74.5,40.5,-73.5,41.5) AND actor = 'a' AND score > 50",
+    "BBOX(geom,-74.2,40.8,-73.9,41.1)",              # spatial only -> z3
+    "BBOX(geom,-74.9,40.1,-74.6,40.4) OR BBOX(geom,-73.4,41.6,-73.1,41.9)",
+    "BBOX(geom,-74.5,40.5,-73.5,41.5) AND (dtg DURING "
+    "2018-01-02T00:00:00Z/2018-01-04T00:00:00Z OR dtg DURING "
+    "2018-02-01T00:00:00Z/2018-02-03T00:00:00Z)",
+    "actor = 'b' AND score < 10",                     # no index -> full
+    "IN ('123','999999999','007','xyz')",             # implicit ids
+    "IN ('5','6','29999') AND score > -1",
+    "INCLUDE",
+    "EXCLUDE",
+]
+
+
+@pytest.mark.parametrize("ecql", ECQL)
+def test_ecql_positions_strategy_and_ids(stores, ecql):
+    jds, tds = stores
+    got = tds.query_result("evt", ecql)
+    want = jds.query_result("evt", ecql)
+    assert got.strategy.index == want.strategy.index
+    np.testing.assert_array_equal(got.positions, want.positions)
+    assert list(got.batch.ids) == list(want.batch.ids)
+    assert list(got.batch.ids[:3]) == [str(int(p))
+                                       for p in got.positions[:3]]
+
+
+def test_sort_limit_projection(stores):
+    from geomesa_tpu.planning.planner import Query as JQuery
+    from geomesa_tpu_torch import Query
+    jds, tds = stores
+    kw = dict(properties=["actor", "score"], sort_by="score",
+              sort_desc=True, max_features=10)
+    got = tds.query("evt", Query.of(f"BBOX(geom,{','.join(map(str, BOX))})",
+                                    **kw))
+    want = jds.query("evt", JQuery.of(
+        f"BBOX(geom,{','.join(map(str, BOX))})", **kw))
+    assert set(got.columns) == {"actor", "score"}
+    np.testing.assert_array_equal(got.column("score"), want.column("score"))
+    assert list(got.ids) == list(want.ids)
+
+
+HEATMAPS = [
+    ("INCLUDE", WORLD, 64, 64),
+    ("INCLUDE", ENV, 50, 30),
+    (f"BBOX(geom,{','.join(map(str, BOX))}) AND dtg DURING "
+     "2018-01-03T00:00:00Z/2018-01-10T00:00:00Z", BOX, 64, 48),
+    (f"BBOX(geom,{','.join(map(str, BOX))})", ENV, 32, 32),
+]
+
+
+@pytest.mark.parametrize("h", range(len(HEATMAPS)))
+def test_heatmaps_pushed_down_and_weighted(stores, h):
+    jds, tds = stores
+    q, env, w, hgt = HEATMAPS[h]
+    got = density_process(tds, "evt", q, env, w, hgt)
+    assert got.dtype == np.float64
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_density(jds, "evt", q, env, w, hgt), np.float64))
+    got = density_process(tds, "evt", q, env, w, hgt, weight_attr="score")
+    want = np.asarray(jax_density(jds, "evt", q, env, w, hgt,
+                                  weight_attr="score"), np.float64)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.0)
+
+
+def test_tiles(stores):
+    jds, tds = stores
+    for z, x, y in [(0, 0, 0), (1, 0, 0), (3, 2, 2)]:
+        np.testing.assert_array_equal(
+            tds.density_tile("evt", z, x, y, tile=64),
+            np.asarray(jds.density_tile("evt", z, x, y, tile=64),
+                       np.float64))
+    q = "actor = 'a'"   # a filtered tile runs the query path
+    np.testing.assert_array_equal(
+        tds.density_tile("evt", 1, 0, 0, tile=32, query=q),
+        np.asarray(jds.density_tile("evt", 1, 0, 0, tile=32, query=q),
+                   np.float64))
+
+
+@pytest.mark.parametrize("query,spec", [
+    ("INCLUDE", "Count()"),                                # pushed down
+    (f"BBOX(geom,{','.join(map(str, WORLD))})", "Count()"),  # pushed down
+    (HEATMAPS[2][0], "Count()"),          # cell tiers present: materialized
+    (f"BBOX(geom,{','.join(map(str, BOX))})", "MinMax(score)"),
+    ("INCLUDE", "Count();MinMax(dtg)"),
+])
+def test_stats(stores, query, spec):
+    jds, tds = stores
+    got = tds.stats("evt", query, spec)
+    want = jds.stats("evt", query, spec)
+    assert got.to_json() == want.to_json()
+
+
+def test_compact_store():
+    """Explicit store compaction folds the four host runs alike on both
+    sides (opportunistic compaction off), and answers stay equal."""
+    jds, tds = JaxStore(), TpuDataStore(device="cpu")
+    for ds in (jds, tds):
+        ds.create_schema("evt", SPEC)
+    for chunk in _chunks(seed=5):
+        jds.write("evt", chunk)
+        tds.write("evt", chunk)
+    res = tds.compact("evt")
+    assert res == jds.compact("evt")
+    assert res["z3"]["generations"] == 5
+    assert tds._store("evt").index("z3").compactions == 1
+    for ecql in ECQL[:3]:
+        np.testing.assert_array_equal(
+            tds.query_result("evt", ecql).positions,
+            jds.query_result("evt", ecql).positions)
+    np.testing.assert_array_equal(
+        density_process(tds, "evt", "INCLUDE", WORLD, 32, 32),
+        np.asarray(jax_density(jds, "evt", "INCLUDE", WORLD, 32, 32)))
+
+
+def test_auto_switch_on_first_write(monkeypatch):
+    monkeypatch.setattr(JaxStore, "LEAN_AUTO_ROWS", 5_000)
+    monkeypatch.setattr(TpuDataStore, "LEAN_AUTO_ROWS", 5_000)
+    rng = np.random.default_rng(3)
+    m = 6_000
+    big = {"dtg": rng.integers(MS_2018, MS_2018 + DAY, m),
+           "geom": (rng.uniform(-75, -73, m), rng.uniform(40, 42, m))}
+    small = {"dtg": np.full(10, MS_2018),
+             "geom": (np.zeros(10), np.zeros(10))}
+    jds, tds = JaxStore(), TpuDataStore(device="cpu")
+    for ds in (jds, tds):
+        ds.create_schema("auto", "dtg:Date,*geom:Point")
+        ds.create_schema("small", "dtg:Date,*geom:Point")
+        ds.write("auto", big)
+        ds.write("small", small)
+        st = ds._store("auto")
+        assert st.lean
+        assert st.sft.user_data.get("geomesa.index.profile") == "lean"
+        assert not ds._store("small").lean
+    q = "BBOX(geom,-74.5,40.5,-73.5,41.5)"
+    got, want = tds.query_result("auto", q), jds.query_result("auto", q)
+    assert got.strategy.index == want.strategy.index == "z3"
+    np.testing.assert_array_equal(got.positions, want.positions)
+    # a mesh store never switches (lean over a mesh is not ported)
+    mds = TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"]))
+    mds.create_schema("auto", "dtg:Date,*geom:Point")
+    mds.write("auto", big)
+    assert not mds._store("auto").lean
+
+
+def test_default_profile_id_strategy():
+    jds, tds = JaxStore(), TpuDataStore(device="cpu")
+    chunk = next(_chunks(seed=9, n=3_000))
+    for ds in (jds, tds):
+        ds.create_schema("plain", "actor:String,score:Double,dtg:Date,"
+                                  "*geom:Point")
+        ds.write("plain", chunk)
+        ds.write("plain", chunk)
+    for ecql in ("IN ('12','4000','nope')", "IN ('7') AND actor = 'a'"):
+        got, want = tds.query_result("plain", ecql), jds.query_result(
+            "plain", ecql)
+        assert got.strategy.index == want.strategy.index == "id"
+        np.testing.assert_array_equal(got.positions, want.positions)
+
+
+def test_lean_rejections(stores):
+    _, tds = stores
+    one = {"actor": np.array(["x"], object), "score": np.array([1.0]),
+           "dtg": np.array([MS_2018]),
+           "geom": (np.array([-74.0]), np.array([41.0]))}
+    with pytest.raises(ValueError, match="implicit feature ids"):
+        tds.write("evt", one, ids=["custom"])
+    with pytest.raises(ValueError, match="z3/id only"):
+        tds._store("evt").index("z2")
+    with pytest.raises(AttributeError, match="implicit ids"):
+        _ = tds._store("evt").batch.ids
+    with pytest.raises(ValueError, match="point geometry"):
+        tds.create_schema("bad", "v:Int,dtg:Date;"
+                                 "geomesa.index.profile=lean")
+
+
+def test_left_out_features_raise(stores):
+    _, tds = stores
+    lean = ";geomesa.index.profile=lean"
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"])
+                     ).create_schema("m", "dtg:Date,*geom:Point" + lean)
+    with pytest.raises(NotImplementedError, match="attribute indexes"):
+        tds.create_schema("attr", "name:String:index=true,dtg:Date,"
+                                  "*geom:Point" + lean)
+    with pytest.raises(NotImplementedError, match="non-point"):
+        tds.create_schema("poly", "v:Int,*poly:Polygon" + lean)
+    with pytest.raises(NotImplementedError, match="pyramids"):
+        tds.build_pyramids("evt")
+    with pytest.raises(NotImplementedError, match="pyramids"):
+        tds._store("evt").index("z3").build_pyramids()
+    with pytest.raises(NotImplementedError, match="cell-count"):
+        tds._store("evt").index("z3").z3_cell_counts(8)
+    with pytest.raises(NotImplementedError, match="query_windows"):
+        tds.query_windows("evt", [([BOX], None, None)])
+    with pytest.raises(NotImplementedError, match="fused"):
+        tds.query_fused("evt", "INCLUDE")
+    with pytest.raises(NotImplementedError, match="deletes"):
+        tds.delete("evt", "INCLUDE")
+    with pytest.raises(NotImplementedError, match="persistence"):
+        TpuDataStore(device="cpu", catalog_dir="catalog")
+    with pytest.raises(NotImplementedError, match="visibilities"):
+        tds.write("evt", next(_chunks(n=10)), visibility="admin")

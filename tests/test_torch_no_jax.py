@@ -1,7 +1,7 @@
 """The port stands alone: importing geomesa_tpu_torch and running its
-queries (z3, z2), a heatmap, and a mesh store's query and stats loads
-neither ``jax`` nor any module of ``geomesa_tpu``, and its sources import
-neither.  Checked in a subprocess, because this test process has
+queries (z3, z2), a heatmap, a mesh store's query and stats, and a lean
+store's query, heatmap, tile, count and compaction loads neither ``jax``
+nor any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
 import ast
@@ -42,6 +42,22 @@ mq = ms.query_result("s", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
                           "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
 mstat = ms.stats("s", "BBOX(geom, -5, -5, 5, 5)",
                  "Count();Frequency(actor,4,64)")
+ls = TpuDataStore(device="cpu")
+ls.create_schema("l", "dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+                      "geomesa.lean.generation.slots=128,"
+                      "geomesa.lean.hbm.budget=16384")
+for _ in range(4):
+    ls.write("l", {"dtg": rng.integers(1514764800000, 1517443200000, n),
+                   "geom": (rng.uniform(-10, 10, n),
+                            rng.uniform(-10, 10, n))})
+lq = ls.query_result("l", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+                          "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+lgrid = geomesa_tpu_torch.density_process(ls, "l", "INCLUDE",
+                                          (-10, -10, 10, 10), 16, 16)
+ltile = ls.density_tile("l", 1, 1, 0, tile=8)
+lcount = ls.stats("l", "INCLUDE", "Count()").count
+ltiers = ls._store("l").index("z3").tier_counts()
+lcompact = ls.compact("l")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -52,7 +68,13 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "mesh_strategy": mq.strategy.index,
                   "mesh_hits": int(len(mq.positions)),
                   "mesh_count": int(mstat.stats[0].count),
-                  "mesh_freq": int(mstat.stats[1].table.sum())}))
+                  "mesh_freq": int(mstat.stats[1].table.sum()),
+                  "lean_strategy": lq.strategy.index,
+                  "lean_hits": int(len(lq.positions)),
+                  "lean_density": float(lgrid.sum()),
+                  "lean_tile": float(ltile.sum()), "lean_count": int(lcount),
+                  "lean_tiers": ltiers,
+                  "lean_generations": lcompact["z3"]["generations"]}))
 """
 
 
@@ -75,6 +97,11 @@ def test_import_and_query_load_no_jax():
     assert out["mesh_strategy"] == "z3" and out["mesh_hits"] > 0
     assert out["mesh_count"] > 0
     assert out["mesh_freq"] == 4 * out["mesh_count"]
+    assert out["lean_strategy"] == "z3" and out["lean_hits"] > 0
+    assert out["lean_density"] == out["lean_count"] == 4 * 500
+    assert out["lean_tile"] > 0
+    assert min(out["lean_tiers"].values()) > 0   # full, keys and host
+    assert out["lean_generations"] < 16
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
