@@ -62,16 +62,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    to the lean profile, ending with generations in all three tiers
    (full, keys, host); 8 BBOX+DURING queries (3 city, 3 region, 2
    continent) and 2 BBOX-only ones, positions and implicit ids equal to
-   the oracle; ``Count()`` on INCLUDE (pushed down) and on BBOX+DURING;
-   256x256 ``density_process`` heatmaps over a BBOX+DURING and the world
-   (pushed down, held to the per-tier contract: value-exact on
-   full-tier rows, cell-inclusive on keys and host rows, binned at the
-   z-cell centre), a ``score``-weighted heatmap (the query path and the
-   density kernel, rtol 1e-5), ``density_tile`` at z = 1 (a slice of the
-   world sweep) and z = 3 (a bbox scan); then ``compact``, after which
-   the generation count has fallen and two queries and the world heatmap
-   still equal the oracle.  Kernel launches of three queries are
-   counted with ``torch.profiler``.
+   the oracle, each plan costed by the cardinality estimator (source
+   ``sketch``; its cold fold timed first); one city BBOX with the
+   estimator off and a replan threshold of 2, which must replan exactly
+   once (source ``observed``) and still equal the oracle; a 256x256
+   world heatmap before any pyramid; ``build_pyramids``, which must
+   build one per sealed generation; ``Count()`` on INCLUDE (the count
+   push-down) and on BBOX+DURING (materialized) and a whole-extent
+   ``Z3Histogram`` (the sketch push-down), equal to numpy oracles, with
+   the route each took; ``density_process`` heatmaps over a BBOX+DURING
+   and the world at 256 and 512 (pushed down, held to the per-tier
+   contract: value-exact on full-tier rows, cell-inclusive on keys and
+   host rows, binned at the z-cell centre), a ``score``-weighted heatmap
+   (the query path and the density kernel, rtol 1e-5), ``density_tile``
+   at z = 1 (a slice of the world grid) and z = 3 (a bbox scan), the
+   world grids and the z = 1 tile served from every sealed generation's
+   pyramid; then ``compact``, after which the generation count has
+   fallen, every merged generation has inherited its parents' pyramid,
+   and two queries and the pyramid-served world heatmap still equal the
+   oracle.  Kernel launches of three queries are counted with
+   ``torch.profiler``.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 7 and phase 8; a
@@ -85,8 +95,11 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime as dt
+import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -106,6 +119,31 @@ INT32_OPS_PER_S = 67e12 / 4
 #: outside the tensor cores counts a fused multiply-add as 2
 FP64_OPS_PER_S = 34e12 / 2
 WORLD = (-180.0, -90.0, 180.0, 90.0)
+#: the lean phase's Z3Histogram resolution (top bits of the z3 key)
+Z3_BITS = 12
+#: the lean phase's mispredicted plan: whole-store fractions only, and a
+#: replan threshold the dense city box passes
+REPLAN_ENV = {"GEOMESA_PLANNING_ESTIMATOR_ENABLED": "false",
+              "GEOMESA_PLANNING_REPLAN_THRESHOLD": "2.0"}
+#: the lean phase's fraction-costed plans (the estimator and replanning
+#: off: what PR 5's port planned), timed in turns with the sketch-costed
+FRACTION_ENV = {"GEOMESA_PLANNING_ESTIMATOR_ENABLED": "false",
+                "GEOMESA_PLANNING_REPLAN_THRESHOLD": "0"}
+
+
+@contextlib.contextmanager
+def env_set(values: dict):
+    """Set environment variables for the block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def log(msg: str) -> None:
@@ -1174,6 +1212,77 @@ def lean_density_oracle(cols, layout, boxes, lo, hi, env, width: int,
     return counts.astype(np.float64).reshape(height, width)
 
 
+def _split3(v):
+    """numpy Morton spread of 21-bit uint64 values to every third bit."""
+    import numpy as np
+    v = v & np.uint64(0x1FFFFF)
+    for shift, mask in ((32, 0x1F00000000FFFF), (16, 0x1F0000FF0000FF),
+                        (8, 0x100F00F00F00F00F), (4, 0x10C30C30C30C30C3),
+                        (2, 0x1249249249249249)):
+        v = (v | (v << np.uint64(shift))) & np.uint64(mask)
+    return v
+
+
+def z3_cells_oracle(x, y, t, bits: int, chunk: int = 1 << 24) -> dict:
+    """numpy oracle of Z3Histogram(geom, dtg, week, bits): rows counted per
+    (week bin, top ``bits`` of the z3 key), the key interleaving the
+    21-bit normalized lon (bit 0), lat (bit 1) and week offset (bit 2)."""
+    import numpy as np
+    from geomesa_tpu_torch.curve.binnedtime import (
+        TimePeriod, max_offset, to_binned_time)
+    t_max = float(max_offset(TimePeriod.WEEK))
+    counts: dict = {}
+    for s in range(0, len(x), chunk):
+        bins, offs = to_binned_time(t[s:s + chunk], TimePeriod.WEEK)
+        z = (_split3(lean_norm(x[s:s + chunk], -180, 180).astype(np.uint64))
+             | (_split3(lean_norm(y[s:s + chunk], -90, 90)
+                        .astype(np.uint64)) << np.uint64(1))
+             | (_split3(lean_norm(offs.astype(np.float64), 0.0, t_max)
+                        .astype(np.uint64)) << np.uint64(2)))
+        cell = (z >> np.uint64(63 - bits)).astype(np.int64)
+        b0 = int(bins.min())
+        per = np.bincount((bins.astype(np.int64) - b0) * (1 << bits) + cell)
+        for k in np.flatnonzero(per).tolist():
+            kk = (b0 + (k >> bits), k & ((1 << bits) - 1))
+            counts[kk] = counts.get(kk, 0) + int(per[k])
+    return counts
+
+
+class StatRoute:
+    """Records which lean stats route answered: the Count push-down, the
+    sketch push-down, or (neither) the materializing query path."""
+
+    def __init__(self):
+        import importlib
+        # the module, not the function the package exports under its name
+        sp = importlib.import_module("geomesa_tpu_torch.process.stats_process")
+        self.sp, self.route = sp, None
+        self._count, self._sketch = (sp._lean_count_pushdown,
+                                     sp._lean_sketch_pushdown)
+
+        def count(*a):
+            got = self._count(*a)
+            self.route = self.route or (got is not None and "count")
+            return got
+
+        def sketch(*a):
+            got = self._sketch(*a)
+            self.route = self.route or (got is not None and "sketch")
+            return got
+
+        sp._lean_count_pushdown, sp._lean_sketch_pushdown = count, sketch
+
+    def run(self, fn):
+        """(result, route) of one stats call."""
+        self.route = None
+        out = fn()
+        return out, self.route or "materialized"
+
+    def close(self):
+        self.sp._lean_count_pushdown = self._count
+        self.sp._lean_sketch_pushdown = self._sketch
+
+
 def snap_weighted(x, y, w, env, width: int, height: int):
     """numpy weighted histogram of points snapped as GridSnap snaps them,
     the weights cast to float32 and summed in float64."""
@@ -1211,14 +1320,16 @@ def lean_phase(rng, args, centres, qs, dev, report):
     """The lean profile: ``--lean-rows`` GDELT-like rows (with a ``score``)
     written in 4 batches to a schema with no profile set, whose first
     write switches it to lean; a budget that leaves all three tiers;
-    BBOX+DURING and BBOX queries, Count, heatmaps (pushed down and
-    weighted) and tiles against numpy oracles, before and after
-    ``compact``."""
+    BBOX+DURING and BBOX queries (estimator-costed, and one replanned),
+    pyramids, Count and Z3Histogram, heatmaps (pushed down, from the
+    pyramids and weighted) and tiles against numpy oracles, before and
+    after ``compact``."""
     import numpy as np
     import torch
     from geomesa_tpu_torch import TpuDataStore, density_process
-    from geomesa_tpu_torch.index.pyramid import tile_env
+    from geomesa_tpu_torch.index.pyramid import pyramid_spec, tile_env
     from geomesa_tpu_torch.index.z3_lean import LeanZ3Index
+    from geomesa_tpu_torch.planning import ExplainString
 
     cuda = dev.type == "cuda"
     slots = args.lean_slots
@@ -1289,21 +1400,37 @@ def lean_phase(rng, args, centres, qs, dev, report):
     for kind, boxes, _lo, _hi in (picks[0], picks[3]):
         checks.append((f"{kind}-bbox", bbox(boxes[0]), boxes, None, None))
 
-    def run_query(kind, ecql, boxes, lo, hi):
+    # the estimator: on at this size; its cold fold (every generation's
+    # z3 cell counts) timed apart from the queries it then costs
+    t0 = time.perf_counter()
+    est = store.estimator()
+    if est is None:
+        raise AssertionError(f"no cardinality estimator on a lean store of "
+                             f"{n} rows")
+    est.z3_rows([WORLD], [(None, None)])
+    rep["estimator_cold_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def run_query(kind, ecql, boxes, lo, hi, source="sketch"):
+        ex = ExplainString()
         t0 = time.perf_counter()
-        res = ds.query_result("scale", ecql)
+        res = ds.query_result("scale", ecql, ex)
         ms = (time.perf_counter() - t0) * 1e3
         want = (box_oracle(x, y, boxes) if lo is None
                 else oracle(x, y, t, boxes, lo, hi))
-        if res.strategy.index != "z3" or not np.array_equal(res.positions,
-                                                            want):
+        st = res.strategy
+        if (st.index != "z3" or st.source != source
+                or not np.array_equal(res.positions, want)):
             raise AssertionError(
-                f"lean {kind} {ecql}: strategy {res.strategy.index}, "
+                f"lean {kind} {ecql}: strategy {st.index} ({st.source}), "
                 f"{len(res.positions)} hits, oracle {len(want)}")
         ids = list(res.batch.ids[:3])
         if ids != [str(int(p)) for p in want[:3]]:
             raise AssertionError(f"lean {kind}: implicit ids {ids}")
-        return {"query": kind, "ms": ms, "hits": int(len(want))}
+        return {"query": kind, "ms": ms, "hits": int(len(want)),
+                "plan_ms": res.plan_time_ms, "scan_ms": res.scan_time_ms,
+                "source": st.source, "max_ranges": st.max_ranges,
+                "cost": float(st.cost),
+                "replans": str(ex).count("Replanning:")}
 
     rows = []
     for c in checks:
@@ -1321,37 +1448,53 @@ def lean_phase(rng, args, centres, qs, dev, report):
     if args.profile:
         rep["profile"] = profile_queries(
             "lean", lambda c: ds.query_result("scale", c[1]), checks)
-    log(f"lean: {len(rows)} queries equal to the oracle; p50 "
-        f"{np.median(lat):.3f} ms, max {lat.max():.3f} ms; hits "
-        f"{[r['hits'] for r in rows]}; launches "
-        f"{rep.get('launches_per_query')}")
+    # the same queries planned from whole-store fractions (the default
+    # max_ranges), then from the sketch again, in turns in this call
+    turns = {}
+    for label, env, src in (("fractions", FRACTION_ENV, "stats"),
+                            ("sketch", {}, "sketch")):
+        with env_set(env):
+            turns[label] = [run_query(*c, source=src) for c in checks]
+    rep["turns"] = turns
 
-    # Count: pushed down on INCLUDE, materialized on BBOX+DURING (the
-    # keys and host tiers are cell-granular)
-    kind, q_and, boxes, lo, hi = checks[3]
-    crow = []
-    for name, ecql, want in (("include", "INCLUDE", n),
-                             (kind, q_and, len(oracle(x, y, t, boxes, lo,
-                                                      hi)))):
-        t0 = time.perf_counter()
-        got = ds.stats("scale", ecql, "Count()").count
-        ms = (time.perf_counter() - t0) * 1e3
-        if got != want:
-            raise AssertionError(f"lean Count {name}: {got}, oracle {want}")
-        crow.append({"query": name, "ms": ms, "count": int(got)})
-    rep["count"] = crow
+    def split(rs):
+        return [tuple(round(r[k], 1) for k in ("ms", "plan_ms", "scan_ms"))
+                for r in rs]
 
-    # heatmaps: pushed down (the per-tier contract), weighted (the query
-    # path and the density kernel), tiles
-    box = boxes[0]
-    lo_c, hi_c = max(lo, t_min), min(hi, t_max)
+    log(f"lean: estimator cold fold {rep['estimator_cold_ms']:.1f} ms; "
+        f"{len(rows)} queries equal to the oracle, every plan costed by "
+        f"the sketch; p50 {np.median(lat):.3f} ms, max {lat.max():.3f} ms; "
+        f"hits {[r['hits'] for r in rows]}; max_ranges "
+        f"{[r['max_ranges'] for r in rows]}; launches "
+        f"{rep.get('launches_per_query')}; in turns (ms, plan ms, scan "
+        f"ms), fraction-costed {split(turns['fractions'])}, sketch-costed "
+        f"{split(turns['sketch'])}")
+
+    # a mispredicted plan: the estimator off, the fraction-costed dense
+    # city BBOX observes far more candidates than costed and replans once
+    kind, _q, boxes, _lo, _hi = checks[8]
+    with env_set(REPLAN_ENV):
+        row = run_query(kind, checks[8][1], boxes, None, None,
+                        source="observed")
+    if row["replans"] != 1:
+        raise AssertionError(f"lean mispredicted {kind}: {row['replans']} "
+                             f"replans, not 1")
+    rep["replan"] = row
+    log(f"lean: mispredicted {kind} replanned once, {row['ms']:.1f} ms, "
+        f"{row['hits']} hits equal to the oracle")
+
+    box = checks[3][2][0]
+    lo_c, hi_c = max(checks[3][3], t_min), min(checks[3][4], t_max)
     tx = int((box[0] + box[2]) / 2 + 180.0) // 180
     ty = 1 - int((box[1] + box[3]) / 2 + 90.0) // 90
     t3x = int(((box[0] + box[2]) / 2 + 180.0) // 45.0)
     t3y = 7 - int(((box[1] + box[3]) / 2 + 90.0) // 22.5)
     env3 = tile_env(3, t3x, t3y)
 
+    @functools.lru_cache(maxsize=None)
     def world_oracle(res):
+        # whole extent, whole time: every tier's test passes every row,
+        # so the grid does not depend on the tier layout
         return lean_density_oracle((x, y, t), layout, [WORLD], t_min, t_max,
                                    WORLD, res, res)
 
@@ -1359,30 +1502,97 @@ def lean_phase(rng, args, centres, qs, dev, report):
         g = world_oracle(512)
         return g[(1 - ty) * 256:(2 - ty) * 256, tx * 256:(tx + 1) * 256]
 
-    dens = [
+    def check_grid(name, run, want_fn, size=256):
+        h0 = idx.pyramid_serve_hits
+        t0 = time.perf_counter()
+        grid = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        served = idx.pyramid_serve_hits - h0
+        want = want_fn()
+        if grid.shape != (size, size) or not np.array_equal(grid, want):
+            raise AssertionError(f"lean density {name}: grid disagrees with "
+                                 f"the oracle ({float(grid.sum())} against "
+                                 f"{float(want.sum())} points)")
+        return {"query": name, "ms": ms, "points": float(want.sum()),
+                "pyramid_served": served}
+
+    # the world heatmap before any pyramid exists: every generation sweeps
+    drows = [check_grid("world-before-pyramids",
+                        lambda: density_process(ds, "scale", "INCLUDE",
+                                                WORLD),
+                        lambda: world_oracle(256))]
+
+    # pyramids: one per sealed generation, then served in their place
+    sealed = len(idx.generations) - 1
+    t0 = time.perf_counter()
+    built = ds.build_pyramids("scale")
+    build_s = time.perf_counter() - t0
+    if built != sealed or store.pyramid_build_failures:
+        raise AssertionError(f"built {built} pyramids for {sealed} sealed "
+                             f"generations ({store.pyramid_build_error})")
+    rep["pyramids"] = {"built": built, "s": build_s}
+    log(f"lean: {built} pyramids built for {sealed} sealed generations in "
+        f"{build_s:.3f} s")
+
+    # Count pushed down on INCLUDE (the pyramids' 1x1 level), materialized
+    # on BBOX+DURING (the keys and host tiers are cell-granular); a whole
+    # extent Z3Histogram from the keys (the sketch push-down)
+    kind, q_and, boxes, lo, hi = checks[3]
+    routes = StatRoute()
+    crow = []
+    try:
+        for name, ecql, want, route in (
+                ("include", "INCLUDE", n, "count"),
+                (kind, q_and, len(oracle(x, y, t, boxes, lo, hi)),
+                 "materialized")):
+            t0 = time.perf_counter()
+            got, how = routes.run(lambda: ds.stats("scale", ecql,
+                                                   "Count()").count)
+            ms = (time.perf_counter() - t0) * 1e3
+            if got != want or how != route:
+                raise AssertionError(f"lean Count {name}: {got} by {how}, "
+                                     f"oracle {want} by {route}")
+            crow.append({"query": name, "ms": ms, "count": int(got),
+                         "route": how})
+        t0 = time.perf_counter()
+        hist, how = routes.run(lambda: ds.stats(
+            "scale", "INCLUDE", f"Z3Histogram(geom,dtg,week,{Z3_BITS})"))
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        routes.close()
+    want = z3_cells_oracle(x, y, t, Z3_BITS)
+    if hist.counts != want or how != "sketch":
+        raise AssertionError(f"lean Z3Histogram by {how}: "
+                             f"{sum(hist.counts.values())} rows in "
+                             f"{len(hist.counts)} cells, oracle "
+                             f"{sum(want.values())} in {len(want)}")
+    crow.append({"query": f"z3histogram-{Z3_BITS}", "ms": ms,
+                 "cells": len(want), "route": how})
+    rep["count"] = crow
+
+    # heatmaps: pushed down (the per-tier contract; world grids and the
+    # z = 1 tile from the pyramids), weighted (the query path and the
+    # density kernel), tiles
+    drows += [check_grid(*d) for d in (
         (kind, lambda: density_process(ds, "scale", q_and, box),
          lambda: lean_density_oracle((x, y, t), layout, [box], lo_c, hi_c,
                                      box, 256, 256)),
         ("world", lambda: density_process(ds, "scale", "INCLUDE", WORLD),
          lambda: world_oracle(256)),
+        ("world-512", lambda: density_process(ds, "scale", "INCLUDE", WORLD,
+                                              512, 512),
+         lambda: world_oracle(512), 512),
         (f"tile_1_{tx}_{ty}", lambda: ds.density_tile("scale", 1, tx, ty),
          tile1_oracle),
         (f"tile_3_{t3x}_{t3y}", lambda: ds.density_tile("scale", 3, t3x,
                                                          t3y),
          lambda: lean_density_oracle((x, y, t), layout, [env3], t_min,
-                                     t_max, env3, 256, 256)),
-    ]
-    drows = []
-    for name, run, want_fn in dens:
-        t0 = time.perf_counter()
-        grid = run()
-        ms = (time.perf_counter() - t0) * 1e3
-        want = want_fn()
-        if grid.shape != (256, 256) or not np.array_equal(grid, want):
-            raise AssertionError(f"lean density {name}: grid disagrees with "
-                                 f"the oracle ({float(grid.sum())} against "
-                                 f"{float(want.sum())} points)")
-        drows.append({"query": name, "ms": ms, "points": float(want.sum())})
+                                     t_max, env3, 256, 256)))]
+    for r in drows[2:5]:
+        if r["pyramid_served"] != sealed:
+            raise AssertionError(f"lean {r['query']}: {r['pyramid_served']} "
+                                 f"of {sealed} sealed generations served "
+                                 f"from pyramids")
     hits = oracle(x, y, t, boxes, lo, hi)
     t0 = time.perf_counter()
     grid = density_process(ds, "scale", q_and, box, weight_attr="score")
@@ -1395,10 +1605,15 @@ def lean_phase(rng, args, centres, qs, dev, report):
     drows.append({"query": f"{kind}-weighted", "ms": ms,
                   "points": int(len(hits)), "dtype": str(grid.dtype)})
     rep["density"] = drows
-    log("lean: counts and heatmaps equal to the oracle: "
-        + ", ".join(f"{r['query']} {r['ms']:.1f} ms" for r in crow + drows))
+    log("lean: counts, Z3Histogram and heatmaps equal to the oracle: "
+        + ", ".join(f"{r['query']} {r['ms']:.1f} ms"
+                    + (f" ({r['route']})" if "route" in r else "")
+                    + (f" ({r['pyramid_served']} from pyramids)"
+                       if "pyramid_served" in r else "")
+                    for r in crow + drows))
 
-    # compaction: fewer generations, the same answers
+    # compaction: fewer generations, the same answers; the merged run
+    # inherits its parents' summed pyramid
     gens_before = len(idx.generations)
     t0 = time.perf_counter()
     res = ds.compact("scale")
@@ -1407,23 +1622,30 @@ def lean_phase(rng, args, centres, qs, dev, report):
     if res["z3"]["generations"] >= gens_before:
         raise AssertionError(f"compaction left {res} from {gens_before} "
                              f"generations")
+    pyr = idx._pyramid_cache.spec_cache(pyramid_spec(512))
+    sealed = len(idx.generations) - 1
+    if not all(g.gen_id in pyr for g in idx.generations[:-1]):
+        raise AssertionError("a merged generation did not inherit its "
+                             "parents' pyramids")
     layout = [(g.base, g.n, g.tier) for g in idx.generations]
     after = [run_query(*checks[0]), run_query(*checks[6])]
-    t0 = time.perf_counter()
-    grid = density_process(ds, "scale", "INCLUDE", WORLD)
-    wms = (time.perf_counter() - t0) * 1e3
-    if not np.array_equal(grid, world_oracle(256)):
-        raise AssertionError("lean world heatmap after compaction disagrees "
-                             "with the oracle")
+    wrow = check_grid("world-after-compact",
+                      lambda: density_process(ds, "scale", "INCLUDE", WORLD),
+                      lambda: world_oracle(256))
+    if wrow["pyramid_served"] != sealed:
+        raise AssertionError(f"after compaction {wrow['pyramid_served']} of "
+                             f"{sealed} sealed generations served from "
+                             f"pyramids")
     rep["compact"] = {"s": compact_s, "result": res["z3"],
                       "generations_before": gens_before,
-                      "queries": after, "world_ms": wms,
+                      "queries": after, "world": wrow,
                       "device_bytes": idx.device_bytes(),
                       "memory_allocated": (int(torch.cuda.memory_allocated())
                                            if cuda else None)}
     log(f"lean: compact in {compact_s:.3f} s, {gens_before} → "
         f"{res['z3']['generations']} generations, tiers {res['z3']['tiers']}; "
-        f"queries and world heatmap still equal to the oracle")
+        f"queries equal to the oracle; world heatmap {wrow['ms']:.1f} ms, "
+        f"{sealed} sealed generations (merged ones inherited) from pyramids")
     report["lean"] = rep
     del ds, store, idx
     if cuda:

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 from typing import Any
 
 __all__ = ["SystemProperty", "QueryProperties", "DensityProperties",
-           "DEFAULT_MAX_RANGES"]
+           "PlanningProperties", "DEFAULT_MAX_RANGES"]
 
 
 @dataclass(frozen=True)
@@ -63,13 +63,51 @@ class QueryProperties:
 
 
 class DensityProperties:
-    """Density-tile knobs (docs/density.md)."""
+    """Density-pyramid knobs (docs/density.md): sealed lean generations
+    precompute world-aligned multi-resolution density grids, so
+    whole-extent heatmaps and zoomed-out tiles sum cached cells instead
+    of rescanning history."""
 
-    #: world grid resolution (cells per axis, a power of two) up to which
-    #: a lean tile is a slice of the whole-world sweep; finer tiles run a
-    #: bbox density scan over the tile's envelope.  The JAX package also
-    #: builds its density pyramids at this base; the port has none.
+    #: base pyramid resolution (cells per axis, a power of two): each
+    #: sealed generation's pyramid starts at a (base, base) world grid
+    #: and halves down from there.  A lean tile is a slice of the
+    #: whole-world density while ``tile·2^z`` stays at or below it;
+    #: finer tiles run a bbox density scan over the tile's envelope
     PYRAMID_BASE = SystemProperty("geomesa.density.pyramid.base", 512)
+    #: reduction-ladder depth; 0 = the full ladder down to 1×1
+    PYRAMID_LEVELS = SystemProperty("geomesa.density.pyramid.levels", 0)
+    #: byte ceiling of a lean index's pyramid cache
+    PYRAMID_CACHE_BYTES = SystemProperty(
+        "geomesa.density.pyramid.cache.bytes", 256 * (1 << 20))
+    #: build trigger: ``off`` (only explicit ``build_pyramids`` calls
+    #: build) or ``seal`` (a generation seal runs one build-behind pass,
+    #: never failing the write and never changing results)
+    PYRAMID_BUILD = SystemProperty("geomesa.density.pyramid.build", "off")
+
+
+class PlanningProperties:
+    """Cost-based planning knobs (docs/planning.md): sketch-fed
+    cardinality estimation and adaptive mid-query replanning, re-read
+    per query plan."""
+
+    #: sketch-fed estimation master switch: off costs strategies from
+    #: whole-store stats and heuristics only
+    ESTIMATOR_ENABLED = SystemProperty(
+        "geomesa.planning.estimator.enabled", True)
+    #: live-row floor below which a lean store plans without the sketch
+    #: tier (the cold per-generation folds cannot amortize on a store a
+    #: whole scan finishes quickly); 0 sketches every lean store
+    ESTIMATOR_MIN_ROWS = SystemProperty(
+        "geomesa.planning.estimator.min.rows", 262_144)
+    #: adaptive-replan divergence trigger: when a scan's candidate probe
+    #: observes more than ``threshold × estimate`` rows, the scan aborts
+    #: and the query replans ONCE with the observed count folded in;
+    #: <= 0 disables replanning
+    REPLAN_THRESHOLD = SystemProperty(
+        "geomesa.planning.replan.threshold", 8.0)
+    #: observed-row floor below which a divergence never replans
+    REPLAN_MIN_ROWS = SystemProperty(
+        "geomesa.planning.replan.min.rows", 4096)
 
 
 #: default scan-ranges budget (import-time snapshot users can override per

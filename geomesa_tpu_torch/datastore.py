@@ -25,17 +25,28 @@ columns chunked (:class:`~geomesa_tpu_torch.features.lean.LeanBatch`,
 implicit feature ids) and indexes them in the tiered generational
 :class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index` (plus implicit-id
 lookups); heatmaps, tiles and ``Count()`` push down next to its keys.
+Sealed lean generations carry density pyramids (``build_pyramids``,
+or built behind every seal with ``geomesa.density.pyramid.build=seal``);
+lean stores of ``geomesa.planning.estimator.min.rows`` rows or more cost
+their z3 plans from the index's cell-count sketches, and a lean scan
+that observes far more candidates than costed replans once.  Schemas
+may name query interceptors (``geomesa.query.interceptors``), an
+age-off window (``geomesa.age.off``) and z-prefixed UUID feature ids
+(``geomesa.fid.strategy=z3``).
 Lean stores over a mesh, lean schemas with indexed attributes or
-non-point geometries, density pyramids, fused serving, deletes,
-persistence, multi-controller meshes, visibilities and authorizations
-are not ported and raise rather than degrade.
+non-point geometries, fused serving, deletes, persistence,
+multi-controller meshes, visibilities and authorizations are not ported
+and raise rather than degrade.
 """
 
 from __future__ import annotations
 
 import re
+import weakref
 
 import numpy as np
+
+from .config import DensityProperties, PlanningProperties
 
 from .device import resolve_device
 from .features.batch import FeatureBatch, build_columns
@@ -46,12 +57,16 @@ from .index.pyramid import tile_env
 from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
 from .index.z3_lean import LeanZ3Index
+from .jobs import run_pyramid_build
 from .parallel.scan import ShardedZ3Index
 from .parallel.z2 import ShardedZ2Index
+from .planning.estimator import CardinalityEstimator
 from .planning.explain import Explainer
+from .planning.interceptor import apply_interceptors, load_interceptors
 from .planning.planner import Query, QueryPlanner, QueryResult
 from .planning.strategy import FilterStrategy
 from .stats.stat import BBoxStat, CountStat, EnumerationStat, MinMax, Stat, TopK
+from .utils.feature_id import z3_feature_ids
 
 __all__ = ["TpuDataStore"]
 
@@ -104,6 +119,15 @@ class _SchemaStore:
         #: switched on by a large first write, see TpuDataStore.write)
         self.lean = ((sft.user_data or {}).get(
             "geomesa.index.profile") == "lean")
+        #: generation-lifecycle hook the owning datastore parks here; the
+        #: lean index registers it when created, and it runs the
+        #: build-behind pyramid pass on seal
+        self.pyramid_trigger = None
+        #: seal-triggered pyramid builds that raised (the write never
+        #: fails for them) and the last such error
+        self.pyramid_build_failures = 0
+        self.pyramid_build_error: BaseException | None = None
+        self._estimator: CardinalityEstimator | None = None
         self._init_stats()
         if self.lean:
             self._init_lean()
@@ -169,6 +193,8 @@ class _SchemaStore:
                     self.LEAN_COMPACTION_FACTOR),
                 device=self.device)
             idx.payload_provider = self._lean_payload
+            if self.pyramid_trigger is not None:
+                idx.generation_listeners.append(self.pyramid_trigger)
             self._indexes["z3"] = idx
             self.build_counts["z3"] = self.build_counts.get("z3", 0) + 1
         return idx
@@ -201,6 +227,28 @@ class _SchemaStore:
         if idx is None:
             return {}
         return {"z3": idx.compact(budget_ms=budget_ms)}
+
+    def build_pyramids(self) -> int:
+        """Build density pyramids over the lean index's sealed
+        generations; the number built (0 for default-profile schemas)."""
+        if not self.lean or self.batch is None:
+            return 0
+        return self._lean_index().build_pyramids()
+
+    def estimator(self) -> CardinalityEstimator | None:
+        """The sketch-fed cardinality estimator for the planner: lean
+        stores of ``geomesa.planning.estimator.min.rows`` rows or more
+        only (on a smaller store the cold per-generation folds cannot
+        amortize); None elsewhere, and the decider costs from
+        whole-store stats, then heuristics."""
+        if not self.lean:
+            return None
+        rows = len(self.batch) if self.batch is not None else 0
+        if rows < PlanningProperties.ESTIMATOR_MIN_ROWS.to_int():
+            return None
+        if self._estimator is None:
+            self._estimator = CardinalityEstimator(self)
+        return self._estimator
 
     def _init_stats(self):
         sft = self.sft
@@ -366,6 +414,9 @@ class TpuDataStore:
         self.device = resolve_device(device)
         self._mesh = mesh
         self._schemas: dict[str, _SchemaStore] = {}
+        #: per-schema query interceptors (``geomesa.query.interceptors``
+        #: and ``geomesa.age.off`` user data), loaded at create_schema
+        self._interceptors: dict[str, list] = {}
 
     # -- schema lifecycle (MetadataBackedDataStore.createSchema etc.) ----
     def create_schema(self, sft_or_name, spec: str | None = None) -> FeatureType:
@@ -379,8 +430,12 @@ class TpuDataStore:
                 "underscore and dash only")
         if sft.name in self._schemas:
             raise ValueError(f"schema {sft.name!r} already exists")
-        self._schemas[sft.name] = _SchemaStore(sft, self.device,
-                                               mesh=self._mesh)
+        store = _SchemaStore(sft, self.device, mesh=self._mesh)
+        store.pyramid_trigger = self._pyramid_listener(sft.name)
+        self._schemas[sft.name] = store
+        # interceptors resolve EAGERLY: a typoed class path fails
+        # create_schema, not the first query
+        self._interceptors[sft.name] = load_interceptors(sft)
         return sft
 
     def get_schema(self, name: str) -> FeatureType:
@@ -434,12 +489,21 @@ class TpuDataStore:
         batch = (data if isinstance(data, FeatureBatch)
                  else FeatureBatch.from_dict(store.sft, data, ids=ids))
         if not batch.ids_explicit:
-            # feature ids must be unique across writes: a monotonic
-            # counter, never reused; re-based on a shallow copy so the
-            # caller's batch is never mutated
-            base = store.next_fid
-            new_ids = np.array([f"{base + i}" for i in range(len(batch))],
-                               dtype=object)
+            # feature ids must be unique across writes, re-based on a
+            # shallow copy so the caller's batch is never mutated: with
+            # ``geomesa.fid.strategy=z3`` user data, z-prefixed UUIDs
+            # (Z3FeatureIdGenerator locality), else a monotonic counter,
+            # never reused
+            if (sft.user_data.get("geomesa.fid.strategy") == "z3"
+                    and sft.is_points and sft.dtg_field):
+                x, y = batch.geom_xy()
+                new_ids = z3_feature_ids(x, y, batch.column(sft.dtg_field),
+                                         period=sft.z3_interval)
+            else:
+                base = store.next_fid
+                new_ids = np.array(
+                    [f"{base + i}" for i in range(len(batch))],
+                    dtype=object)
             batch = FeatureBatch(batch.sft, dict(batch.columns),
                                  geoms=batch.geoms, ids=new_ids)
             next_fid = store.next_fid + len(batch)
@@ -469,11 +533,17 @@ class TpuDataStore:
                      explain: Explainer | None = None) -> QueryResult:
         store = self._store(name)
         q = query if isinstance(query, Query) else Query.of(query)
+        q = self._intercept(store.sft, q)
         if store.batch is None or len(store.batch) == 0:
             return QueryResult(FeatureBatch.empty(store.sft),
                                np.empty(0, dtype=np.int64),
                                FilterStrategy("none", 0), 0.0, 0.0)
         return QueryPlanner(store.sft, store).run(q, explain)
+
+    def _intercept(self, sft: FeatureType, q: Query) -> Query:
+        """The schema's interceptors' rewrite of ``q`` (QueryInterceptor
+        SPI: age-off windows, guards that raise)."""
+        return apply_interceptors(self._interceptors[sft.name], sft, q)
 
     # -- aggregation --------------------------------------------------------
     def stats(self, name: str, query="INCLUDE", spec: str = "Count()"):
@@ -540,10 +610,43 @@ class TpuDataStore:
         "tiers"}}`` — empty for default-profile schemas."""
         return self._store(name).compact_lean(budget_ms=budget_ms)
 
-    # -- not ported ---------------------------------------------------------
-    def build_pyramids(self, name: str) -> int:
-        raise NotImplementedError("density pyramids are not ported")
+    def _pyramid_listener(self, name: str):
+        """The generation-lifecycle hook parked on every schema store: on
+        seal — when ``geomesa.density.pyramid.build`` is ``seal`` at fire
+        time — run one build-behind pyramid pass.  Best-effort by
+        contract: a failed build never fails the write that sealed the
+        generation (queries stay exact through the sweep); each failure
+        counts on the schema store, which keeps the last error."""
+        # a weak reference: the hook lives on the store's own index, and a
+        # strong one would make a cycle that keeps a dropped store's
+        # device memory allocated until the cyclic collector runs
+        ds_ref = weakref.ref(self)
 
+        def on_event(kind: str, gen_ids: list) -> None:
+            ds = ds_ref()
+            if kind != "seal" or ds is None:
+                return
+            if str(DensityProperties.PYRAMID_BUILD.get() or "off") != "seal":
+                return
+            try:
+                run_pyramid_build(ds, name)
+            except Exception as e:  # noqa: BLE001 — build-behind is best-effort
+                store = ds._store(name)
+                store.pyramid_build_failures += 1
+                store.pyramid_build_error = e
+        return on_event
+
+    def build_pyramids(self, name: str) -> int:
+        """Build density pyramids for a lean schema's sealed z3
+        generations: one whole-world multi-resolution grid stack per
+        generation, cached under the compaction-invalidated partial-cache
+        policy, so whole-world heatmaps and zoomed-out tiles stop
+        rescanning immutable history.  Idempotent — generations that
+        already have pyramids are skipped.  Returns the number built (0
+        for default-profile schemas)."""
+        return self._store(name).build_pyramids()
+
+    # -- not ported ---------------------------------------------------------
     def query_windows(self, name: str, windows, **kw):
         raise NotImplementedError(
             "batched window queries (query_windows) are not ported")

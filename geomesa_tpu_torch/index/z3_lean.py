@@ -44,14 +44,29 @@ not held equal to the JAX package's.
 
 **LSM lifecycle.**  :meth:`LeanZ3Index.compact` is a budgeted, resumable
 size-tiered K-way merge (device sort for keys-tier runs, numpy lexsort
-for spilled host runs); sealed generations' density partials cache per
-spec (:class:`~geomesa_tpu_torch.index.partial_cache.PartialCache`) and
-are invalidated when their generation merges away.
+for spilled host runs); sealed generations' density partials, z3
+cell-count partials and density pyramids cache per spec
+(:class:`~geomesa_tpu_torch.index.partial_cache.PartialCache`) and are
+invalidated when their generation merges away — a merged run inherits
+the SUM of its parents' pyramids.  Seals and merges fire the
+``generation_listeners`` (the store's build-behind pyramid trigger).
 
-Not ported from the JAX index (each raises or is absent): density
-pyramids (:meth:`LeanZ3Index.build_pyramids`), the z3 cell-count sketch
-fold (:meth:`LeanZ3Index.z3_cell_counts`), degraded execution on device
-failure (a device error propagates), heat tracking, spans and metrics.
+**Aggregates next to the keys.**  :meth:`LeanZ3Index.build_pyramids`
+builds each sealed generation's density pyramid
+(:mod:`~geomesa_tpu_torch.index.pyramid`), which the whole-world sweep
+then serves in place of sweeping that generation;
+:meth:`LeanZ3Index.z3_cell_counts` folds every generation's keys into
+(time-bin, z-cell) counts (the Z3Histogram push-down and the planner's
+cardinality estimator).
+
+**Replanning.**  :meth:`LeanZ3Index.query_many` reports its candidate
+counts to an ambient replan scope (planning/adaptive.py) after the
+device probe and after the host-tier seek, before any gather or exact
+mask, so a mispredicted plan aborts having collected nothing.
+
+Not ported from the JAX index (each is absent): degraded execution on
+device failure (a device error propagates), heat tracking, spans and
+metrics.
 
 Reference mapping: Z3IndexKeySpace.scala:60 (key layout),
 IndexAdapter.scala:95-106 (writers), AccumuloQueryPlan.scala:87-157
@@ -63,10 +78,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DEFAULT_MAX_RANGES
+from ..config import DEFAULT_MAX_RANGES, DensityProperties
 from ..curve.binnedtime import TimePeriod, to_binned_time
 from ..curve.zorder import deinterleave3
 from ..device import resolve_device
+from ..ops.density import pyramid_reduce
 from ..ops.search import (
     coded_pos_bits, expand_ranges, gather_capacity, pad_pow2, pad_ranges,
     searchsorted2, split_coded, wire_dtype,
@@ -75,7 +91,9 @@ from .lsm import (
     compact_incremental, merged_capacity, notify_generation_event,
     plan_size_tiered, replace_group,
 )
+from ..planning.adaptive import check_replan
 from .partial_cache import PartialCache
+from .pyramid import DensityPyramid, _ladder_depth, pyramid_spec
 from .z3 import (
     _SENTINEL_BIN, _SENTINEL_Z, Z3_INDEX_VERSION, _lexsort2, plan_z3_query,
     z3_sfc_for_version,
@@ -156,6 +174,21 @@ def _grid_count(gx, gy, ok, width: int, height: int) -> torch.Tensor:
     return torch.bincount(flat, minlength=g + 1)[:g].to(torch.float64)
 
 
+def _z3_cells(bins, z, b0: int, nb: int, bits: int) -> torch.Tensor:
+    """Z3Histogram fold of one device generation: every slot's coarse
+    cell is the TOP BITS of its z key (``z >> (63 - bits)`` — exactly
+    Z3HistogramStat's cell function), counted per (time-bin, cell) over
+    the bin span ``[b0, b0 + nb)``.  Sentinel keys and out-of-span bins
+    fold into a discarded overflow slot, as in the JAX package's
+    ``_z3_cells_multi`` (plain XLA there, so plain torch here)."""
+    size = nb << bits
+    cell = z >> (63 - bits)
+    flat = (bins.to(torch.int64) - b0) * (1 << bits) + cell
+    ok = (z != _SENTINEL_Z) & (flat >= 0) & (flat < size)
+    flat = torch.where(ok, flat, torch.full_like(flat, size))
+    return torch.bincount(flat, minlength=size + 1)[:size]
+
+
 class HostRun:
     """One sorted key run spilled to host RAM (the ``host`` residency
     tier): numpy segmented searchsorted seeks — per distinct query bin,
@@ -175,6 +208,18 @@ class HostRun:
         """The run's bins, rebuilt from the segment table (a stacked
         run hands its ``bins`` ownership to the :class:`HostStack`)."""
         return np.repeat(self._bin_vals, np.diff(self._bin_starts))
+
+    def cell_counts(self, b0: int, nb: int, bits: int) -> np.ndarray:
+        """Z3Histogram partial over THIS spilled run: flat
+        ``(bin - b0) << bits | cell`` counts — the numpy twin of
+        :func:`_z3_cells` (bins rebuild from the segment table)."""
+        bins = self.bins_column().astype(np.int64)
+        cell = np.asarray(self.z).astype(np.int64) >> (63 - bits)
+        size = nb << bits
+        flat = (bins - b0) * (1 << bits) + cell
+        ok = (flat >= 0) & (flat < size)
+        return np.bincount(flat[ok], minlength=size)[:size] \
+            .astype(np.int64)
 
     def sweep_partial(self, sfc, env, width: int, height: int,
                       world: bool) -> np.ndarray:
@@ -492,6 +537,20 @@ class LeanZ3Index:
     #: (LRU), and the host-RAM ceiling across them
     DENSITY_CACHE_SPECS = 4
     DENSITY_CACHE_MAX_BYTES = 512 * 2**20
+    #: z3 cell-count partial cache bounds (time-bins × 2^bits int64 per
+    #: sealed generation).  The estimator's table reaches 2^22 cells
+    #: (32 MiB a generation), so the JAX package's 64 MiB ceiling holds
+    #: two sealed partials and every generation change re-folds the rest
+    #: (4.3 s for the first query after a compaction of a 128M-row store,
+    #: PERF.md, on an H100 80GB HBM3 machine); the ceiling here is the
+    #: density cache's
+    SKETCH_CACHE_SPECS = 8
+    SKETCH_CACHE_MAX_BYTES = 512 * 2**20
+    #: density-pyramid cache spec bound: one spec per base resolution —
+    #: two let a base retune keep serving off the old stack while the
+    #: new one builds.  The byte ceiling is
+    #: ``geomesa.density.pyramid.cache.bytes``.
+    PYRAMID_CACHE_SPECS = 2
 
     def __init__(self, period: TimePeriod | str = TimePeriod.WEEK,
                  version: int = Z3_INDEX_VERSION,
@@ -531,11 +590,24 @@ class LeanZ3Index:
         self.compaction_factor = int(compaction_factor or 0)
         #: merge groups folded so far
         self.compactions = 0
+        #: sealed generations whose whole-world sweep a pyramid level
+        #: served in place of their keys
+        self.pyramid_serve_hits = 0
         #: sealed-generation density partials: spec → {gen_id: grid}
         self._density_cache = PartialCache(self.DENSITY_CACHE_SPECS,
                                            self.DENSITY_CACHE_MAX_BYTES)
-        #: generation-lifecycle listeners (lsm.notify_generation_event),
-        #: fired on seal/merge; none are registered in the port
+        #: sealed-generation z3 cell-count partials: (bits, bin span) →
+        #: {gen_id: counts}
+        self._sketch_cache = PartialCache(self.SKETCH_CACHE_SPECS,
+                                          self.SKETCH_CACHE_MAX_BYTES)
+        #: sealed-generation density pyramids: ("pyramid", base) →
+        #: {gen_id: DensityPyramid}
+        self._pyramid_cache = PartialCache(
+            self.PYRAMID_CACHE_SPECS,
+            DensityProperties.PYRAMID_CACHE_BYTES.to_int())
+        #: generation-lifecycle listeners (lsm.notify_generation_event):
+        #: ``listener(kind, gen_ids)`` fired on seal/merge — the hook the
+        #: store's build-behind pyramid trigger rides
         self.generation_listeners: list = []
         self._gen_counter = 0
 
@@ -586,7 +658,9 @@ class LeanZ3Index:
                 "sentinel_bytes": self.sentinel_bytes(),
                 "hbm_budget_bytes": self.hbm_budget_bytes,
                 "generations": gens,
-                "caches": {"density": self._density_cache.stats()},
+                "caches": {"density": self._density_cache.stats(),
+                           "sketch": self._sketch_cache.stats(),
+                           "pyramid": self._pyramid_cache.stats()},
                 "dispatches": self.dispatch_count}
 
     # -- write path -------------------------------------------------------
@@ -784,8 +858,11 @@ class LeanZ3Index:
             self._host_stack = None   # restacked lazily
         merged.gen_id = self._next_gen_id()
         dead_ids = [g.gen_id for g in group]
+        # the merged run's pyramid is the SUM of its parents', taken
+        # before the parents' entries drop
+        self._inherit_pyramids(dead_ids, merged.gen_id)
         self.generations = replace_group(self.generations, group, merged)
-        self._density_cache.drop_generations(dead_ids)
+        self._drop_cached_partials(dead_ids)
         self.compactions += 1
         notify_generation_event(self, "merge", [merged.gen_id])
 
@@ -813,6 +890,36 @@ class LeanZ3Index:
         return {"merged_groups": merged,
                 "generations": len(self.generations),
                 "tiers": self.tier_counts()}
+
+    def _drop_cached_partials(self, gen_ids: list) -> None:
+        self._density_cache.drop_generations(gen_ids)
+        self._sketch_cache.drop_generations(gen_ids)
+        self._pyramid_cache.drop_generations(gen_ids)
+
+    def _inherit_pyramids(self, dead_ids: list, new_gen_id: int) -> None:
+        """Compaction inheritance: when EVERY merged-away parent has a
+        pyramid under a spec (same level set), the merged run gets their
+        elementwise sum — exact, because each parent level is the
+        parent's count grid and the merged run is exactly the union of
+        the parents' rows.  Any missing parent leaves the merged run
+        pyramid-less (the next build fills it)."""
+        for _spec, cache in self._pyramid_cache.items():
+            parents = [cache.get(gid) for gid in dead_ids]
+            if all(p is not None for p in parents):
+                merged = DensityPyramid.sum(parents)
+                if merged is not None:
+                    self._pyramid_cache.add(cache, new_gen_id, merged)
+
+    def _pyramid_level(self, gen_id: int, width: int):
+        """The cached (width, width) pyramid grid of one sealed
+        generation, or None — serving never waits on a build."""
+        for _spec, cache in self._pyramid_cache.items():
+            pyr = cache.get(gen_id)
+            if pyr is not None:
+                lvl = pyr.level(width)
+                if lvl is not None:
+                    return lvl
+        return None
 
     # -- payload ----------------------------------------------------------
     def _payload_flat(self):
@@ -901,6 +1008,10 @@ class LeanZ3Index:
         keys_gens = [g for g in self.generations if g.tier == "keys"]
         host_gens = [g for g in self.generations if g.tier == "host"]
         seeks, totals = self._probe(full_gens + keys_gens, rb, rlo, rhi)
+        # replan probe point: the device totals are known BEFORE any
+        # gather, so an abort here (ReplanSignal) discards only the seeks
+        dev_total = int(totals.sum())
+        check_replan("query.scan.probe", dev_total)
         nf = len(full_gens)
         exact_hits = np.empty(0, np.int64)
         cand: list = []
@@ -924,6 +1035,9 @@ class LeanZ3Index:
             got = self._host_stack.candidates(
                 ra["rbin"], ra["rzlo"], ra["rzhi"], ra["rqid"], pos_bits)
             if len(got):
+                # second probe point: host-tier candidates are counted
+                # before the payload re-check, the expensive host step
+                check_replan("query.scan.probe", dev_total + len(got))
                 cand.append(got)
         mask_bits = (np.int64(1) << pos_bits) - 1
         cand_hits = np.concatenate(cand) if cand else np.empty(0, np.int64)
@@ -1254,11 +1368,17 @@ class LeanZ3Index:
         sweep partial caches under the grid spec — a whole-extent sweep
         is z-only and time-independent, so the partial survives the
         generation's own later demotions; the live generation's partial
-        caches per row count (append-only rows never change)."""
+        caches per row count (append-only rows never change).
+
+        Pyramid serving: on a world-extent, square, power-of-two grid, a
+        sealed generation whose built pyramid carries this resolution
+        contributes its level grid — bit-identical to sweeping it, no
+        keys touched.  Generations without a pyramid sweep as before."""
         env_t = tuple(float(v) for v in env)
         world = (env_t == _WORLD_ENV
                  and width & (width - 1) == 0
                  and height & (height - 1) == 0)
+        pyr_ok = world and width == height
         grid = np.zeros((height, width), np.float64)
         live = self.generations[-1] if self.generations else None
         cache = self._density_cache.spec_cache(("sweep", env_t, width,
@@ -1267,8 +1387,16 @@ class LeanZ3Index:
         for g in self.generations:
             if g.tier == "host":
                 continue
-            key = g.gen_id if g is not live else ("live", g.gen_id, int(g.n))
-            part = cache.get(key)
+            if g is not live:
+                part = self._pyramid_level(g.gen_id, width) if pyr_ok \
+                    else None
+                if part is not None:
+                    self.pyramid_serve_hits += 1
+                    grid += part
+                    continue
+                part = cache.get(g.gen_id)
+            else:
+                part = cache.get(("live", g.gen_id, int(g.n)))
             if part is None:
                 scan.append(g)
             else:
@@ -1292,6 +1420,12 @@ class LeanZ3Index:
         for g in self.generations:
             if g.tier != "host":
                 continue
+            if pyr_ok:
+                lvl = self._pyramid_level(g.gen_id, width)
+                if lvl is not None:
+                    self.pyramid_serve_hits += 1
+                    grid += lvl
+                    continue
             part = cache.get(g.gen_id)
             if part is None:
                 part = g.run.sweep_partial(self.sfc, env_t, width, height,
@@ -1299,6 +1433,45 @@ class LeanZ3Index:
                 self._density_cache.add(cache, g.gen_id, part)
             grid += part
         return grid
+
+    def build_pyramids(self, base: int | None = None,
+                       levels: int | None = None) -> int:
+        """Build the density pyramid of every sealed generation that lacks
+        one: one whole-world sweep per generation at the pow2 ``base``
+        resolution (device generations through the device sweep and the
+        2×2 reduction ladder, spilled host runs through their numpy
+        twins), cached under the PartialCache policy.  Idempotent
+        build-behind: built generations are skipped, an interrupted build
+        leaves every result exact (unbuilt generations keep sweeping),
+        and the next call resumes with the missing ones.  Returns the
+        number of pyramids built."""
+        base = int(base if base is not None
+                   else DensityProperties.PYRAMID_BASE.to_int())
+        if base <= 0 or base & (base - 1):
+            raise ValueError(
+                f"pyramid base must be a power of two, got {base}")
+        levels = int(levels if levels is not None
+                     else DensityProperties.PYRAMID_LEVELS.to_int())
+        depth = _ladder_depth(base, levels)
+        cache = self._pyramid_cache.spec_cache(pyramid_spec(base))
+        built = 0
+        for g in self._sealed():
+            if g.gen_id in cache:
+                continue
+            if g.tier == "host":
+                pyr = DensityPyramid.from_base(
+                    g.run.sweep_partial(self.sfc, _WORLD_ENV, base, base,
+                                        True), levels)
+            else:
+                base_dev = self._sweep_device(
+                    g, _WORLD_ENV, base, base, True).reshape(base, base)
+                lv = {base: base_dev.cpu().numpy()}
+                for arr in pyramid_reduce(base_dev, depth):
+                    lv[arr.shape[0]] = arr.cpu().numpy()
+                pyr = DensityPyramid(lv)
+            self._pyramid_cache.add(cache, g.gen_id, pyr)
+            built += 1
+        return built
 
     def density_tile(self, z: int, x: int, y: int, tile: int = 256,
                      max_ranges: int = DEFAULT_MAX_RANGES) -> np.ndarray:
@@ -1316,11 +1489,47 @@ class LeanZ3Index:
             boxes, t_lo_ms, t_hi_ms, _WORLD_ENV, 1, 1,
             max_ranges=max_ranges).sum()))
 
-    def build_pyramids(self, base: int | None = None,
-                       levels: int | None = None) -> int:
-        raise NotImplementedError(
-            "density pyramids of the lean index are not ported")
-
     def z3_cell_counts(self, bits: int) -> dict:
-        raise NotImplementedError(
-            "the lean z3 cell-count sketch fold is not ported")
+        """WHOLE-EXTENT Z3Histogram push-down: fold every generation's
+        sorted keys into coarse ``(time-bin, z-cell)`` counts — the
+        stat's own cell function applied to the key the index already
+        stores, so no payload and no candidates.  Returns
+        ``{(bin, cell): count}`` (see :meth:`z3_cell_table`)."""
+        b0, total = self.z3_cell_table(bits)
+        nz = np.flatnonzero(total)
+        c_per_bin = 1 << bits
+        return dict(zip(zip((b0 + nz // c_per_bin).tolist(),
+                            (nz % c_per_bin).tolist()),
+                        total[nz].tolist()))
+
+    def z3_cell_table(self, bits: int) -> tuple[int, np.ndarray]:
+        """The cell counts of :meth:`z3_cell_counts` as a dense int64
+        table: ``(b0, counts)`` with ``counts[(bin - b0) << bits | cell]``
+        over the data's bin span (an empty table on an empty index).
+        Sealed generations' tables cache under ``(bits, bin span)``
+        (compaction invalidates); warm repeats fold only the live
+        generation."""
+        if self._n_rows == 0 or self.t_min_ms is None:
+            return 0, np.zeros(0, np.int64)
+        b0, _ = to_binned_time(np.int64(max(0, self.t_min_ms)),
+                               self.period)
+        b1, _ = to_binned_time(np.int64(max(0, self.t_max_ms)),
+                               self.period)
+        b0, nb = int(b0), int(b1) - int(b0) + 1
+        cache = self._sketch_cache.spec_cache(("z3cells", int(bits), b0,
+                                               nb))
+        live = self.generations[-1] if self.generations else None
+        total = np.zeros(nb << bits, np.int64)
+        for g in self.generations:
+            part = cache.get(g.gen_id) if g is not live else None
+            if part is None:
+                if g.tier == "host":
+                    part = g.run.cell_counts(b0, nb, int(bits))
+                else:
+                    self.dispatch_count += 1
+                    part = _z3_cells(g.bins[:g.n], g.z[:g.n], b0, nb,
+                                     int(bits)).cpu().numpy()
+                if g is not live:
+                    self._sketch_cache.add(cache, g.gen_id, part)
+            total += part
+        return b0, total

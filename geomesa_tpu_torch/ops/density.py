@@ -17,7 +17,7 @@ import torch
 from .density_kernel import density_grid_kernel, grid_snap
 
 __all__ = ["density_grid", "density_grid_auto", "density_grid_sorted",
-           "grid_snap"]
+           "grid_snap", "pyramid_reduce", "pyramid_reduce_np"]
 
 
 def density_grid(x, y, weights, mask, env, width: int, height: int):
@@ -53,6 +53,37 @@ def density_grid_sorted(x, y, weights, mask, env, width: int, height: int):
         side="left")
     grid = (cw[bounds[1:]] - cw[bounds[:-1]]).to(torch.float32)
     return grid.reshape(height, width)
+
+
+def pyramid_reduce(grid: torch.Tensor, levels: int) -> tuple:
+    """2×2 reduction ladder for density pyramids, on the grid's device:
+    fold a square power-of-two (w, w) float64 cell-count grid into
+    ``levels`` successively-halved sum grids ``(w/2, ..., w/2^levels)``.
+
+    Each level is an EXACT 2×2 block sum of its parent — counts are
+    integers carried in float64 (exact below 2^53), so any level equals
+    binning the raw points at that resolution, bit for bit.  The JAX
+    package runs this as plain XLA (no Pallas kernel), so plain torch is
+    its counterpart here."""
+    out = []
+    g = grid
+    for _ in range(levels):
+        h, w = g.shape
+        g = g.reshape(h // 2, 2, w // 2, 2).sum(dim=(1, 3))
+        out.append(g)
+    return tuple(out)
+
+
+def pyramid_reduce_np(grid, levels: int) -> tuple:
+    """Numpy twin of :func:`pyramid_reduce` for host-tier (spilled) run
+    grids — the same exact 2×2 integer-in-float64 block sums."""
+    out = []
+    g = grid
+    for _ in range(levels):
+        h, w = g.shape
+        g = g.reshape(h // 2, 2, w // 2, 2).sum(axis=(1, 3))
+        out.append(g)
+    return tuple(out)
 
 
 def density_grid_auto(x, y, weights, mask, env, width: int, height: int):

@@ -14,22 +14,27 @@ on candidates, so results are oracle-equal regardless of strategy.
 The port serves the strategies of its store's indexes — ``z3`` (with
 several time windows batched into one scan), ``z2``, ``id``, ``full`` and
 ``none``, and an OR split over them; on a lean store ``z3`` runs on the
-tiered lean index.  Hints it does not serve raise.
+tiered lean index, costed by the store's sketch-fed estimator where it
+has one, and a scan whose probe observes far more candidates than
+costed replans once (planning/adaptive.py).  Hints it does not serve
+raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..config import QueryProperties
+from ..config import PlanningProperties, QueryProperties
 from ..features.batch import FeatureBatch
 from ..features.feature_type import FeatureType
 from ..filters.ast import And, Filter, IdFilter, Include, Not, Or
 from ..filters.ecql import parse_ecql
 from ..filters.evaluate import evaluate_filter
+from .adaptive import ReplanSignal, replan_scope
 from .explain import Explainer, ExplainNull
 from .strategy import FilterStrategy, StrategyDecider
 
@@ -108,14 +113,23 @@ class QueryPlanner:
         t0 = time.perf_counter()
         decider = StrategyDecider(
             self.sft, store.stats_map(), len(batch),
-            allowed_indices=store.query_indices)
+            allowed_indices=store.query_indices,
+            estimator=store.estimator())
         strategy, _ = decider.decide_with_options(
             query.filter, explain, forced=query.hints.get("QUERY_INDEX"))
         plan_ms = (time.perf_counter() - t0) * 1000
         check_deadline("planning")
 
         t1 = time.perf_counter()
-        candidates = self._scan(strategy, query, explain)
+        try:
+            with self._replan_scope_for(strategy, query):
+                candidates = self._scan(strategy, query, explain)
+        except ReplanSignal as sig:
+            # adaptive mid-query replan: the scan's probe observed
+            # candidates diverging past the threshold — re-decide with
+            # the actual folded in, re-scan ONCE
+            strategy, candidates = self._replan(sig, strategy, decider,
+                                                query, explain)
         check_deadline("index scan")
         if candidates is None:  # full scan
             mask = evaluate_filter(query.filter, batch)
@@ -137,6 +151,15 @@ class QueryPlanner:
         check_deadline("filtering")
         explain(lambda: f"Scan: {len(positions)} hits "
                         f"(plan {plan_ms:.1f}ms, scan {scan_ms:.1f}ms)")
+        # estimate-vs-actual close-out: rows scanned (the candidate
+        # superset; the whole table on a full scan) and matched
+        actual_scanned = int(len(batch) if candidates is None
+                             else len(candidates))
+        ratio = (float(strategy.cost) + 1.0) / (actual_scanned + 1.0)
+        explain(lambda: f"Estimate audit: predicted {strategy.cost:.0f} "
+                        f"rows ({strategy.source}), scanned "
+                        f"{actual_scanned}, matched "
+                        f"{len(positions)} (ratio {ratio:.2f}x)")
 
         positions = self._sort_limit(positions, batch, query)
         properties = query.properties
@@ -164,6 +187,47 @@ class QueryPlanner:
         return QueryResult(result_batch, positions, strategy, plan_ms,
                            scan_ms)
 
+    # -- adaptive replanning ---------------------------------------------
+    def _replan_scope_for(self, strategy: FilterStrategy, query: Query):
+        """A replan scope around one strategy's scan, or a null context
+        when replanning can't help: disabled by config, strategy pinned
+        by a QUERY_INDEX hint, no probe on the chosen path ('none' /
+        'id' / 'full'), or an or-split (its per-branch probe counts
+        can't re-cost the split as a whole)."""
+        if (query.hints.get("QUERY_INDEX") is not None
+                or strategy.index in ("none", "id", "full", "or-split")):
+            return contextlib.nullcontext()
+        threshold = float(PlanningProperties.REPLAN_THRESHOLD.get())
+        if threshold <= 0.0:
+            return contextlib.nullcontext()
+        return replan_scope(float(strategy.cost), threshold,
+                            int(PlanningProperties.REPLAN_MIN_ROWS.get()))
+
+    def _replan(self, sig: ReplanSignal, strategy: FilterStrategy,
+                decider: StrategyDecider, query: Query,
+                explain: Explainer) -> tuple[FilterStrategy, np.ndarray]:
+        """One bounded mid-query replan: the aborted scan's observed
+        candidate count replaces the mispredicted strategy's cost and the
+        decider re-runs; the re-scan executes OUTSIDE any replan scope,
+        so a query replans at most once.  Exactness is structural — the
+        probe-point abort happened before any gather (nothing collected,
+        the probe's seeks dropped with the aborted call), and the new
+        strategy's candidate superset passes the same residual filter as
+        always."""
+        explain(lambda: f"Replanning: {strategy.index} observed "
+                        f"{sig.observed} candidates at {sig.point} "
+                        f"vs estimate {sig.estimate:.0f}")
+        try:
+            new, _ = decider.decide_with_options(
+                query.filter, explain,
+                observed={strategy.index: float(sig.observed)})
+        except RuntimeError:
+            # blocked full-table scan surfaced by the re-decide: finish
+            # under the original strategy rather than fail a query that
+            # was already running
+            new = strategy
+        return new, self._scan(new, query, explain)
+
     # -- strategy execution ----------------------------------------------
     def _scan(self, strategy: FilterStrategy, query: Query,
               explain: Explainer) -> np.ndarray | None:
@@ -189,15 +253,20 @@ class QueryPlanner:
         if name == "z2":
             return store.z2_index().query(boxes)
         idx = store.z3_index()
+        # sketch-sized decomposition budget: only ever set by the lean
+        # estimator, whose index accepts the keyword
+        mr = ({} if strategy.max_ranges is None
+              else {"max_ranges": int(strategy.max_ranges)})
         if len(strategy.intervals) > 1:
             # batch disjoint time windows into ONE scan (the
             # multi-window BatchScanner pattern)
             explain(lambda: f"Auto-batched {len(strategy.intervals)} "
                             "time windows into one dispatch")
             parts = idx.query_many(
-                [(boxes, lo, hi) for lo, hi in strategy.intervals])
+                [(boxes, lo, hi) for lo, hi in strategy.intervals], **mr)
             return _union(list(parts))
-        parts = [idx.query(boxes, lo, hi) for lo, hi in strategy.intervals]
+        parts = [idx.query(boxes, lo, hi, **mr)
+                 for lo, hi in strategy.intervals]
         return _union(parts)
 
     def _scan_or_split(self, strategy: FilterStrategy, query: Query,

@@ -11,16 +11,19 @@ feature-id filters, ``z3`` on point schemas with a dtg attribute, ``z2``
 on point schemas, the full scan, the empty plan, and an OR split over
 them, in the JAX package's order so that ties in the cost comparison
 resolve alike.  A lean store allows only ``z3`` and ``id``, so a
-pure-spatial query runs on z3 with an open interval.  The JAX package's
-attribute and xz strategies (non-point schemas fall to the full scan),
-its sketch-fed estimator and its mid-query replanning are not ported.
+pure-spatial query runs on z3 with an open interval; there a z3 option
+is costed from the sketch-fed estimator (planning/estimator.py) when
+the store has one.  A replanning query folds its observed candidate
+count back in (``decide_with_options(observed=)``).  The JAX package's
+attribute and xz strategies (non-point schemas fall to the full scan)
+are not ported.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
-from ..config import QueryProperties
+from ..config import PlanningProperties, QueryProperties
 from ..features.feature_type import FeatureType
 from ..filters.ast import And, Filter, IdFilter, Or, _Exclude
 from ..filters.extract import extract_geometries, extract_intervals
@@ -42,9 +45,13 @@ class FilterStrategy:
     intervals: tuple = ()       # extracted (lo_ms, hi_ms)
     ids: tuple = ()             # extracted feature ids
     branches: tuple = ()        # ('or-split') per-branch FilterStrategy
-    #: what ``cost`` came from: 'stats' (whole-store stats) or
-    #: 'heuristic' (fallback constants)
+    #: which estimator tier produced ``cost``: 'sketch' (per-generation
+    #: sketches), 'stats' (whole-store stats), 'heuristic' (fallback
+    #: constants), or 'observed' (a replan folded a scan's actual in)
     source: str = "heuristic"
+    #: sketch-sized covering-range budget for z3 scans; None = the
+    #: geomesa.scan.ranges.target default
+    max_ranges: int | None = None
 
     def __repr__(self):
         return f"FilterStrategy({self.index}, cost={self.cost:.0f})"
@@ -67,14 +74,22 @@ class StrategyDecider:
 
     def __init__(self, sft: FeatureType, stats: dict | None = None,
                  total_count: int = 0,
-                 allowed_indices: set[str] | None = None):
+                 allowed_indices: set[str] | None = None,
+                 estimator=None):
         """``allowed_indices`` further restricts the offered strategies
         beyond the schema's ``geomesa.indices.enabled`` user data (the
-        indexes the store has)."""
+        indexes the store has).  ``estimator``: a
+        :class:`~geomesa_tpu_torch.planning.estimator.CardinalityEstimator`
+        answering z3 selectivity from per-generation sketches — the
+        preferred costing tier when it can answer; ignored while
+        ``geomesa.planning.estimator.enabled`` is off."""
         self.sft = sft
         self.stats = stats or {}
         self.total = max(1, total_count)
         self.allowed_indices = allowed_indices
+        self.estimator = (
+            estimator if estimator is not None
+            and PlanningProperties.ESTIMATOR_ENABLED.to_bool() else None)
 
     # -- cost estimates (StatsBasedEstimator spirit) ----------------------
     def _spatial_fraction(self, geometries) -> float:
@@ -129,6 +144,33 @@ class StrategyDecider:
             ok = mm is not None and not mm.is_empty and mm.max != mm.min
         return "stats" if ok else "heuristic"
 
+    def _estimate_z3(self, geometries, intervals):
+        """Sketch-tier candidate estimate for a z3 scan, or None when the
+        tier can't answer (no estimator, no z3 cell-count sketch).
+        Estimation must never fail a plan."""
+        if self.estimator is None or not intervals:
+            return None
+        boxes = [g.envelope.as_tuple() for g in geometries]
+        if not boxes:
+            boxes = [(-180.0, -90.0, 180.0, 90.0)]
+        try:
+            return self.estimator.z3_rows(boxes, intervals)
+        except Exception:  # noqa: BLE001 — fall back to the stats tier
+            return None
+
+    def _z3_option(self, geometries, intervals, frac_cost: float,
+                   frac_source: str) -> FilterStrategy:
+        """A z3 option costed by the sketch tier when it answers, else by
+        the fraction product."""
+        cost, source, mr = frac_cost, frac_source, None
+        est = self._estimate_z3(geometries, intervals)
+        if est is not None:
+            cost, source = float(est), "sketch"
+            mr = self.estimator.size_max_ranges(est)
+        return FilterStrategy("z3", max(1.0, cost), geometries=geometries,
+                              intervals=intervals, source=source,
+                              max_ranges=mr)
+
     # -- strategy enumeration ---------------------------------------------
     def _enabled(self, index: str) -> bool:
         """Schema-level index restriction (``geomesa.indices.enabled``
@@ -170,10 +212,9 @@ class StrategyDecider:
 
         if temporal and dtg and sft.is_points and self._enabled("z3"):
             qgeoms = tuple(geoms.values) if geoms else ()
-            out.append(FilterStrategy(
-                "z3", max(1.0, self.total * sp_frac * tm_frac),
-                geometries=qgeoms, intervals=usable,
-                source=self._frac_source(spatial, True)))
+            out.append(self._z3_option(
+                qgeoms, usable, self.total * sp_frac * tm_frac,
+                self._frac_source(spatial, True)))
         if spatial and sft.is_points:
             if self._enabled("z2"):
                 out.append(FilterStrategy(
@@ -186,11 +227,9 @@ class StrategyDecider:
                 # scale index, or geomesa.indices.enabled=z3): a
                 # pure-spatial query runs on z3 with an OPEN interval,
                 # which the point index clamps to the data's time extent
-                out.append(FilterStrategy(
-                    "z3", max(1.0, self.total * sp_frac),
-                    geometries=tuple(geoms.values),
-                    intervals=((None, None),),
-                    source=self._frac_source(True, False)))
+                out.append(self._z3_option(
+                    tuple(geoms.values), ((None, None),),
+                    self.total * sp_frac, self._frac_source(True, False)))
 
         # the full-scan cost is the maintained row count — exact
         out.append(FilterStrategy("full", float(self.total),
@@ -207,10 +246,15 @@ class StrategyDecider:
     def decide_with_options(
             self, f: Filter, explain: Explainer | None = None,
             forced: str | None = None,
+            observed: dict | None = None,
     ) -> tuple[FilterStrategy, tuple]:
-        """:meth:`decide` plus every option costed."""
+        """:meth:`decide` plus every option costed.  ``observed`` maps
+        strategy-index names to actual candidate counts a replanning
+        query measured mid-scan (planning/adaptive.py): a named
+        strategy's cost is replaced by its observed count before
+        comparison."""
         explain = explain or ExplainNull()
-        chosen, options = self._decide(f)
+        chosen, options = self._decide(f, observed)
         explain.push("Strategy selection:")
         for o in options:
             explain(lambda o=o: f"option {o.index}: estimated cost "
@@ -233,17 +277,32 @@ class StrategyDecider:
         explain.pop()
         return chosen, tuple(options)
 
-    def _decide(self, f: Filter) -> tuple[FilterStrategy, list]:
+    def _reobserve(self, o: FilterStrategy, observed: dict) -> FilterStrategy:
+        """Fold a replanning query's measured candidate count into the
+        strategy it was measured on (the probe count IS that strategy's
+        candidate cardinality)."""
+        if o.index not in observed:
+            return o
+        cost = max(1.0, float(observed[o.index]))
+        mr = o.max_ranges
+        if self.estimator is not None and o.index == "z3":
+            mr = self.estimator.size_max_ranges(cost)
+        return replace(o, cost=cost, source="observed", max_ranges=mr)
+
+    def _decide(self, f: Filter,
+                observed: dict | None = None) -> tuple[FilterStrategy, list]:
         if isinstance(f, _Exclude):
             return FilterStrategy("none", 0.0), []
         options = self.strategies(f)
+        if observed:
+            options = [self._reobserve(o, observed) for o in options]
         chosen = min(options, key=lambda o: o.cost)
         if chosen.index == "full" and isinstance(f, Or):
             # OR-split (FilterSplitter's disjunction handling,
             # planning/FilterSplitter.scala:294-307): when every branch of
             # a top-level OR is individually indexable and the summed
             # branch costs beat one full scan, serve the query per branch
-            branch = [(p, self._decide(p)[0]) for p in f.filters]
+            branch = [(p, self._decide(p, observed)[0]) for p in f.filters]
             if all(st.index != "full" for _, st in branch):
                 total = sum(st.cost for _, st in branch)
                 if total < chosen.cost:

@@ -27,13 +27,15 @@ def stats_process(store, schema: str, query, stat_spec: str) -> Stat:
     per-node StatsScan + client Reducer, iterators/StatsScan.scala:125).
 
     On a lean store a Count()-only spec is answered from the keys when the
-    count is provably exact (:func:`_lean_count_pushdown`); every other
-    spec materializes the hits.  The JAX package's lean sketch push-down,
-    which is exact or declines, is not ported, so its answers are the
-    materialized ones."""
+    count is provably exact (:func:`_lean_count_pushdown`), then a
+    whole-extent spec of Count and Z3Histogram sub-stats folds next to the
+    keys (:func:`_lean_sketch_pushdown`); every other spec materializes
+    the hits."""
     mesh = getattr(store, "_mesh", None)
     if getattr(store._store(schema), "lean", False):
         pushed = _lean_count_pushdown(store, schema, query, stat_spec)
+        if pushed is None:
+            pushed = _lean_sketch_pushdown(store, schema, query, stat_spec)
         if pushed is not None:
             return pushed
     elif mesh is not None:
@@ -94,6 +96,69 @@ def _lean_count_pushdown(store, schema: str, query, stat_spec: str):
     count = idx.range_count(boxes, lo, hi)
     for s in stats:
         s.count = int(count)
+    return stat
+
+
+def _lean_sketch_pushdown(store, schema: str, query, stat_spec: str):
+    """Stat-sketch push-down on a lean store: when every sub-stat is
+    pushable and the candidate set is exact, the whole spec answers from
+    the index keys and NO candidate hit materializes.
+
+    Exactness gates (docs/stats_pushdown.md): the filter is a pure
+    bbox+time conjunction whose boxes COVER the data extent; Z3Histogram
+    needs the index at the current key version, a matching period and a
+    whole-extent window (its cells come straight off the keys, sealed
+    generations' tables cached); Count over a whole-extent window is the
+    live-row total.  The JAX package's attribute folds need a lean
+    attribute index, which the port does not have, so the classifier
+    sees no indexed attributes and declines every attribute sub-stat.
+
+    Returns the filled Stat, or ``None`` → the materializing path."""
+    from ..planning.planner import Query
+    from ..stats.sketch import flatten_stats, plan_pushdown
+
+    q = query if isinstance(query, Query) else Query.of(query)
+    sft = store.get_schema(schema)
+    st = store._store(schema)
+    if st.batch is None:
+        return None
+    smap = st.stats_map()
+    n_rows = int(smap["count"].count)
+    if n_rows == 0:
+        return None
+    plan0 = _bbox_time_only(q.filter, sft.geom_field, sft.dtg_field)
+    if plan0 is None:
+        return None
+    boxes, lo, hi = plan0
+    bb = smap.get(f"{sft.geom_field}_bbox")
+    if bb is None or bb.is_empty:
+        return None
+    x0, y0, x1, y1 = bb.bounds
+    if not any(b[0] <= x0 and b[1] <= y0 and b[2] >= x1 and b[3] >= y1
+               for b in boxes):
+        return None
+    mm = smap.get("dtg_minmax")
+    if mm is not None and not mm.is_empty:
+        t_open = ((lo is None or lo <= int(mm.min))
+                  and (hi is None or hi >= int(mm.max)))
+    else:
+        t_open = lo is None and hi is None
+    i64 = np.iinfo(np.int64)
+    slo = i64.min if lo is None else int(lo)
+    shi = i64.max if hi is None else int(hi)
+
+    stat = parse_stat(stat_spec)
+    stats = flatten_stats(stat)
+    idx = st.z3_index()
+    z3_period = idx.period if idx.version >= 2 else None
+    plan = plan_pushdown(stats, {}, "z3", sft.geom_field, sft.dtg_field,
+                         slo, shi, t_open, z3_period=z3_period)
+    if plan is None:
+        return None
+    for s in plan.z3hists:
+        s.counts = idx.z3_cell_counts(int(s.bits))
+    for s in plan.counts:
+        s.count = n_rows
     return stat
 
 

@@ -642,3 +642,68 @@ def test_lean_store_on_card_matches_cpu(cuda_device):
     for ecql in queries:
         g, c = (ds.query_result("s", ecql).positions for ds in stores)
         np.testing.assert_array_equal(g, c)
+
+
+def test_lean_pyramids_and_cell_counts_on_card_match_cpu(cuda_device):
+    """A lean store's density pyramids, pyramid-served heatmaps and tiles,
+    z3 cell counts and Z3Histogram stat on the card against the same
+    store on the CPU, at 2^14-slot generations over all three tiers,
+    before and after compaction (the merged run inherits the summed
+    pyramid): every grid and count equal."""
+    from geomesa_tpu_torch.index.pyramid import pyramid_spec
+
+    slots = 1 << 14
+    budget = slots * (40 + 16 + 40) + slots * 16 * 3
+    spec = ("dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+            f"geomesa.lean.generation.slots={slots},"
+            f"geomesa.lean.hbm.budget={budget},"
+            "geomesa.lean.compaction.factor=0")
+    rng = np.random.default_rng(22)
+    chunks = [{"dtg": rng.integers(MS_2018, MS_2018 + 60 * DAY, 35_000),
+               "geom": (rng.uniform(-20, 20, 35_000),
+                        rng.uniform(-10, 10, 35_000))} for _ in range(4)]
+    stores = []
+    for dev in (cuda_device, "cpu"):
+        ds = TpuDataStore(device=dev)
+        ds.create_schema("s", spec)
+        for c in chunks:
+            ds.write("s", c)
+        stores.append(ds)
+    gidx, cidx = (ds._store("s").index("z3") for ds in stores)
+    assert gidx.tier_counts() == cidx.tier_counts() == {
+        "full": 1, "keys": 3, "host": 5}
+    built = [ds.build_pyramids("s") for ds in stores]
+    assert built[0] == built[1] == len(gidx.generations) - 1
+    gp, cp = (i._pyramid_cache.spec_cache(pyramid_spec(512))
+              for i in (gidx, cidx))
+    assert sorted(gp) == sorted(cp)
+    for gid in gp:
+        for w, grid in gp[gid].levels.items():
+            np.testing.assert_array_equal(grid, cp[gid].levels[w])
+
+    def answers():
+        out = []
+        for ds in stores:
+            idx = ds._store("s").index("z3")
+            h0 = idx.pyramid_serve_hits
+            out.append((density_process(ds, "s", "INCLUDE",
+                                        (-180, -90, 180, 90), 256, 256),
+                        ds.density_tile("s", 1, 1, 0),
+                        idx.z3_cell_counts(12),
+                        ds.stats("s", "INCLUDE",
+                                 "Z3Histogram(geom,dtg,week,10)").counts,
+                        ds.stats("s", "INCLUDE", "Count()").count,
+                        idx.pyramid_serve_hits - h0))
+        return out
+
+    for before in (True, False):
+        g, c = answers()
+        for a, b in zip(g, c):
+            if isinstance(a, np.ndarray):
+                np.testing.assert_array_equal(a, b)
+            else:
+                assert a == b
+        assert g[4] == 4 * 35_000 and g[5] > 0
+        if before:
+            res = [ds.compact("s") for ds in stores]
+            assert res[0] == res[1] and res[0]["z3"]["merged_groups"] >= 1

@@ -253,7 +253,7 @@ def test_lean_rejections(stores):
 
 
 def test_left_out_features_raise(stores):
-    _, tds = stores
+    jds, tds = stores
     lean = ";geomesa.index.profile=lean"
     with pytest.raises(NotImplementedError, match="mesh"):
         TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"])
@@ -263,12 +263,11 @@ def test_left_out_features_raise(stores):
                                   "*geom:Point" + lean)
     with pytest.raises(NotImplementedError, match="non-point"):
         tds.create_schema("poly", "v:Int,*poly:Polygon" + lean)
-    with pytest.raises(NotImplementedError, match="pyramids"):
-        tds.build_pyramids("evt")
-    with pytest.raises(NotImplementedError, match="pyramids"):
-        tds._store("evt").index("z3").build_pyramids()
-    with pytest.raises(NotImplementedError, match="cell-count"):
-        tds._store("evt").index("z3").z3_cell_counts(8)
+    # pyramids and the cell-count fold are ported: they answer as the
+    # JAX store does
+    assert tds.build_pyramids("evt") == jds.build_pyramids("evt")
+    assert (tds._store("evt").index("z3").z3_cell_counts(8)
+            == jds._store("evt").index("z3").z3_cell_counts(8))
     with pytest.raises(NotImplementedError, match="query_windows"):
         tds.query_windows("evt", [([BOX], None, None)])
     with pytest.raises(NotImplementedError, match="fused"):

@@ -1,7 +1,9 @@
 """The port stands alone: importing geomesa_tpu_torch and running its
 queries (z3, z2), a heatmap, a mesh store's query and stats, and a lean
-store's query, heatmap, tile, count and compaction loads neither ``jax``
-nor any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
+store's query, heatmap, tile, count, compaction, pyramid build,
+pyramid-served tile, Z3Histogram stat and a replanned query loads
+neither ``jax`` nor any module of ``geomesa_tpu``, and its sources
+import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
 import ast
@@ -15,7 +17,8 @@ import pytest
 PORT = Path(__file__).resolve().parent.parent / "geomesa_tpu_torch"
 
 _PROBE = r"""
-import json, sys
+import json, os, sys
+os.environ["GEOMESA_PLANNING_REPLAN_MIN_ROWS"] = "64"
 import numpy as np
 import geomesa_tpu_torch
 from geomesa_tpu_torch import TpuDataStore
@@ -58,6 +61,22 @@ ltile = ls.density_tile("l", 1, 1, 0, tile=8)
 lcount = ls.stats("l", "INCLUDE", "Count()").count
 ltiers = ls._store("l").index("z3").tier_counts()
 lcompact = ls.compact("l")
+lbuilt = ls.build_pyramids("l")
+lidx = ls._store("l").index("z3")
+h0 = lidx.pyramid_serve_hits
+lptile = ls.density_tile("l", 0, 0, 0, tile=64)
+lserved = lidx.pyramid_serve_hits - h0
+lz3 = ls.stats("l", "INCLUDE", "Z3Histogram(geom,dtg,week,8)")
+ls.create_schema("r", "dtg:Date,*geom:Point;geomesa.index.profile=lean")
+ls.write("r", {"dtg": rng.integers(1514764800000, 1517443200000, n),
+               "geom": (np.r_[rng.uniform(0, 0.01, 400),
+                              rng.uniform(-10, 10, 100)],
+                        np.r_[rng.uniform(0, 0.01, 400),
+                              rng.uniform(-10, 10, 100)])})
+from geomesa_tpu_torch.planning import ExplainString
+rex = ExplainString()
+rq = ls.query_result("r", "BBOX(geom, 0, 0, 0.01, 0.01) AND IN ('1', '2')",
+                     rex)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -74,7 +93,14 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "lean_density": float(lgrid.sum()),
                   "lean_tile": float(ltile.sum()), "lean_count": int(lcount),
                   "lean_tiers": ltiers,
-                  "lean_generations": lcompact["z3"]["generations"]}))
+                  "lean_generations": lcompact["z3"]["generations"],
+                  "lean_built": lbuilt, "lean_served": lserved,
+                  "lean_ptile": float(lptile.sum()),
+                  "lean_z3hist": int(sum(lz3.counts.values())),
+                  "replan_strategy": rq.strategy.index,
+                  "replan_source": rq.strategy.source,
+                  "replan_hits": rq.positions.tolist(),
+                  "replans": str(rex).count("Replanning: z3 observed")}))
 """
 
 
@@ -102,6 +128,12 @@ def test_import_and_query_load_no_jax():
     assert out["lean_tile"] > 0
     assert min(out["lean_tiers"].values()) > 0   # full, keys and host
     assert out["lean_generations"] < 16
+    assert out["lean_built"] == out["lean_served"] == \
+        out["lean_generations"] - 1
+    assert out["lean_ptile"] == out["lean_z3hist"] == 4 * 500
+    assert out["replan_strategy"] == "id"
+    assert out["replan_source"] == "heuristic"
+    assert out["replan_hits"] == [1, 2] and out["replans"] == 1
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
