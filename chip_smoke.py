@@ -4,7 +4,10 @@
     python3 chip_smoke.py [--seed 0] [--points 100000000]
                           [--facade-rows 16000000] [--places-rows 4000000]
                           [--mesh-rows 16000000] [--lean-rows 128000000]
-                          [--lean-slots 16777216] [--profile] [--out FILE]
+                          [--lean-slots 16777216] [--attr-rows 16000000]
+                          [--attr-mesh-rows 4000000]
+                          [--lean-attr-rows 128000000] [--profile]
+                          [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -81,12 +84,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    fallen, every merged generation has inherited its parents' pyramid,
    and two queries and the pyramid-served world heatmap still equal the
    oracle.  Kernel launches of three queries are counted with
-   ``torch.profiler``.
+   ``torch.profiler``;
+9. attr: ``TpuDataStore(device="cuda")`` on schema ``attrs``
+   (``actor:String:index=true,score:Double:index=true,dtg:Date,
+   *geom:Point``): ``--attr-rows`` GDELT-like rows in 4 writes, ``actor``
+   drawn from 200 three-letter codes with Zipf(1.1) frequencies plus one
+   rare code at 0.01%, ``score`` a multiple of 0.1 in [-10, 10]; the
+   z3-tiered attribute indexes of both built and timed; the rare actor
+   with a continent BBOX and a month (``attr:actor``), ``actor IN`` two
+   mid-frequency codes, a score band (``attr:score``), ``actor LIKE
+   'U%'`` and a city BBOX with a day (``z3``), each strategy as expected
+   and each hit set equal to a numpy oracle; then a 1M-row append, which
+   the kept indexes serve as their tail, and the queries again;
+10. mesh attr: ``TpuDataStore(mesh=device_mesh(1))`` on the same schema,
+   ``--attr-mesh-rows`` rows; an actor equality with a week (the sharded
+   index's z3 tier) and a score range, each against the oracle;
+11. lean attr: the same schema on the lean profile, ``--lean-attr-rows``
+   rows in 4 writes at ``--lean-slots`` generations, with a budget of
+   208 B a slot: the z3 index (0.75 of it) keeps one full and three keys
+   generations, each attribute index one device generation and the rest
+   on the host; the attribute queries above plus an actor with a day
+   (the date-tier seek) and the most frequent actor with a city BBOX and
+   a day (``z3``), estimator-costed (source ``sketch``; the estimator's
+   cold attribute folds timed first); Count, MinMax, a 64-bin Histogram
+   and a Frequency of ``score`` over a quarter's window and over
+   INCLUDE, cold and warm, on the sketch route and equal to numpy
+   oracles (the count-min table is the host hash over the hits), and a
+   Count of ``score > 9.5`` (materialized through ``attr:score``); then
+   ``compact`` and two queries again.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
-after phase 6, and again just before and after phase 7 and phase 8; a
-kernel of a path that was never launched on it fails the run (on the
-lean path, density_grid).  The last lines printed are one ``{"kernels": [...]}`` JSON object,
+after phase 6, and again just before and after phase 7, phase 8,
+phases 9-10 and phase 11; a kernel of a path that was never launched on
+it fails the run (on the lean path, density_grid; on the attribute path,
+z3_mask, which the city query launches; the lean attribute path runs no
+kernel).  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or without the ``geomesa_tpu_torch``
 package beside this script, it exits non-zero and prints no result.
@@ -98,6 +130,7 @@ import argparse
 import contextlib
 import datetime as dt
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -1652,6 +1685,420 @@ def lean_phase(rng, args, centres, qs, dev, report):
         torch.cuda.empty_cache()
 
 
+#: the attribute phases' schema: GDELT's actor code and GoldsteinScale
+ATTR_SPEC = ("actor:String:index=true,score:Double:index=true,dtg:Date,"
+             "*geom:Point")
+#: the rare actor code (about 0.01% of the rows)
+RARE_ACTOR = "QQQ"
+#: the actor codes that LIKE 'U%' matches, placed in the Zipf tail
+U_ACTORS = ("USA", "UKR", "UGA", "URY", "UZB")
+
+
+def actor_codes(rng):
+    """About 200 three-letter actor codes with Zipf(1.1) frequencies, the
+    ``U_ACTORS`` at ranks 150-154, plus ``RARE_ACTOR`` at 0.01%: the
+    codes (fixed-width, the rare one last) and their probabilities."""
+    import numpy as np
+    letters = np.array(list("ABCDEFGHIJKLMNOPQRSTVWXYZ"))   # no U
+    codes: list = []
+    while len(codes) < 200:
+        c = "".join(rng.choice(letters, 3))
+        if c not in codes and c != RARE_ACTOR:
+            codes.append(c)
+    codes[150:150 + len(U_ACTORS)] = U_ACTORS
+    w = 1.0 / np.arange(1, 201) ** 1.1
+    p = np.r_[w / w.sum() * (1.0 - 1e-4), 1e-4]
+    return np.array(codes + [RARE_ACTOR]), p
+
+
+def attr_rows(rng, n: int, centres, p):
+    """``n`` GDELT-like rows with an actor code index (into the codes of
+    :func:`actor_codes`) and a GoldsteinScale-like score, a multiple of
+    0.1 in [-10, 10]."""
+    import numpy as np
+    x, y, t = gdelt_like(rng, n, centres)
+    aidx = rng.choice(len(p), n, p=p).astype(np.int16)
+    score = rng.integers(-100, 101, n) / 10.0
+    return x, y, t, aidx, score
+
+
+def attr_queries(codes, centres, lean: bool) -> list:
+    """(name, ecql, expected strategy, oracle mask function) for the
+    attribute phases.  The oracle takes ``(x, y, t, aidx, score)``."""
+    import numpy as np
+    cx, cy = centres[3]
+    city = (cx - 0.5, cy - 0.5, cx + 0.5, cy + 0.5)
+    continent = (-20.0, 20.0, 40.0, 60.0)
+    month = (MS_2018 + 59 * DAY, MS_2018 + 90 * DAY - 1000)
+    day = (MS_2018 + 100 * DAY, MS_2018 + 101 * DAY - 1000)
+    mid = (20, 21)
+    u_idx = [int(np.flatnonzero(codes == c)[0]) for c in U_ACTORS]
+    rare = len(codes) - 1
+
+    def bbox(b):
+        return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+    def during(w):
+        return f"dtg DURING {iso(w[0])}/{iso(w[1])}"
+
+    def inbox(x, y, b):
+        return (x >= b[0]) & (x <= b[2]) & (y >= b[1]) & (y <= b[3])
+
+    def inwin(t, w):
+        return (t >= w[0]) & (t <= w[1])
+
+    qs = [
+        ("rare-continent-month",
+         f"actor = '{RARE_ACTOR}' AND {bbox(continent)} AND {during(month)}",
+         "attr:actor",
+         lambda x, y, t, a, s: (a == rare) & inbox(x, y, continent)
+         & inwin(t, month)),
+        ("in-two-mid",
+         f"actor IN ('{codes[mid[0]]}', '{codes[mid[1]]}')", "attr:actor",
+         lambda x, y, t, a, s: np.isin(a, mid)),
+        ("score-band", "score BETWEEN 2.95 AND 3.05", "attr:score",
+         lambda x, y, t, a, s: (s >= 2.95) & (s <= 3.05)),
+        ("like-U", "actor LIKE 'U%'", "attr:actor",
+         lambda x, y, t, a, s: np.isin(a, u_idx)),
+        ("city-day", f"{bbox(city)} AND {during(day)}", "z3",
+         lambda x, y, t, a, s: inbox(x, y, city) & inwin(t, day)),
+    ]
+    if lean:
+        qs += [
+            ("actor-day", f"actor = '{codes[10]}' AND {during(day)}",
+             "attr:actor",
+             lambda x, y, t, a, s: (a == 10) & inwin(t, day)),
+            ("top-actor-city-day",
+             f"actor = '{codes[0]}' AND {bbox(city)} AND {during(day)}",
+             "z3",
+             lambda x, y, t, a, s: (a == 0) & inbox(x, y, city)
+             & inwin(t, day)),
+        ]
+    return qs
+
+
+def run_attr_query(ds, schema, q, cols, source=None) -> dict:
+    """One attribute-phase query: strategy (and, when given, cost source)
+    as expected, positions equal to the oracle; its ms, plan source and
+    candidate count (the explain trace's "scanned")."""
+    import re
+    import numpy as np
+    from geomesa_tpu_torch.planning import ExplainString
+    name, ecql, strategy, mask = q
+    ex = ExplainString()
+    t0 = time.perf_counter()
+    res = ds.query_result(schema, ecql, ex)
+    ms = (time.perf_counter() - t0) * 1e3
+    want = np.flatnonzero(mask(*cols))
+    st = res.strategy
+    if st.index != strategy or (source is not None and st.source != source):
+        raise AssertionError(f"attr {name}: strategy {st.index} "
+                             f"({st.source}), expected {strategy} "
+                             f"({source})")
+    if not np.array_equal(res.positions, want):
+        raise AssertionError(f"attr {name}: {len(res.positions)} hits, "
+                             f"oracle {len(want)}")
+    scanned = re.search(r"scanned (\d+)", str(ex))
+    return {"query": name, "strategy": st.index, "source": st.source,
+            "cost": float(st.cost), "ms": ms, "plan_ms": res.plan_time_ms,
+            "scan_ms": res.scan_time_ms, "hits": int(len(want)),
+            "candidates": int(scanned.group(1)) if scanned else None}
+
+
+def attr_phase(rng, args, centres, dev, report):
+    """Attribute indexes on the default profile: ``--attr-rows`` rows in 4
+    writes, the z3-tiered host indexes of ``actor`` and ``score``, five
+    queries (rare actor with a continent BBOX and a month, actor IN, a
+    score band, LIKE 'U%', and a city BBOX + day that stays on z3) with
+    their strategies and oracles; then a 1M-row append (the kept
+    indexes' tail) and the same queries again."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch.index.attribute import AttributeIndex
+
+    codes, p = actor_codes(rng)
+    ds = TpuDataStore(device=dev)
+    ds.create_schema("attrs", ATTR_SPEC)
+    per = args.attr_rows // 4
+    parts, write_s = [], []
+    for _ in range(4):
+        x, y, t, a, s = attr_rows(rng, per, centres, p)
+        parts.append((x, y, t, a, s))
+        t0 = time.perf_counter()
+        ds.write("attrs", {"actor": codes[a], "score": s, "dtg": t,
+                           "geom": (x, y)})
+        write_s.append(time.perf_counter() - t0)
+    store = ds._store("attrs")
+    # the z3 index, which the city query would build, built and timed
+    # apart, then the two attribute indexes
+    t0 = time.perf_counter()
+    store.z3_index()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build = {"z3": time.perf_counter() - t0}
+    for attr in ("actor", "score"):
+        t0 = time.perf_counter()
+        idx = store.attribute_index(attr)
+        build[attr] = time.perf_counter() - t0
+        if not isinstance(idx, AttributeIndex) or idx.sec_z is None:
+            raise AssertionError(f"attribute index of {attr}: "
+                                 f"{type(idx).__name__}, no z3 tier")
+    qs = attr_queries(codes, centres, lean=False)
+
+    def cols():
+        return tuple(np.concatenate(c) for c in zip(*parts))
+
+    c = cols()
+    rows = [run_attr_query(ds, "attrs", q, c) for q in qs]
+    # an append: the kept indexes serve it as their tail (1M rows at the
+    # default size, a 16th of the rows below it: under the rebuild
+    # fraction)
+    m = min(1_000_000, per // 4)
+    x, y, t, a, s = attr_rows(rng, m, centres, p)
+    parts.append((x, y, t, a, s))
+    t0 = time.perf_counter()
+    ds.write("attrs", {"actor": codes[a], "score": s, "dtg": t,
+                       "geom": (x, y)})
+    append_s = time.perf_counter() - t0
+    c = cols()
+    after = [run_attr_query(ds, "attrs", q, c) for q in qs]
+    tail = store.index_tail("attr:actor")
+    if (tail is None or len(tail) != m
+            or store.build_counts.get("attr:actor") != 1):
+        raise AssertionError(f"the kept actor index: tail "
+                             f"{None if tail is None else len(tail)}, "
+                             f"builds {store.build_counts}")
+    report["attr"] = {"rows": 4 * per, "codes": len(codes),
+                      "write_s": write_s,
+                      "write_rows_per_s": [per / w for w in write_s],
+                      "build_s": build, "queries": rows,
+                      "append_s": append_s, "after_append": after,
+                      "build_counts": dict(store.build_counts)}
+    log(f"attr: {4 * per} rows in 4 writes "
+        f"({', '.join(f'{w:.2f}' for w in write_s)} s); indexes built "
+        f"z3 {build['z3']:.2f} s, actor {build['actor']:.2f} s, score "
+        f"{build['score']:.2f} s; "
+        "queries equal to the oracle: "
+        + ", ".join(f"{r['query']} {r['strategy']} {r['hits']} hits "
+                    f"{r['candidates']} candidates {r['ms']:.1f} ms"
+                    for r in rows)
+        + f"; after a {m}-row append ({append_s:.2f} s, tail {len(tail)}): "
+        + ", ".join(f"{r['query']} {r['ms']:.1f} ms" for r in after))
+    del ds, store
+
+
+def mesh_attr_phase(rng, args, centres, dev, report):
+    """The sharded attribute index on a one-card mesh: ``--attr-mesh-rows``
+    rows, an actor equality with a time window (the z3 tier) and a score
+    range, each against the oracle."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore, device_mesh
+    from geomesa_tpu_torch.parallel.attribute import ShardedAttributeIndex
+
+    codes, p = actor_codes(rng)
+    ds = TpuDataStore(device=dev, mesh=device_mesh(1))
+    ds.create_schema("events", ATTR_SPEC)
+    n = args.attr_mesh_rows
+    cols = attr_rows(rng, n, centres, p)
+    x, y, t, a, s = cols
+    t0 = time.perf_counter()
+    ds.write("events", {"actor": codes[a], "score": s, "dtg": t,
+                        "geom": (x, y)})
+    write_s = time.perf_counter() - t0
+    store = ds._store("events")
+    t0 = time.perf_counter()
+    idx = store.attribute_index("actor")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not isinstance(idx, ShardedAttributeIndex) or idx.tier != "z3":
+        raise AssertionError(f"mesh attribute index {type(idx).__name__}")
+    week = (MS_2018 + 150 * DAY, MS_2018 + 157 * DAY - 1000)
+    qs = [("actor-week", f"actor = '{codes[5]}' AND dtg DURING "
+           f"{iso(week[0])}/{iso(week[1])}", "attr:actor",
+           lambda x, y, t, a, s: (a == 5) & (t >= week[0]) & (t <= week[1])),
+          ("score-range", "score >= 9.8", "attr:score",
+           lambda x, y, t, a, s: s >= 9.8)]
+    rows = [run_attr_query(ds, "events", q, cols) for q in qs]
+    report["mesh_attr"] = {"rows": n, "write_s": write_s,
+                           "build_s": build_s, "queries": rows}
+    log(f"mesh attr: {n} rows ({write_s:.2f} s), sharded actor index "
+        f"(z3 tier) built in {build_s:.2f} s; queries equal to the oracle: "
+        + ", ".join(f"{r['query']} {r['strategy']} {r['hits']} hits "
+                    f"{r['ms']:.1f} ms" for r in rows))
+    del ds, store, idx
+
+
+#: the lean attribute phase's budget, in bytes a generation slot: the z3
+#: index gets 0.75 of it (156 B), one full and three keys generations
+#: beside its sentinel charges; each attribute index gets its floor of
+#: two class-default generations, one live device generation beside its
+#: sentinel charge, the rest on the host
+LEAN_ATTR_BUDGET_PER_SLOT = 208
+
+
+def lean_attr_phase(rng, args, centres, dev, report):
+    """The lean profile with attribute indexes: ``--lean-attr-rows`` rows
+    in 4 writes, attribute generations on the device and the host, the
+    z3 index under the carve-out; the attribute queries (estimator-
+    costed), the attribute sketch push-down of MinMax, Histogram,
+    Frequency and Count against numpy oracles (cold and warm folds), the
+    estimator's choice for the rare-actor continent query, then
+    ``compact`` and two queries again."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch.stats.stat import Frequency, Histogram
+
+    cuda = dev.type == "cuda"
+    # a dropped lean store frees its device memory only when the cyclic
+    # collector runs (PERF.md §7): collect the lean phase's store, so that
+    # memory_allocated below reads this phase's
+    gc.collect()
+    slots = args.lean_slots
+    budget = LEAN_ATTR_BUDGET_PER_SLOT * slots
+    ud = ["geomesa.index.profile=lean", f"geomesa.lean.hbm.budget={budget}",
+          f"geomesa.lean.generation.slots={slots}",
+          "geomesa.lean.compaction.factor=0"]
+    codes, p = actor_codes(rng)
+    ds = TpuDataStore(device=dev)
+    ds.create_schema("lattrs", f"{ATTR_SPEC};{','.join(ud)}")
+    store = ds._store("lattrs")
+    per = args.lean_attr_rows // 4
+    parts, write_s = [], []
+    for _ in range(4):
+        x, y, t, a, s = attr_rows(rng, per, centres, p)
+        parts.append((x, y, t, a, s))
+        t0 = time.perf_counter()
+        ds.write("lattrs", {"actor": codes[a], "score": s, "dtg": t,
+                            "geom": (x, y)})
+        for key in ("z3", "attr:actor", "attr:score"):
+            store._indexes[key].block()
+        write_s.append(time.perf_counter() - t0)
+    n = 4 * per
+    cols = tuple(np.concatenate(c) for c in zip(*parts))
+    del parts
+    x, y, t, a, s = cols
+    if store.batch.column("actor").dtype.kind != "U":
+        raise AssertionError("the lean actor column is not fixed-width")
+    idxs = {k: store._indexes[k] for k in ("z3", "attr:actor", "attr:score")}
+    tiers = {k: i.tier_counts() for k, i in idxs.items()}
+    if (tiers["attr:actor"]["host"] == 0 or tiers["attr:score"]["host"] == 0
+            or tiers["z3"]["keys"] == 0):
+        raise AssertionError(f"lean attribute tiers {tiers}")
+    dev_bytes = {k: i.device_bytes() for k, i in idxs.items()}
+    rep = {"rows": n, "slots": slots, "budget_bytes": budget,
+           "write_s": write_s, "write_rows_per_s": [per / w for w in write_s],
+           "tiers": tiers, "device_bytes": dev_bytes,
+           "device_bytes_total": sum(dev_bytes.values()),
+           "memory_allocated": (int(torch.cuda.memory_allocated())
+                                if cuda else None),
+           "z3_budget_bytes": idxs["z3"].hbm_budget_bytes,
+           "attr_budget_bytes": idxs["attr:actor"].hbm_budget_bytes}
+    log(f"lean attr: {n} rows in 4 writes "
+        f"({', '.join(f'{w:.2f}' for w in write_s)} s); tiers {tiers}; "
+        f"accounted device bytes {rep['device_bytes_total']}, allocated "
+        f"{rep['memory_allocated']}")
+
+    # the estimator: its cold attribute folds timed apart
+    est = store.estimator()
+    if est is None:
+        raise AssertionError(f"no estimator on a lean store of {n} rows")
+    t0 = time.perf_counter()
+    est.attr_equals_rows("actor", (RARE_ACTOR,))
+    est.attr_range_rows("score", 2.95, 3.05)
+    rep["estimator_attr_cold_ms"] = (time.perf_counter() - t0) * 1e3
+    qs = attr_queries(codes, centres, lean=True)
+    rows = [run_attr_query(ds, "lattrs", q, cols,
+                           source=("sketch" if q[0] != "like-U"
+                                   else "heuristic"))
+            for q in qs]
+    lat = np.array([r["ms"] for r in rows])
+    rep.update(queries=rows, query_ms_p50=float(np.median(lat)),
+               query_ms_max=float(lat.max()))
+    log(f"lean attr: estimator cold attribute folds "
+        f"{rep['estimator_attr_cold_ms']:.1f} ms; queries equal to the "
+        "oracle: " + ", ".join(
+            f"{r['query']} {r['strategy']} ({r['source']}) {r['hits']} hits "
+            f"{r['candidates']} candidates {r['ms']:.1f} ms" for r in rows))
+
+    # the attribute sketch push-down, cold and warm, against numpy
+    routes = StatRoute()
+    window = (MS_2018 + 90 * DAY, MS_2018 + 181 * DAY - 1000)
+    q_win = (f"BBOX(geom, -180, -90, 180, 90) AND dtg DURING "
+             f"{iso(window[0])}/{iso(window[1])}")
+    spec = ("Count();MinMax(score);Histogram(score,64,-10,10);"
+            "Frequency(score,4,1024)")
+    srows = []
+    try:
+        for name, query, m in (("window", q_win,
+                                (t >= window[0]) & (t <= window[1])),
+                               ("include", "INCLUDE", None)):
+            hit = s if m is None else s[m]
+            hist = Histogram("score", 64, -10.0, 10.0)
+            hist.observe({"score": hit})
+            freq = Frequency("score", 4, 1024)
+            freq.observe({"score": hit})
+            for turn in ("cold", "warm"):
+                t0 = time.perf_counter()
+                got, how = routes.run(lambda: ds.stats("lattrs", query,
+                                                       spec))
+                ms = (time.perf_counter() - t0) * 1e3
+                cnt, mm, h, f = got.stats
+                if (how != "sketch" or cnt.count != len(hit)
+                        or (mm.min, mm.max) != (hit.min(), hit.max())
+                        or not np.array_equal(h.counts, hist.counts)
+                        or not np.array_equal(f.table, freq.table)):
+                    raise AssertionError(f"lean attr stats {name} "
+                                         f"({turn}) by {how} disagree with "
+                                         f"the oracle")
+                srows.append({"query": name, "turn": turn, "ms": ms,
+                              "count": int(cnt.count), "route": how})
+        # an attribute predicate is not a bbox+time filter: the count
+        # materializes through the attribute index in both packages
+        t0 = time.perf_counter()
+        got, how = routes.run(lambda: ds.stats("lattrs", "score > 9.5",
+                                               "Count()"))
+        ms = (time.perf_counter() - t0) * 1e3
+        want = int((s > 9.5).sum())
+        if got.count != want or how != "materialized":
+            raise AssertionError(f"lean attr Count(score > 9.5): "
+                                 f"{got.count} by {how}, oracle {want}")
+        srows.append({"query": "score>9.5", "ms": ms, "count": want,
+                      "route": how})
+    finally:
+        routes.close()
+    rep["stats"] = srows
+    log("lean attr: stats equal to the oracle: " + ", ".join(
+        f"{r['query']} {r.get('turn', '')} {r['ms']:.1f} ms ({r['route']})"
+        for r in srows))
+
+    # compaction, then two queries again
+    gens = {k: len(i.generations) for k, i in idxs.items()}
+    t0 = time.perf_counter()
+    res = ds.compact("lattrs")
+    for i in idxs.values():
+        i.block()
+    compact_s = time.perf_counter() - t0
+    if not all(k in res for k in idxs):
+        raise AssertionError(f"compact covered {sorted(res)}")
+    after = [run_attr_query(ds, "lattrs", q, cols) for q in (qs[0], qs[5])]
+    rep["compact"] = {"s": compact_s, "generations_before": gens,
+                      "result": res, "queries": after,
+                      "device_bytes": {k: i.device_bytes()
+                                       for k, i in idxs.items()}}
+    log(f"lean attr: compact in {compact_s:.3f} s, generations {gens} → "
+        f"{ {k: r['generations'] for k, r in res.items()} }; queries equal "
+        "to the oracle: " + ", ".join(f"{r['query']} {r['ms']:.1f} ms"
+                                      for r in after))
+    report["lean_attr"] = rep
+    del ds, store, idxs
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
                  row: dict) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line."""
@@ -1674,6 +2121,12 @@ def main(argv=None) -> int:
     ap.add_argument("--lean-rows", type=int, default=128_000_000)
     ap.add_argument("--lean-slots", type=int, default=1 << 24,
                     help="slots per lean generation (the index's default)")
+    ap.add_argument("--attr-rows", type=int, default=16_000_000,
+                    help="rows of the default-profile attribute phase")
+    ap.add_argument("--attr-mesh-rows", type=int, default=4_000_000,
+                    help="rows of the mesh attribute phase")
+    ap.add_argument("--lean-attr-rows", type=int, default=128_000_000,
+                    help="rows of the lean attribute phase")
     ap.add_argument("--profile", action="store_true",
                     help="profile the z3 and z2 index queries, the mesh "
                          "phase's stats, query and heatmap, and the lean "
@@ -1760,6 +2213,33 @@ def main(argv=None) -> int:
         raise AssertionError(f"density_grid was never launched on the lean "
                              f"path: {lean_launches}")
     report["lean_path_launches"] = lean_launches
+
+    # the attribute paths (default profile and mesh, then lean): counts
+    # set to 0 just before each, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    phase_s = report.setdefault("phase_s", {})
+    t0 = time.perf_counter()
+    attr_phase(rng, args, centres, dev, report)
+    phase_s["attr"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_attr_phase(rng, args, centres, dev, report)
+    phase_s["mesh_attr"] = time.perf_counter() - t0
+    attr_launches = {k: fn.launches for k, fn in counters.items()}
+    if attr_launches["z3_mask"] <= 0:
+        raise AssertionError(f"z3_mask was never launched on the attribute "
+                             f"path: {attr_launches}")
+    report["attr_path_launches"] = attr_launches
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lean_attr_phase(rng, args, centres, dev, report)
+    phase_s["lean_attr"] = time.perf_counter() - t0
+    report["lean_attr_path_launches"] = {k: fn.launches
+                                         for k, fn in counters.items()}
+    log(f"attribute paths: launches {attr_launches}, lean "
+        f"{report['lean_attr_path_launches']}; "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     report["total_s"] = time.perf_counter() - t_start
 
     def pick(rows, **kw):

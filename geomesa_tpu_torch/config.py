@@ -99,6 +99,13 @@ class PlanningProperties:
     #: whole scan finishes quickly); 0 sketches every lean store
     ESTIMATOR_MIN_ROWS = SystemProperty(
         "geomesa.planning.estimator.min.rows", 262_144)
+    #: assumed selectivity of an attribute equality with no usable stat
+    SELECTIVITY_EQUALS_DEFAULT = SystemProperty(
+        "geomesa.planning.selectivity.equals.default", 0.1)
+    #: assumed selectivity of an attribute range or prefix with no usable
+    #: stat
+    SELECTIVITY_RANGE_DEFAULT = SystemProperty(
+        "geomesa.planning.selectivity.range.default", 0.25)
     #: adaptive-replan divergence trigger: when a scan's candidate probe
     #: observes more than ``threshold × estimate`` rows, the scan aborts
     #: and the query replans ONCE with the observed count folded in;

@@ -13,18 +13,27 @@ so two indexes never share storage).  Stats are observed on write (the
 reference's StatsCombiner role) and feed the cost-based strategy decider.
 
 What the port serves: point schemas, with or without a dtg attribute, on
-the default profile, through the ``z3``, ``z2`` and ``id`` indexes, full
-scans and empty plans; with ``mesh=`` (one process driving a
-:func:`~geomesa_tpu_torch.parallel.device_mesh`) the indexes are their
-sharded variants and ``stats`` and density push down per shard.
+the default profile, through the ``z3``, ``z2``, ``id`` and attribute
+indexes (one per indexed attribute, tiered by z3 keys on point schemas
+with a dtg, by date with only a dtg), full scans and empty plans; with
+``mesh=`` (one process driving a :func:`~geomesa_tpu_torch.parallel.
+device_mesh`) the indexes are their sharded variants and ``stats`` and
+density push down per shard.  Attribute indexes are KEPT across writes:
+the rows appended since a build ride as unconditional candidates until
+they outgrow ``TAIL_COMPACT_FRACTION`` of it, and the next query
+rebuilds.
 
 The LEAN (scale) profile — a schema created with
 ``geomesa.index.profile=lean``, or a point schema with a dtg whose first
 write (without a mesh) holds ``LEAN_AUTO_ROWS`` rows or more — stores its
 columns chunked (:class:`~geomesa_tpu_torch.features.lean.LeanBatch`,
 implicit feature ids) and indexes them in the tiered generational
-:class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index` (plus implicit-id
-lookups); heatmaps, tiles and ``Count()`` push down next to its keys.
+:class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index`, one
+:class:`~geomesa_tpu_torch.index.attr_lean.LeanAttrIndex` per indexed
+numeric, date or string attribute (which together take
+``LEAN_ATTR_BUDGET_FRACTION`` of the lean device budget), plus
+implicit-id lookups; heatmaps, tiles, ``Count()`` and the attribute
+stats push down next to their keys.
 Sealed lean generations carry density pyramids (``build_pyramids``,
 or built behind every seal with ``geomesa.density.pyramid.build=seal``);
 lean stores of ``geomesa.planning.estimator.min.rows`` rows or more cost
@@ -33,15 +42,15 @@ that observes far more candidates than costed replans once.  Schemas
 may name query interceptors (``geomesa.query.interceptors``), an
 age-off window (``geomesa.age.off``) and z-prefixed UUID feature ids
 (``geomesa.fid.strategy=z3``).
-Lean stores over a mesh, lean schemas with indexed attributes or
-non-point geometries, fused serving, deletes, persistence,
-multi-controller meshes, visibilities and authorizations are not ported
-and raise rather than degrade.
+Lean stores over a mesh, non-point lean schemas, fused serving, deletes,
+persistence, multi-controller meshes, visibilities and authorizations
+are not ported and raise rather than degrade.
 """
 
 from __future__ import annotations
 
 import re
+import time
 import weakref
 
 import numpy as np
@@ -52,12 +61,15 @@ from .device import resolve_device
 from .features.batch import FeatureBatch, build_columns
 from .features.feature_type import FeatureType, parse_spec
 from .features.lean import ChunkView, LeanBatch
+from .index.attr_lean import NUMERIC_TYPES, LeanAttrIndex
+from .index.attribute import AttributeIndex
 from .index.id import IdIndex, LeanIdIndex
 from .index.pyramid import tile_env
 from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
 from .index.z3_lean import LeanZ3Index
 from .jobs import run_pyramid_build
+from .parallel.attribute import ShardedAttributeIndex
 from .parallel.scan import ShardedZ3Index
 from .parallel.z2 import ShardedZ2Index
 from .planning.estimator import CardinalityEstimator
@@ -65,7 +77,9 @@ from .planning.explain import Explainer
 from .planning.interceptor import apply_interceptors, load_interceptors
 from .planning.planner import Query, QueryPlanner, QueryResult
 from .planning.strategy import FilterStrategy
-from .stats.stat import BBoxStat, CountStat, EnumerationStat, MinMax, Stat, TopK
+from .stats.stat import (
+    BBoxStat, CountStat, EnumerationStat, MinMax, Stat, TopK, observe_shared,
+)
 from .utils.feature_id import z3_feature_ids
 
 __all__ = ["TpuDataStore"]
@@ -92,8 +106,13 @@ _CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION}
 
 class _SchemaStore:
     """Per-schema storage: the column batch + the lazily-built z3/z2/id
-    indexes (z3/z2 sharded over ``mesh`` when one is given) + stats; on
-    the lean profile a chunked batch + the tiered lean z3 index."""
+    and attribute indexes (sharded over ``mesh`` when one is given) +
+    stats; on the lean profile a chunked batch + the tiered lean z3 and
+    attribute indexes."""
+
+    #: share of the lean device budget given to the attribute indexes
+    #: (split evenly among them); the z3 scale index keeps the rest
+    LEAN_ATTR_BUDGET_FRACTION = 0.25
 
     #: default opportunistic LSM compaction factor for the lean index:
     #: merge when ≥ F sealed same-tier same-size-class runs accumulate
@@ -102,12 +121,18 @@ class _SchemaStore:
     #: works)
     LEAN_COMPACTION_FACTOR = 8
 
+    #: tail fraction that triggers a rebuild of a kept attribute index
+    TAIL_COMPACT_FRACTION = 8  # tail > coverage/8 (12.5%)
+
     def __init__(self, sft: FeatureType, device, mesh=None):
         self.sft = sft
         self.device = device
         self.mesh = mesh
         self.batch: FeatureBatch | LeanBatch | None = None
         self._indexes: dict = {}
+        #: rows each kept (attribute) index covers — the rows appended
+        #: since ride as its tail (index_tail)
+        self._index_coverage: dict[str, int] = {}
         #: per-index-type build counter (the no-full-rebuild tests)
         self.build_counts: dict[str, int] = {}
         self._stats: dict[str, Stat] = {}
@@ -133,14 +158,27 @@ class _SchemaStore:
             self._init_lean()
 
     @property
-    def query_indices(self) -> set:
-        """Indices the planner may choose (plus the full and empty plans
-        every schema has): z3, z2 and id on the default profile — the JAX
-        store's xz and attribute indexes are not ported — and the lean
-        profile's z3 scale index and implicit-id lookups."""
-        if self.lean:
-            return {"z3", "id"}
-        return {"z3", "z2", "id"}
+    def query_indices(self) -> set | None:
+        """Indices the planner may choose for this schema (None = every
+        index): the lean profile serves z3 (the scale index), id
+        (implicit-id lookups) and, for its lexicode-indexable attributes,
+        the generational attribute index."""
+        if not self.lean:
+            return None
+        out = {"z3", "id"}
+        if self._lean_attr_names():
+            out.add("attr")
+        return out
+
+    def _lean_attr_names(self) -> list[str]:
+        """Indexed attributes the lean attribute index serves (the
+        lexicode covers numerics, dates and strings — the reference's
+        indexable-type set, AttributeIndexKey.scala:38-52)."""
+        sft = self.sft
+        return [a.name for a in sft.attributes
+                if a.indexed and not a.is_geometry
+                and a.name != sft.dtg_field
+                and a.type in NUMERIC_TYPES | {"string"}]
 
     # -- lean profile ------------------------------------------------------
     def _init_lean(self) -> None:
@@ -156,16 +194,6 @@ class _SchemaStore:
             raise ValueError(
                 "geomesa.index.profile=lean requires a point geometry "
                 "plus a dtg attribute (z3 scale index)")
-        # the JAX store's lean attribute tier serves these types
-        lexicoded = {"int", "integer", "long", "float", "double", "date",
-                     "string"}
-        attrs = [a.name for a in sft.attributes
-                 if a.indexed and not a.is_geometry
-                 and a.name != sft.dtg_field and a.type in lexicoded]
-        if attrs:
-            raise NotImplementedError(
-                f"lean-profile attribute indexes are not ported (indexed "
-                f"attributes {attrs} on {sft.name!r})")
         self.lean = True
         self.batch = LeanBatch(sft)
 
@@ -186,8 +214,7 @@ class _SchemaStore:
                 version=_index_version(self.sft, "z3"),
                 generation_slots=self._lean_user_int(
                     "geomesa.lean.generation.slots", None),
-                hbm_budget_bytes=self._lean_user_int(
-                    "geomesa.lean.hbm.budget", LeanZ3Index.HBM_BUDGET_BYTES),
+                hbm_budget_bytes=self._lean_z3_budget(),
                 compaction_factor=self._lean_user_int(
                     "geomesa.lean.compaction.factor",
                     self.LEAN_COMPACTION_FACTOR),
@@ -197,6 +224,63 @@ class _SchemaStore:
                 idx.generation_listeners.append(self.pyramid_trigger)
             self._indexes["z3"] = idx
             self.build_counts["z3"] = self.build_counts.get("z3", 0) + 1
+        return idx
+
+    def _lean_budget(self) -> int:
+        """The whole lean device budget (``geomesa.lean.hbm.budget`` user
+        data, bytes; default the z3 index's class default)."""
+        return self._lean_user_int("geomesa.lean.hbm.budget",
+                                   LeanZ3Index.HBM_BUDGET_BYTES)
+
+    def _lean_z3_budget(self) -> int:
+        """The z3 index's share: the whole lean budget less the attribute
+        carve-out when the schema has lean attribute indexes."""
+        if not self._lean_attr_names():
+            return self._lean_budget()
+        return int(self._lean_budget()
+                   * (1.0 - self.LEAN_ATTR_BUDGET_FRACTION))
+
+    def _lean_attr_index(self, attr: str) -> LeanAttrIndex:
+        """The live LeanAttrIndex of one indexed attribute — maintained
+        incrementally by writes; built here by streaming the column store
+        in 2^22-row steps when it does not exist yet."""
+        names = self._lean_attr_names()
+        if attr not in names:
+            raise ValueError(
+                f"attribute {attr!r} is not lean-indexable on "
+                f"{self.sft.name!r} (indexed numerics/dates/strings only; "
+                f"have: {names})")
+        key = f"attr:{attr}"
+        idx = self._indexes.get(key)
+        if idx is None:
+            # each attribute index gets an even share of the carve-out,
+            # and never less than two generations of the CLASS default
+            # size (the JAX store's floor)
+            budget = max(LeanAttrIndex.GENERATION_SLOTS * 20 * 2,
+                         int(self._lean_budget()
+                             * self.LEAN_ATTR_BUDGET_FRACTION
+                             // max(1, len(names))))
+            idx = LeanAttrIndex(
+                attr, self.sft.attribute(attr).type,
+                generation_slots=self._lean_user_int(
+                    "geomesa.lean.generation.slots", None),
+                hbm_budget_bytes=budget,
+                compaction_factor=self._lean_user_int(
+                    "geomesa.lean.compaction.factor",
+                    self.LEAN_COMPACTION_FACTOR),
+                device=self.device)
+            n = len(self.batch)
+            step = 1 << 22
+            if n:
+                col = self.batch.column(attr)
+                dtg = self.batch.column(self.sft.dtg_field)
+                for lo in range(0, n, step):
+                    idx.append(col[lo:lo + step],
+                               np.asarray(dtg[lo:lo + step], np.int64),
+                               base_gid=lo)
+            self._indexes[key] = idx
+            self._index_coverage[key] = n
+            self.build_counts[key] = self.build_counts.get(key, 0) + 1
         return idx
 
     def _lean_user_int(self, key: str, default):
@@ -210,23 +294,45 @@ class _SchemaStore:
         """Streaming ingest: observe stats on the chunk, append its
         columns by reference, and push its keys into the live index —
         O(chunk) per write."""
-        for s in self._stats.values():
-            s.observe(chunk)
-        # index BEFORE the batch grows (it is created empty)
+        # TopK and Enumeration of one attribute share one unique pass
+        observe_shared(self._stats, chunk)
+        prior = len(self.batch)
+        # index BEFORE the batch grows (it is created empty; a late
+        # attribute index streams the batch's current rows)
         idx = self._lean_index()
+        attr_idx = [(a, self._lean_attr_index(a))
+                    for a in self._lean_attr_names()]
         self.batch.append_batch(chunk)
         x, y = chunk.geom_xy(self.sft.geom_field)
+        dtg = np.asarray(chunk.column(self.sft.dtg_field), np.int64)
         idx.append(np.asarray(x, np.float64), np.asarray(y, np.float64),
-                   np.asarray(chunk.column(self.sft.dtg_field), np.int64))
+                   dtg)
+        for a, ai in attr_idx:
+            ai.append(chunk.column(a), dtg, base_gid=prior)
+            self._index_coverage[f"attr:{a}"] = len(self.batch)
 
     def compact_lean(self, budget_ms: float | None = None) -> dict:
-        """Explicit LSM maintenance of the lean scale index (the role the
-        reference delegates to Accumulo/HBase major compaction); empty for
-        default-profile schemas and lean ones not yet written."""
-        idx = self._indexes.get("z3") if self.lean else None
-        if idx is None:
-            return {}
-        return {"z3": idx.compact(budget_ms=budget_ms)}
+        """Explicit LSM maintenance over every live lean index (the z3
+        scale index, then the attribute indexes) — the role the reference
+        delegates to Accumulo/HBase major compaction.  ``budget_ms``
+        carries across the indexes; each still makes ≥ 1 group of
+        progress when one is eligible.  Empty for default-profile schemas
+        and lean ones not yet written."""
+        out: dict = {}
+        if not self.lean:
+            return out
+        t0 = time.perf_counter()
+
+        def remaining():
+            if budget_ms is None:
+                return None
+            return max(0.0, budget_ms - (time.perf_counter() - t0) * 1e3)
+
+        for key in ["z3"] + [f"attr:{a}" for a in self._lean_attr_names()]:
+            idx = self._indexes.get(key)
+            if idx is not None:
+                out[key] = idx.compact(budget_ms=remaining())
+        return out
 
     def build_pyramids(self) -> int:
         """Build density pyramids over the lean index's sealed
@@ -277,8 +383,12 @@ class _SchemaStore:
         if self._id_set is not None:
             self._id_set.update(batch.ids.astype(str).tolist())
         # incremental index maintenance (IndexAdapter.IndexWriter.write,
-        # api/IndexAdapter.scala:95-106): a built index APPENDS the new
-        # rows into its resident sorted columns
+        # api/IndexAdapter.scala:95-106): z3 and z2 APPEND the new rows
+        # into their resident sorted columns; attribute indexes are KEPT
+        # and serve the appended rows as their tail (index_tail).  The
+        # cached attribute z3-tier keys cover only the earlier rows: a
+        # fresh attribute build recomputes them
+        self._indexes.pop("attr-z3-keys", None)
         z3 = self._indexes.get("z3")
         if z3 is not None:
             x, y = batch.geom_xy(self.sft.geom_field)
@@ -286,6 +396,91 @@ class _SchemaStore:
         z2 = self._indexes.get("z2")
         if z2 is not None:
             z2.append(*batch.geom_xy(self.sft.geom_field))
+
+    def _maybe_compact(self, key: str) -> None:
+        """Drop a kept index whose appended tail outgrew the lazy-scan
+        budget — the next accessor call rebuilds over all rows (the
+        compaction role of the reference's periodic major compaction)."""
+        cov = self._index_coverage.get(key)
+        if cov is None or key not in self._indexes or self.batch is None:
+            return
+        tail = len(self.batch) - cov
+        if tail > max(4096, cov // self.TAIL_COMPACT_FRACTION):
+            del self._indexes[key]
+            del self._index_coverage[key]
+            if key.startswith("attr:"):
+                self._indexes.pop("attr-z3-keys", None)
+
+    def index_tail(self, key: str) -> np.ndarray | None:
+        """Rows appended after a kept index's build — queries union them
+        into its candidate set (they are not in the index's structure;
+        the residual filter keeps results exact)."""
+        cov = self._index_coverage.get(key)
+        if cov is None or self.batch is None:
+            return None
+        n = len(self.batch)
+        return np.arange(cov, n, dtype=np.int64) if n > cov else None
+
+    def _z3_tier_keys(self):
+        """Host (bins, z) Z3 keys shared by every z3-tiered attribute
+        index of this schema, computed by the port's curve layer on the
+        host once per rebuild (cached in the index map, so writes
+        invalidate it)."""
+        if "attr-z3-keys" not in self._indexes:
+            import torch
+
+            from .curve.binnedtime import to_binned_time
+            from .curve.sfc import z3_sfc
+            dtg = np.asarray(self.batch.column(self.sft.dtg_field), np.int64)
+            bins, offs = to_binned_time(dtg, self.sft.z3_interval)
+            x, y = self.batch.geom_xy(self.sft.geom_field)
+            z = z3_sfc(self.sft.z3_interval).index(
+                torch.from_numpy(np.asarray(x, np.float64)),
+                torch.from_numpy(np.asarray(y, np.float64)),
+                torch.from_numpy(np.asarray(offs, np.float64))).numpy()
+            self._indexes["attr-z3-keys"] = (bins, z)
+        return self._indexes["attr-z3-keys"]
+
+    def attribute_index(self, attr: str):
+        """The attribute index of one indexed attribute: on the lean
+        profile the generational lexicoded index; otherwise a kept host
+        index (sharded on a mesh) whose secondary tier mirrors the
+        reference — z3 keys when the schema has a point geometry and a
+        dtg, date keys when only a dtg (AttributeIndexKeySpace
+        secondary defaults)."""
+        if self.lean:
+            return self._lean_attr_index(attr)
+        enabled = self.sft.enabled_indices
+        if enabled is not None and "attr" not in enabled:
+            raise ValueError(
+                f"index 'attr' is disabled on schema {self.sft.name!r} "
+                "(geomesa.indices.enabled)")
+        key = f"attr:{attr}"
+        self._maybe_compact(key)
+        if key not in self._indexes:
+            self._index_coverage[key] = len(self.batch)
+            self.build_counts[key] = self.build_counts.get(key, 0) + 1
+            sft = self.sft
+            col = self.batch.column(attr)
+            z3_tier = sft.dtg_field and sft.is_points and sft.geom_field
+            secondary = (np.asarray(self.batch.column(sft.dtg_field),
+                                    np.int64)
+                         if sft.dtg_field and not z3_tier else None)
+            if self.mesh is not None:
+                if z3_tier:
+                    bins, z = self._z3_tier_keys()
+                    idx = ShardedAttributeIndex.build(
+                        attr, col, mesh=self.mesh, sec_bins=bins, sec_z=z)
+                else:
+                    idx = ShardedAttributeIndex.build(
+                        attr, col, secondary=secondary, mesh=self.mesh)
+            elif z3_tier:
+                bins, z = self._z3_tier_keys()
+                idx = AttributeIndex.build_z3(attr, col, bins, z)
+            else:
+                idx = AttributeIndex.build(attr, col, secondary=secondary)
+            self._indexes[key] = idx
+        return self._indexes[key]
 
     def stats_map(self) -> dict:
         return self._stats
@@ -307,8 +502,10 @@ class _SchemaStore:
     def index(self, name: str):
         """Lazily-built index accessor with the JAX registry's
         applicability (index/registry.py): z3 on point schemas with a dtg
-        attribute, z2 on point schemas, id on every schema; on the lean
-        profile the lean z3 index and implicit-id lookups only."""
+        attribute, z2 on point schemas, id on every schema, ``attr`` on
+        schemas with an indexed attribute (built per attribute through
+        :meth:`attribute_index`); on the lean profile the lean z3 index
+        and implicit-id lookups only."""
         if self.lean:
             if name == "z3":
                 return self._lean_index()
@@ -322,7 +519,7 @@ class _SchemaStore:
                 self._indexes["id"] = IdIndex.build(self.batch.ids)
                 self.build_counts["id"] = self.build_counts.get("id", 0) + 1
             return self._indexes["id"]
-        if name not in _CURRENT_INDEX_VERSIONS:
+        if name not in _CURRENT_INDEX_VERSIONS and name != "attr":
             raise NotImplementedError(f"index {name!r} is not ported")
         sft = self.sft
         enabled = sft.enabled_indices
@@ -330,6 +527,12 @@ class _SchemaStore:
             raise ValueError(
                 f"index {name!r} is disabled on schema {sft.name!r} "
                 "(geomesa.indices.enabled)")
+        if name == "attr":
+            if not any(a.indexed for a in sft.attributes):
+                raise ValueError(f"schema {sft.name!r} does not support "
+                                 "the 'attr' index")
+            raise ValueError("the attribute index is built per attribute — "
+                             "use _SchemaStore.attribute_index(name)")
         if not (sft.is_points and sft.geom_field
                 and (name == "z2" or sft.dtg_field)):
             raise ValueError(f"schema {sft.name!r} does not support the "
@@ -389,7 +592,7 @@ def _index_version(sft: FeatureType, index: str) -> int:
 class TpuDataStore:
     """In-process spatio-temporal datastore over device-resident z3 and
     z2 indexes, sharded over a device mesh when one is given, and the
-    tiered lean z3 index for lean-profile schemas."""
+    tiered lean z3 and attribute indexes for lean-profile schemas."""
 
     #: first-write row count at which a qualifying schema (points with a
     #: dtg, no mesh, auto ids) switches to the lean profile
@@ -479,7 +682,7 @@ class TpuDataStore:
             if isinstance(data, FeatureBatch):
                 chunk = ChunkView(sft, dict(data.columns), len(data))
             else:
-                cols, _ = build_columns(sft, data)
+                cols, _ = build_columns(sft, data, keep_fixed_strings=True)
                 chunk = ChunkView(sft, cols,
                                   len(next(iter(cols.values()))) if cols
                                   else 0)
@@ -606,8 +809,9 @@ class TpuDataStore:
         fold sealed same-tier sorted runs into O(log) merged runs so query
         and density fan-out stops growing with ingest history.
         ``budget_ms`` bounds the work; interrupted compaction resumes on
-        the next call.  Returns ``{"z3": {"merged_groups", "generations",
-        "tiers"}}`` — empty for default-profile schemas."""
+        the next call.  Returns ``{"z3": {...}, "attr:<name>": {...}}``,
+        each ``{"merged_groups", "generations", "tiers"}`` — empty for
+        default-profile schemas."""
         return self._store(name).compact_lean(budget_ms=budget_ms)
 
     def _pyramid_listener(self, name: str):

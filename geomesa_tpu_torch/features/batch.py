@@ -136,11 +136,15 @@ class FeatureBatch:
             self.sft, cols, np.concatenate([self.ids, other.ids]), geoms)
 
 
-def build_columns(sft: FeatureType, data: dict):
+def build_columns(sft: FeatureType, data: dict,
+                  keep_fixed_strings: bool = False):
     """Normalize a dict of attribute values into the canonical column
     layout (module doc) — the shared ingest step of FeatureBatch.from_dict
     and the lean profile's chunked writes (which skip FeatureBatch id
-    materialization entirely).  Returns ``(columns, packed_geoms)``."""
+    materialization entirely).  ``keep_fixed_strings``: a string column
+    given as a fixed-width unicode array stays one (the lean profile's
+    columns at scale; an object array holds a Python string a row).
+    Returns ``(columns, packed_geoms)``."""
     columns: dict = {}
     geoms = None
     for attr in sft.attributes:
@@ -194,7 +198,10 @@ def build_columns(sft: FeatureType, data: dict):
             else:
                 columns[attr.name] = vals.astype(np.int64)
         elif attr.type in ("string", "bytes", "json"):
-            columns[attr.name] = np.asarray(vals, dtype=object)
+            fixed = (keep_fixed_strings and attr.type == "string"
+                     and isinstance(vals, np.ndarray) and vals.dtype.kind == "U")
+            columns[attr.name] = (vals if fixed
+                                  else np.asarray(vals, dtype=object))
         else:
             arr = np.asarray(vals)
             if arr.dtype == object and any(v is None for v in arr):

@@ -142,5 +142,9 @@ class LeanBatch:
         restricts which physical columns materialize (projection
         push-down)."""
         positions = np.asarray(positions, dtype=np.int64)
-        return FeatureBatch(self.sft, self._gather(positions, columns),
-                            self.row_ids(positions))
+        cols = self._gather(positions, columns)
+        # fixed-width string columns materialize as the object columns
+        # every other write path stores
+        cols = {k: v.astype(object) if v.dtype.kind == "U" else v
+                for k, v in cols.items()}
+        return FeatureBatch(self.sft, cols, self.row_ids(positions))

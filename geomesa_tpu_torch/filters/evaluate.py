@@ -202,6 +202,10 @@ def _prop_column(batch: FeatureBatch, prop: str) -> np.ndarray:
 def _safe_compare(col: np.ndarray, value, op: str) -> np.ndarray:
     """Ordering comparison tolerant of None/mixed entries in object
     columns (json-path results): non-comparable rows are False."""
+    if col.dtype.kind == "U" and not isinstance(value, str):
+        # a fixed-width string column (lean stores) against a non-string
+        # value: no row compares, as in an object column
+        return np.zeros(len(col), dtype=bool)
     if col.dtype != object:
         return {"<": col < value, "<=": col <= value,
                 ">": col > value, ">=": col >= value}[op]

@@ -1,12 +1,18 @@
 """Sketch-fed cardinality estimation: the costing half of closing the
 cost-based-planning loop.
 
-The port's copy of the JAX package's ``planning/estimator.py``, z3 tier.
-The :class:`CardinalityEstimator` answers the ``StrategyDecider``'s
-selectivity question for a z3 scan from the per-generation z3 cell-count
-partials the lean index maintains, instead of whole-store fractions: the
-``StatsBasedEstimator`` / ``CostEvaluator`` split of the reference's
-planning stack, fed by observed per-generation data.
+The port's copy of the JAX package's ``planning/estimator.py``.  The
+:class:`CardinalityEstimator` answers the ``StrategyDecider``'s
+selectivity questions from per-generation sketches the lean indexes
+maintain, instead of whole-store fractions: the ``StatsBasedEstimator`` /
+``CostEvaluator`` split of the reference's planning stack, fed by
+observed per-generation data.  Two tiers:
+
+* **z3** — a z3 scan's candidate rows from the z3 cell-count partials;
+* **attribute** — ``attr IN (values)`` rows from a count-min fold and
+  ``lo <= attr <= hi`` rows from a histogram fold over the attribute
+  index's keys (``LeanAttrIndex.sketch_scan``; the histogram only for
+  numeric types with a ``{attr}_minmax`` stat).
 
 ``z3_cell_table(bits)`` gives an exact row count per (time-bin, z-prefix
 cell) over every generation (sealed partials cached by the index, the
@@ -16,14 +22,10 @@ bounds to cell granularity, and sums cell counts with two
 ``searchsorted`` probes per range — so the estimate is of the scan's
 *candidate superset*.
 
-The merged table caches per **generation signature** —
-``tuple((gen_id, rows) per generation)`` — so a warm repeat costs two
+The merged tables cache per **generation signature** —
+``tuple((gen_id, rows) per generation)`` — so a warm repeat costs a few
 numpy probes and no device work: appends grow the live run's row count
 and compaction mints fresh gen_ids, each changing the signature.
-
-The JAX estimator's attribute tier (count-min and histogram folds over
-the lean attribute indexes) is not ported: the port has no lean
-attribute index to fold.
 """
 
 from __future__ import annotations
@@ -47,9 +49,14 @@ _Z3_CELL_BUDGET = 1 << 22
 #: out-resolve the cell table, or every range rounds up to whole cells
 #: and a sliver box charges for its neighbours' mass
 _EST_RANGES = 2048
+#: count-min / histogram shape of the estimator's attribute folds
+_ATTR_DEPTH, _ATTR_WIDTH, _ATTR_BINS = 4, 2048, 128
 #: sketch-sized scan budget clamp: the floor keeps boundary-bin splits
 #: meaningful, the ceiling is the lean index's per-window range cap
 _MAX_RANGES_FLOOR, _MAX_RANGES_CEIL = 512, 1 << 14
+
+_NUMERIC_HIST_TYPES = frozenset(
+    {"int", "integer", "long", "float", "double"})
 
 
 def _gen_signature(idx) -> tuple | None:
@@ -71,6 +78,7 @@ class CardinalityEstimator:
     def __init__(self, store):
         self.store = store
         self._z3_cached = None    # (signature, keys, cumsum, idx, bits)
+        self._attr_cached: dict = {}  # attr -> (sig, sketch, fold, idx)
 
     @staticmethod
     def _cell_bits(idx) -> int:
@@ -148,6 +156,63 @@ class CardinalityEstimator:
             ri = np.searchsorted(keys, mhi, "right")
             total += int((cum[ri] - cum[li]).sum())
         return min(total, int(cum[-1]))
+
+    # -- attribute tier -----------------------------------------------------
+    def _attr_sketch(self, attr: str):
+        idx = self.store._indexes.get(f"attr:{attr}")
+        if idx is None or not hasattr(idx, "sketch_scan"):
+            return None
+        sig = _gen_signature(idx)
+        cached = self._attr_cached.get(attr)
+        if cached is not None and cached[0] == sig:
+            return cached
+        fold = self._attr_fold(attr, idx)
+        sketch = idx.sketch_scan(fold)
+        cached = (sig, sketch, fold, idx)
+        self._attr_cached[attr] = cached
+        return cached
+
+    def _attr_fold(self, attr: str, idx):
+        from ..stats.sketch import SketchFold
+        bins, hlo, hhi = 0, 0.0, 1.0
+        if getattr(idx, "attr_type", "string") in _NUMERIC_HIST_TYPES:
+            mm = self.store.stats_map().get(f"{attr}_minmax")
+            try:
+                lo = float(mm.min)
+                hi = float(mm.max)
+            except (AttributeError, TypeError, ValueError):
+                lo = hi = 0.0
+            if hi > lo:
+                bins, hlo, hhi = _ATTR_BINS, lo, hi
+        return SketchFold(bins=bins, hlo=hlo, hhi=hhi,
+                          depth=_ATTR_DEPTH, width=_ATTR_WIDTH)
+
+    def attr_equals_rows(self, attr: str, values) -> int | None:
+        """Estimated rows matching ``attr IN (values)`` from the merged
+        count-min table; None when unanswerable."""
+        cached = self._attr_sketch(attr)
+        if cached is None:
+            return None
+        _, sketch, fold, idx = cached
+        from ..stats.sketch import sketch_equals_count
+        total = 0
+        for v in values:
+            est = sketch_equals_count(sketch, fold, v, idx.attr_type)
+            if est is None:
+                return None
+            total += est
+        return total
+
+    def attr_range_rows(self, attr: str, lo, hi) -> int | None:
+        """Estimated rows with ``lo <= attr <= hi`` (None bound = open)
+        from the merged histogram; None when the fold carries no
+        histogram (string attribute, no min/max stat yet)."""
+        cached = self._attr_sketch(attr)
+        if cached is None:
+            return None
+        _, sketch, fold, _ = cached
+        from ..stats.sketch import sketch_range_count
+        return sketch_range_count(sketch, fold, lo, hi)
 
     @staticmethod
     def size_max_ranges(est_rows: float) -> int:

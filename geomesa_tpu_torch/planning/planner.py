@@ -12,12 +12,14 @@ Exactness contract: whatever the index strategy returns is treated as a
 on candidates, so results are oracle-equal regardless of strategy.
 
 The port serves the strategies of its store's indexes — ``z3`` (with
-several time windows batched into one scan), ``z2``, ``id``, ``full`` and
-``none``, and an OR split over them; on a lean store ``z3`` runs on the
-tiered lean index, costed by the store's sketch-fed estimator where it
-has one, and a scan whose probe observes far more candidates than
-costed replans once (planning/adaptive.py).  Hints it does not serve
-raise.
+several time windows batched into one scan), ``z2``, ``id``,
+``attr:<name>`` (tier-refined by the query's time window, or by a
+covering z3 plan where the attribute index carries the z3 tier, plus the
+rows appended since the index was built), ``full`` and ``none``, and an
+OR split over them; on a lean store ``z3`` and ``attr`` run on the tiered
+lean indexes, costed by the store's sketch-fed estimator where it has
+one, and a scan whose probe observes far more candidates than costed
+replans once (planning/adaptive.py).  Hints it does not serve raise.
 """
 
 from __future__ import annotations
@@ -114,6 +116,9 @@ class QueryPlanner:
         decider = StrategyDecider(
             self.sft, store.stats_map(), len(batch),
             allowed_indices=store.query_indices,
+            attr_z3_tier=not store.lean,
+            servable_attrs=(set(store._lean_attr_names())
+                            if store.lean else None),
             estimator=store.estimator())
         strategy, _ = decider.decide_with_options(
             query.filter, explain, forced=query.hints.get("QUERY_INDEX"))
@@ -242,11 +247,13 @@ class QueryPlanner:
         if name == "full":
             explain("Executing full-table scan")
             return None
-        if name not in ("z3", "z2", "id"):
+        if name not in ("z3", "z2", "id") and not name.startswith("attr:"):
             raise NotImplementedError(f"strategy {name!r} is not ported")
         explain(lambda: f"Executing {name} index scan")
         if name == "id":
             return store.id_index().query(strategy.ids)
+        if name.startswith("attr:"):
+            return self._add_tail(self._scan_attr(strategy), name)
         boxes = [g.envelope.as_tuple() for g in strategy.geometries] or [
             (-180.0, -90.0, 180.0, 90.0)
         ]
@@ -268,6 +275,74 @@ class QueryPlanner:
         parts = [idx.query(boxes, lo, hi, **mr)
                  for lo, hi in strategy.intervals]
         return _union(parts)
+
+    def _scan_attr(self, strategy: FilterStrategy) -> np.ndarray:
+        """Candidates of an attribute strategy: its predicate on the
+        attribute index, with the covering secondary refinement of the
+        index's tier (exactness comes from the residual filter)."""
+        idx = self.store.attribute_index(strategy.index[5:])
+        (_, kind, payload) = strategy.attr_values[0]
+        sec_window = None
+        z3_ranges = None
+        if strategy.intervals and idx.secondary is not None:
+            los = [iv[0] for iv in strategy.intervals]
+            his = [iv[1] for iv in strategy.intervals]
+            sec_window = (None if any(v is None for v in los) else min(los),
+                          None if any(v is None for v in his) else max(his))
+        if idx.sec_z is not None and (strategy.geometries
+                                      or strategy.intervals):
+            z3_ranges = self._attr_z3_ranges(strategy)
+        if kind == "equals":
+            return idx.query_equals(payload, sec_window, z3_ranges)
+        if kind == "in":
+            return idx.query_in(payload, sec_window, z3_ranges)
+        if kind == "range":
+            lo, hi, lo_inc, hi_inc = payload
+            return idx.query_range(lo, hi, lo_inc, hi_inc)
+        if kind == "prefix":
+            return idx.query_prefix(payload)
+        raise ValueError(f"unknown attribute query {kind!r}")
+
+    def _attr_z3_ranges(self, strategy: FilterStrategy):
+        """Covering (bin, zlo, zhi) plan for the attribute index's z3
+        tier; open time bounds clamp to the data's extent (the same
+        clamping the primary z3 index applies)."""
+        from ..index.z3 import plan_z3_query
+        # the data extent from the maintained MinMax stat (O(1)); one
+        # column scan only when the stat is absent
+        mm = self.store.stats_map().get("dtg_minmax")
+        if mm is not None and not mm.is_empty:
+            data_lo, data_hi = int(mm.min), int(mm.max)
+        else:
+            dtg = self.store.batch.column(self.sft.dtg_field)
+            if len(dtg) == 0:
+                return None
+            data_lo, data_hi = int(dtg.min()), int(dtg.max())
+        lo, hi = data_lo, data_hi
+        if strategy.intervals:
+            los = [iv[0] for iv in strategy.intervals]
+            his = [iv[1] for iv in strategy.intervals]
+            if not any(v is None for v in los):
+                lo = max(lo, min(los))
+            if not any(v is None for v in his):
+                hi = min(hi, max(his))
+        boxes = ([g.envelope.as_tuple() for g in strategy.geometries]
+                 or [(-180.0, -90.0, 180.0, 90.0)])
+        plan = plan_z3_query(boxes, lo, hi, self.sft.z3_interval,
+                             max_ranges=256)
+        if plan.num_ranges == 0:
+            return None
+        return plan.rbin, plan.rzlo, plan.rzhi
+
+    def _add_tail(self, cand: np.ndarray, key: str) -> np.ndarray:
+        """Union the rows appended after a kept index's build into its
+        candidate set (kept indexes serve their covered rows; the tail
+        rides as unconditional candidates and the residual filter keeps
+        results exact)."""
+        tail = self.store.index_tail(key)
+        if tail is None or not len(tail):
+            return cand
+        return _union([cand, tail])
 
     def _scan_or_split(self, strategy: FilterStrategy, query: Query,
                        explain: Explainer) -> np.ndarray | None:

@@ -1,22 +1,25 @@
 """Filter strategies and cost-based index selection.
 
-Mirrors the reference's strategy machinery: the spatio-temporal
-applicability heuristics (geomesa-index-api/.../index/strategies/
-SpatioTemporalFilterStrategy.scala) and the cost-based decider
-(planning/StrategyDecider.scala:67-112,140-152) that estimates
+Mirrors the reference's strategy machinery: per-index applicability
+heuristics (geomesa-index-api/.../index/strategies/
+{SpatioTemporalFilterStrategy, SpatialFilterStrategy,
+AttributeFilterStrategy, IdFilterStrategy}.scala) and the cost-based
+decider (planning/StrategyDecider.scala:67-112,140-152) that estimates
 per-strategy feature counts from stats and picks the cheapest.
 
 The port offers the strategies of the indexes it has: ``id`` for
 feature-id filters, ``z3`` on point schemas with a dtg attribute, ``z2``
-on point schemas, the full scan, the empty plan, and an OR split over
-them, in the JAX package's order so that ties in the cost comparison
-resolve alike.  A lean store allows only ``z3`` and ``id``, so a
-pure-spatial query runs on z3 with an open interval; there a z3 option
-is costed from the sketch-fed estimator (planning/estimator.py) when
-the store has one.  A replanning query folds its observed candidate
-count back in (``decide_with_options(observed=)``).  The JAX package's
-attribute and xz strategies (non-point schemas fall to the full scan)
-are not ported.
+on point schemas, ``attr:<name>`` for each indexed-attribute predicate
+at the top AND level, the full scan, the empty plan, and an OR split
+over them, in the JAX package's order so that ties in the cost
+comparison resolve alike.  A lean store allows ``z3``, ``id`` and, for
+its lexicode-indexable attributes, ``attr``, so a pure-spatial query
+runs on z3 with an open interval; there z3 and attribute options are
+costed from the sketch-fed estimator (planning/estimator.py) when the
+store has one.  A replanning query folds its observed candidate count
+back in (``decide_with_options(observed=)``).  The JAX package's xz
+strategies are not ported (non-point schemas fall to the full scan or an
+attribute index).
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ from dataclasses import dataclass, replace
 
 from ..config import PlanningProperties, QueryProperties
 from ..features.feature_type import FeatureType
-from ..filters.ast import And, Filter, IdFilter, Or, _Exclude
+from ..filters.ast import (
+    And, Between, Filter, IdFilter, In, Like, Or, PropertyCompare, _Exclude,
+)
 from ..filters.extract import extract_geometries, extract_intervals
-from ..stats.stat import MinMax
+from ..stats.stat import EnumerationStat, Frequency, Histogram, MinMax
 from .explain import Explainer, ExplainNull
 
 __all__ = ["FilterStrategy", "StrategyDecider"]
@@ -38,13 +43,14 @@ class FilterStrategy:
     """A candidate execution strategy: which index serves the query and at
     what estimated cost (feature count to scan)."""
 
-    #: 'z3' | 'z2' | 'id' | 'or-split' | 'full' | 'none'
+    #: 'z3' | 'z2' | 'id' | 'attr:<name>' | 'or-split' | 'full' | 'none'
     index: str
     cost: float
     geometries: tuple = ()      # extracted query geometries
     intervals: tuple = ()       # extracted (lo_ms, hi_ms)
     ids: tuple = ()             # extracted feature ids
     branches: tuple = ()        # ('or-split') per-branch FilterStrategy
+    attr_values: tuple = ()     # attribute predicate descriptors
     #: which estimator tier produced ``cost``: 'sketch' (per-generation
     #: sketches), 'stats' (whole-store stats), 'heuristic' (fallback
     #: constants), or 'observed' (a replan folded a scan's actual in)
@@ -69,24 +75,60 @@ def _collect_id_filters(f: Filter) -> tuple:
     return ()
 
 
+def _collect_attr_predicates(f: Filter, indexed: set[str]) -> list:
+    """(attr, kind, payload) descriptors for indexed-attribute predicates
+    at the top AND level."""
+    out = []
+    if isinstance(f, And):
+        for p in f.filters:
+            out.extend(_collect_attr_predicates(p, indexed))
+        return out
+    if isinstance(f, PropertyCompare) and f.prop in indexed:
+        if f.op == "=":
+            out.append((f.prop, "equals", f.value))
+        elif f.op in ("<", "<="):
+            out.append((f.prop, "range", (None, f.value, True, f.op == "<=")))
+        elif f.op in (">", ">="):
+            out.append((f.prop, "range", (f.value, None, f.op == ">=", True)))
+    elif isinstance(f, Between) and f.prop in indexed:
+        out.append((f.prop, "range", (f.lo, f.hi, True, True)))
+    elif isinstance(f, In) and f.prop in indexed:
+        out.append((f.prop, "in", tuple(f.values)))
+    elif isinstance(f, Like) and f.prop in indexed and not f.case_insensitive:
+        pat = f.pattern
+        if pat and "%" not in pat[:-1] and pat.endswith("%") and "_" not in pat:
+            out.append((f.prop, "prefix", pat[:-1]))
+    return out
+
+
 class StrategyDecider:
     """Enumerate viable strategies for a filter and pick the cheapest."""
 
     def __init__(self, sft: FeatureType, stats: dict | None = None,
                  total_count: int = 0,
                  allowed_indices: set[str] | None = None,
+                 attr_z3_tier: bool = True,
+                 servable_attrs: set[str] | None = None,
                  estimator=None):
         """``allowed_indices`` further restricts the offered strategies
         beyond the schema's ``geomesa.indices.enabled`` user data (the
-        indexes the store has).  ``estimator``: a
+        indexes the store has; None = all).  ``attr_z3_tier``: whether
+        the store's attribute index carries a z3 secondary (the default
+        profile's does; the lean one tiers by date only) — costing a
+        spatial discount the index cannot deliver would mis-prefer attr
+        over z3.  ``servable_attrs``: the attributes the store can
+        index-serve (None = every indexed attribute) — the lean lexicode
+        covers numerics, dates and strings only.  ``estimator``: a
         :class:`~geomesa_tpu_torch.planning.estimator.CardinalityEstimator`
-        answering z3 selectivity from per-generation sketches — the
-        preferred costing tier when it can answer; ignored while
-        ``geomesa.planning.estimator.enabled`` is off."""
+        answering z3 and attribute selectivity from per-generation
+        sketches — the preferred costing tier when it can answer; ignored
+        while ``geomesa.planning.estimator.enabled`` is off."""
         self.sft = sft
         self.stats = stats or {}
         self.total = max(1, total_count)
         self.allowed_indices = allowed_indices
+        self.attr_z3_tier = attr_z3_tier
+        self.servable_attrs = servable_attrs
         self.estimator = (
             estimator if estimator is not None
             and PlanningProperties.ESTIMATOR_ENABLED.to_bool() else None)
@@ -96,7 +138,8 @@ class StrategyDecider:
         """Estimated fraction of the data a query geometry set covers:
         the intersection with the DATA extent (the maintained bbox
         sketch) over that extent — a box covering all the data costs
-        ~1.0 even when it is tiny against the world."""
+        ~1.0 even when it is tiny against the world, so a selective
+        attribute strategy can beat z3 there."""
         if not geometries:
             return 1.0
         bb = self.stats.get(f"{self.sft.geom_field}_bbox")
@@ -144,6 +187,38 @@ class StrategyDecider:
             ok = mm is not None and not mm.is_empty and mm.max != mm.min
         return "stats" if ok else "heuristic"
 
+    def _attr_cost(self, attr: str, kind: str, payload) -> tuple[float, str]:
+        """(cost, source) of an attribute predicate from whole-store
+        stats, falling back to the named heuristic selectivities
+        (``geomesa.planning.selectivity.*``)."""
+        enum: EnumerationStat | None = self.stats.get(f"{attr}_enumeration")
+        freq: Frequency | None = self.stats.get(f"{attr}_frequency")
+        hist: Histogram | None = self.stats.get(f"{attr}_histogram")
+        if kind == "equals":
+            if enum is not None and not enum.is_empty:
+                return float(enum.counts.get(
+                    payload, enum.counts.get(str(payload), 0))), "stats"
+            if freq is not None and not freq.is_empty:
+                return float(freq.count(payload)), "stats"
+            return self.total * float(
+                PlanningProperties.SELECTIVITY_EQUALS_DEFAULT.get()), \
+                "heuristic"
+        if kind == "in":
+            total, source = 0.0, "stats"
+            for v in payload:
+                c, s = self._attr_cost(attr, "equals", v)
+                total += c
+                if s != "stats":
+                    source = s
+            return total, source
+        if kind == "range" and hist is not None and not hist.is_empty:
+            lo, hi, *_ = payload
+            return float(hist.estimate_range(
+                float(lo) if lo is not None else hist.lo,
+                float(hi) if hi is not None else hist.hi)), "stats"
+        return self.total * float(
+            PlanningProperties.SELECTIVITY_RANGE_DEFAULT.get()), "heuristic"
+
     def _estimate_z3(self, geometries, intervals):
         """Sketch-tier candidate estimate for a z3 scan, or None when the
         tier can't answer (no estimator, no z3 cell-count sketch).
@@ -157,6 +232,23 @@ class StrategyDecider:
             return self.estimator.z3_rows(boxes, intervals)
         except Exception:  # noqa: BLE001 — fall back to the stats tier
             return None
+
+    def _estimate_attr(self, attr: str, kind: str, payload):
+        """Sketch-tier row estimate for an attribute predicate, or None
+        when the tier can't answer."""
+        if self.estimator is None:
+            return None
+        try:
+            if kind == "equals":
+                return self.estimator.attr_equals_rows(attr, (payload,))
+            if kind == "in":
+                return self.estimator.attr_equals_rows(attr, payload)
+            if kind == "range":
+                lo, hi, *_ = payload
+                return self.estimator.attr_range_rows(attr, lo, hi)
+        except Exception:  # noqa: BLE001 — fall back to the stats tier
+            return None
+        return None
 
     def _z3_option(self, geometries, intervals, frac_cost: float,
                    frac_source: str) -> FilterStrategy:
@@ -204,7 +296,8 @@ class StrategyDecider:
         # clamps them to the data's time extent (the reference requires
         # bounded intervals, SpatioTemporalFilterStrategy — clamping
         # removes that need here)
-        usable = tuple(intervals.values) if intervals else ()
+        all_ivs = tuple(intervals.values) if intervals else ()
+        usable = all_ivs
         temporal = bool(usable)
 
         sp_frac = self._spatial_fraction(geoms.values if geoms else ())
@@ -230,6 +323,33 @@ class StrategyDecider:
                 out.append(self._z3_option(
                     tuple(geoms.values), ((None, None),),
                     self.total * sp_frac, self._frac_source(True, False)))
+
+        indexed = ({a.name for a in sft.attributes if a.indexed}
+                   if self._enabled("attr") else set())
+        if self.servable_attrs is not None:
+            indexed &= self.servable_attrs
+        for attr, kind, payload in _collect_attr_predicates(f, indexed):
+            cost, source = self._attr_cost(attr, kind, payload)
+            est = self._estimate_attr(attr, kind, payload)
+            if est is not None:
+                cost, source = float(est), "sketch"
+            # secondary tiers narrow equality/IN runs (tiered-range
+            # assembly, api/GeoMesaFeatureIndex.scala:248-338): the date
+            # tier by the temporal fraction; the z3 tier (schemas with
+            # point geom + dtg) by the spatial fraction too
+            tiered_ivs = all_ivs if dtg and kind in ("equals", "in") else ()
+            tiered_geoms = ()
+            if tiered_ivs:
+                cost *= self._temporal_fraction(all_ivs)
+            if (dtg and geom and sft.is_points and kind in ("equals", "in")
+                    and spatial and self.attr_z3_tier):
+                tiered_geoms = tuple(geoms.values)
+                cost *= sp_frac
+            out.append(FilterStrategy(
+                f"attr:{attr}", max(1.0, cost),
+                attr_values=((attr, kind, payload),),
+                intervals=tiered_ivs, geometries=tiered_geoms,
+                source=source))
 
         # the full-scan cost is the maintained row count — exact
         out.append(FilterStrategy("full", float(self.total),
@@ -260,7 +380,8 @@ class StrategyDecider:
             explain(lambda o=o: f"option {o.index}: estimated cost "
                     f"{o.cost:.0f} [{o.source}]")
         if forced is not None:
-            match = [o for o in options if o.index == forced]
+            match = [o for o in options
+                     if o.index == forced or o.index.startswith(f"{forced}:")]
             if not match:
                 raise ValueError(
                     f"QUERY_INDEX hint requested {forced!r} but no such "

@@ -27,10 +27,11 @@ def stats_process(store, schema: str, query, stat_spec: str) -> Stat:
     per-node StatsScan + client Reducer, iterators/StatsScan.scala:125).
 
     On a lean store a Count()-only spec is answered from the keys when the
-    count is provably exact (:func:`_lean_count_pushdown`), then a
-    whole-extent spec of Count and Z3Histogram sub-stats folds next to the
-    keys (:func:`_lean_sketch_pushdown`); every other spec materializes
-    the hits."""
+    count is provably exact (:func:`_lean_count_pushdown`), then a spec
+    of Count, whole-extent Z3Histogram and indexed numeric attribute
+    sub-stats over a window that covers the data's extent folds next to
+    the keys (:func:`_lean_sketch_pushdown`); every other spec
+    materializes the hits."""
     mesh = getattr(store, "_mesh", None)
     if getattr(store._store(schema), "lean", False):
         pushed = _lean_count_pushdown(store, schema, query, stat_spec)
@@ -109,13 +110,17 @@ def _lean_sketch_pushdown(store, schema: str, query, stat_spec: str):
     needs the index at the current key version, a matching period and a
     whole-extent window (its cells come straight off the keys, sealed
     generations' tables cached); Count over a whole-extent window is the
-    live-row total.  The JAX package's attribute folds need a lean
-    attribute index, which the port does not have, so the classifier
-    sees no indexed attributes and declines every attribute sub-stat.
+    live-row total; attribute sub-stats (MinMax, Histogram,
+    DescriptiveStats, Frequency, TopK, Enumeration of an indexed numeric
+    or date attribute) fold over that attribute's lean index keys with
+    the exact sec (dtg) window — one ``sketch_scan`` per attribute — and
+    a Count beside them (or with a selective window) rides such a fold.
 
     Returns the filled Stat, or ``None`` → the materializing path."""
     from ..planning.planner import Query
-    from ..stats.sketch import flatten_stats, plan_pushdown
+    from ..stats.sketch import (
+        fill_stats_from_partial, flatten_stats, plan_pushdown,
+    )
 
     q = query if isinstance(query, Query) else Query.of(query)
     sft = store.get_schema(schema)
@@ -149,16 +154,26 @@ def _lean_sketch_pushdown(store, schema: str, query, stat_spec: str):
 
     stat = parse_stat(stat_spec)
     stats = flatten_stats(stat)
+    attr_types = {a: sft.attribute(a).type for a in st._lean_attr_names()}
     idx = st.z3_index()
     z3_period = idx.period if idx.version >= 2 else None
-    plan = plan_pushdown(stats, {}, "z3", sft.geom_field, sft.dtg_field,
-                         slo, shi, t_open, z3_period=z3_period)
+    plan = plan_pushdown(stats, attr_types, "z3", sft.geom_field,
+                         sft.dtg_field, slo, shi, t_open,
+                         z3_period=z3_period)
     if plan is None:
         return None
+    parts: dict = {}
+    for attr, (fold, group) in plan.attr_groups.items():
+        part = st._lean_attr_index(attr).sketch_scan(fold)
+        parts[attr] = part
+        fill_stats_from_partial(group, part, attr_types[attr])
     for s in plan.z3hists:
         s.counts = idx.z3_cell_counts(int(s.bits))
-    for s in plan.counts:
-        s.count = n_rows
+    if plan.counts:
+        count = (parts[plan.count_source[5:]].count
+                 if plan.count_source.startswith("attr:") else n_rows)
+        for s in plan.counts:
+            s.count = int(count)
     return stat
 
 

@@ -707,3 +707,84 @@ def test_lean_pyramids_and_cell_counts_on_card_match_cpu(cuda_device):
         if before:
             res = [ds.compact("s") for ds in stores]
             assert res[0] == res[1] and res[0]["z3"]["merged_groups"] >= 1
+
+
+def _attr_pair(cuda_device, attr_type, col, dtg, slots, budget):
+    from geomesa_tpu_torch.index.attr_lean import LeanAttrIndex
+    pair = [LeanAttrIndex("a", attr_type, generation_slots=slots,
+                          hbm_budget_bytes=budget, device=dev)
+            for dev in (cuda_device, "cpu")]
+    for lo in range(0, len(col), 30_000):
+        for idx in pair:
+            idx.append(col[lo:lo + 30_000], dtg[lo:lo + 30_000])
+    return pair
+
+
+def test_lean_attr_index_on_card_matches_cpu(cuda_device):
+    """LeanAttrIndex queries on the card against the same index on the
+    CPU, at 2^14-slot generations with device and host tiers, before and
+    after compaction: tiers, bytes, dispatches and every candidate set
+    equal; the card's device generations stay on the card."""
+    rng = np.random.default_rng(31)
+    n = 150_000
+    names = rng.choice(np.array(["USA", "GBR", "FRA", "ÜML", "rare"],
+                                object), n, p=[.4, .3, .2, .099, .001])
+    dtg = rng.integers(MS_2018, MS_2018 + 30 * DAY, n)
+    slots = 1 << 14
+    g, c = _attr_pair(cuda_device, "string", names, dtg, slots,
+                      4 * slots * 20)
+    assert g.tier_counts() == c.tier_counts()
+    assert g.tier_counts()["host"] >= 1 and g.tier_counts()["device"] >= 1
+    for gen in g.generations:
+        if gen.tier == "device":
+            assert gen.keys.device.type == torch.device(cuda_device).type
+    w = (MS_2018 + 2 * DAY, MS_2018 + 9 * DAY)
+    calls = (lambda i: i.query_equals("rare"),
+             lambda i: i.query_equals("FRA", w),
+             lambda i: i.query_in(["USA", "ÜML", "x"], w),
+             lambda i: i.query_range("GBR", "USA", True, False),
+             lambda i: i.query_prefix("U"))
+    for compacted in (False, True):
+        for call in calls:
+            np.testing.assert_array_equal(call(g), call(c))
+        assert g.dispatch_count == c.dispatch_count
+        assert g.device_bytes() == c.device_bytes()
+        if not compacted:
+            assert g.compact(factor=2) == c.compact(factor=2)
+    np.testing.assert_array_equal(np.sort(g.query_equals("rare")),
+                                  np.flatnonzero(names == "rare"))
+
+
+@pytest.mark.parametrize("attr_type", ["double", "long"])
+def test_lean_attr_sketch_folds_on_card_match_cpu(cuda_device, attr_type):
+    """Sketch folds over a LeanAttrIndex on the card against the CPU:
+    counts, key min/max, histogram and count-min exact (the histogram
+    and count-min rows on the hist1d kernel at these generation sizes),
+    float64 sums within rtol 1e-12; warm repeats fold only the live
+    run."""
+    from geomesa_tpu_torch.stats.sketch import SketchFold
+    rng = np.random.default_rng(32)
+    n = 120_000
+    col = (np.round(rng.uniform(-10, 10, n), 1) if attr_type == "double"
+           else rng.integers(-1000, 1000, n))
+    dtg = rng.integers(MS_2018, MS_2018 + 30 * DAY, n)
+    slots = 1 << 14
+    g, c = _attr_pair(cuda_device, attr_type, col, dtg, slots,
+                      4 * slots * 20)
+    before = hk.hist1d.launches
+    for fold in (SketchFold(bins=64, hlo=-10.0, hhi=10.0, depth=4,
+                            width=1024),
+                 SketchFold(slo=MS_2018 + DAY, shi=MS_2018 + 5 * DAY,
+                            bins=16, hlo=-5.0, hhi=5.0),
+                 SketchFold(depth=2, width=64)):
+        for _ in range(2):
+            a, b = g.sketch_scan(fold), c.sketch_scan(fold)
+            assert (a.count, a.kmin, a.kmax) == (b.count, b.kmin, b.kmax)
+            for x, y in ((a.hist, b.hist), (a.cms, b.cms)):
+                if y is None:
+                    assert x is None
+                else:
+                    np.testing.assert_array_equal(x, y)
+            np.testing.assert_allclose([a.vsum, a.vsumsq],
+                                       [b.vsum, b.vsumsq], rtol=1e-12)
+    assert hk.hist1d.launches > before

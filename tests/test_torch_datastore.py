@@ -195,18 +195,37 @@ def test_unserved_options_raise(stores):
 
 def test_lean_sized_first_write_raises(monkeypatch):
     """A lean-sized first write switches a point schema with a dtg to the
-    lean profile, as the JAX store does; where that profile needs a part
-    the port does not have (the lean attribute tier of an indexed
-    attribute), the write raises."""
-    tds = TpuDataStore(device="cpu")
-    tds.create_schema("big", SPEC)
-    tds.create_schema("attr", "actor:String:index=true,dtg:Date,*geom:Point")
+    lean profile, as the JAX store does — with an indexed attribute too,
+    whose lean attribute index then answers like the JAX store's; a later
+    write with explicit ids raises on both stores (lean ids are
+    implicit)."""
+    from geomesa_tpu.index.attr_lean import LeanAttrIndex as JaxAttr
+    from geomesa_tpu_torch.index.attr_lean import LeanAttrIndex
+    tds, jds = TpuDataStore(device="cpu"), JaxStore()
     monkeypatch.setattr(TpuDataStore, "LEAN_AUTO_ROWS", 100)
+    monkeypatch.setattr(JaxStore, "LEAN_AUTO_ROWS", 100)
+    # the suite runs the JAX index at CI-sized default generations
+    monkeypatch.setattr(LeanAttrIndex, "GENERATION_SLOTS",
+                        JaxAttr.GENERATION_SLOTS)
+    spec = ("actor:String:index=true,dtg:Date,*geom:Point;"
+            "geomesa.lean.generation.slots=4096")
+    tds.create_schema("big", SPEC)
     tds.write("big", _batch(5, 100))
     assert tds._store("big").lean
-    with pytest.raises(NotImplementedError, match="lean"):
-        tds.write("attr", _batch(5, 100))
-    assert not tds._store("attr").lean
+    for ds in (tds, jds):
+        ds.create_schema("attr", spec)
+        ds.write("attr", _batch(5, 100))
+    assert tds._store("attr").lean and jds._store("attr").lean
+    assert tds._store("attr").query_indices == \
+        jds._store("attr").query_indices == {"z3", "id", "attr"}
+    ecql = ("actor = 'b' AND dtg DURING "
+            "2018-01-10T00:00:00Z/2018-02-10T00:00:00Z")
+    got, want = (ds.query_result("attr", ecql) for ds in (tds, jds))
+    assert got.strategy.index == want.strategy.index == "attr:actor"
+    np.testing.assert_array_equal(got.positions, want.positions)
+    for ds in (tds, jds):
+        with pytest.raises(ValueError, match="implicit"):
+            ds.write("attr", _batch(6, 3), ids=["x", "y", "z"])
 
 
 def test_lean_sized_first_write_without_dtg_stays_default(monkeypatch):
@@ -253,8 +272,7 @@ MESH_ECQL = [
     "score < 1.5",
     "INTERSECTS(geom, POLYGON ((-74.5 40.5, -74 40.5, -74 41.5, "
     "-74.5 41.5, -74.5 40.5))) AND dtg AFTER 2018-01-10T00:00:00Z",
-    # the JAX store serves these through its attribute index, which the
-    # port does not have (a full scan here): positions still agree
+    # the sharded attribute index
     "name = 'beta' AND score > 90",
 ]
 
@@ -291,6 +309,7 @@ def test_mesh_store_positions_match_jax(mesh_stores, ecql):
     tds, jds = mesh_stores
     got = tds.query_result("events", ecql)
     want = jds.query_result("events", ecql)
+    assert got.strategy.index == want.strategy.index
     np.testing.assert_array_equal(got.positions, want.positions)
     np.testing.assert_array_equal(got.batch.ids, want.batch.ids)
 
@@ -299,7 +318,10 @@ def test_mesh_store_shards_and_appends(mesh_stores):
     from geomesa_tpu_torch.parallel import ShardedZ2Index, ShardedZ3Index
     tds, jds = mesh_stores
     st = tds._store("events")
-    assert st.build_counts == {"z3": 1, "z2": 1}
+    # z3 and z2 built once and appended to since; an attribute index is
+    # there too once an attribute query has run
+    assert st.build_counts["z3"] == st.build_counts["z2"] == 1
+    assert st.build_counts == jds._store("events").build_counts
     assert isinstance(st.z3_index(), ShardedZ3Index)
     assert isinstance(st.z2_index(), ShardedZ2Index)
     assert len(st.z3_index()) == len(st.z2_index()) == MESH_N + 4_001

@@ -258,9 +258,14 @@ def test_left_out_features_raise(stores):
     with pytest.raises(NotImplementedError, match="mesh"):
         TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"])
                      ).create_schema("m", "dtg:Date,*geom:Point" + lean)
-    with pytest.raises(NotImplementedError, match="attribute indexes"):
-        tds.create_schema("attr", "name:String:index=true,dtg:Date,"
-                                  "*geom:Point" + lean)
+    # lean attribute indexes are ported on one device; over a mesh (the
+    # JAX package's parallel/attr_lean.py) they still raise
+    attr_spec = "name:String:index=true,dtg:Date,*geom:Point" + lean
+    with pytest.raises(NotImplementedError, match="mesh"):
+        TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"])
+                     ).create_schema("attr", attr_spec)
+    tds.create_schema("attr", attr_spec)
+    assert tds._store("attr").query_indices == {"z3", "id", "attr"}
     with pytest.raises(NotImplementedError, match="non-point"):
         tds.create_schema("poly", "v:Int,*poly:Polygon" + lean)
     # pyramids and the cell-count fold are ported: they answer as the

@@ -1,9 +1,10 @@
 """The port stands alone: importing geomesa_tpu_torch and running its
 queries (z3, z2), a heatmap, a mesh store's query and stats, and a lean
 store's query, heatmap, tile, count, compaction, pyramid build,
-pyramid-served tile, Z3Histogram stat and a replanned query loads
-neither ``jax`` nor any module of ``geomesa_tpu``, and its sources
-import neither.  Checked in a subprocess, because this test process has
+pyramid-served tile, Z3Histogram stat and a replanned query, and
+attribute queries on a default, a 2-shard mesh and a lean store (with
+the lean attribute stat push-down) loads neither ``jax`` nor any module
+of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
 import ast
@@ -77,6 +78,25 @@ from geomesa_tpu_torch.planning import ExplainString
 rex = ExplainString()
 rq = ls.query_result("r", "BBOX(geom, 0, 0, 0.01, 0.01) AND IN ('1', '2')",
                      rex)
+aspec = "actor:String:index=true,score:Double:index=true,dtg:Date,*geom:Point"
+arows = {"actor": np.array(["a", "b", "c", "b"] * (n // 4), dtype=object),
+         "score": rng.uniform(0, 10, n),
+         "dtg": rng.integers(1514764800000, 1517443200000, n),
+         "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))}
+aecql = ("actor = 'b' AND dtg DURING "
+         "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+attr = {}
+for key, store, spec in (
+        ("default", ds, aspec), ("mesh", ms, aspec),
+        ("lean", ls, aspec + ";geomesa.index.profile=lean,"
+                             "geomesa.lean.generation.slots=128")):
+    store.create_schema("a", spec)
+    store.write("a", arows)
+    aq = store.query_result("a", aecql)
+    rq2 = store.query_result("a", "score BETWEEN 2 AND 2.5")
+    attr[key] = [aq.strategy.index, int(len(aq.positions)),
+                 rq2.strategy.index, int(len(rq2.positions))]
+attr["lean_minmax"] = ls.stats("a", "INCLUDE", "MinMax(score)").max
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -100,7 +120,8 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "replan_strategy": rq.strategy.index,
                   "replan_source": rq.strategy.source,
                   "replan_hits": rq.positions.tolist(),
-                  "replans": str(rex).count("Replanning: z3 observed")}))
+                  "replans": str(rex).count("Replanning: z3 observed"),
+                  "attr": attr}))
 """
 
 
@@ -134,6 +155,12 @@ def test_import_and_query_load_no_jax():
     assert out["replan_strategy"] == "id"
     assert out["replan_source"] == "heuristic"
     assert out["replan_hits"] == [1, 2] and out["replans"] == 1
+    attr = out["attr"]
+    for key in ("default", "mesh", "lean"):
+        assert attr[key][0] == "attr:actor" and attr[key][1] > 0
+        assert attr[key][2] == "attr:score"
+        assert attr[key][1:] == attr["default"][1:]
+    assert 9.9 < attr["lean_minmax"] < 10
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),

@@ -3,9 +3,10 @@ cardinality estimator of geomesa_tpu_torch against geomesa_tpu, on lean
 stores fed the same seeded rows.
 
 Held equal: the chosen strategy, its cost ``source`` and ``max_ranges``,
-positions, the explain trace (but its timings) and the estimator's
-``z3_rows`` and ``size_max_ranges``; the replan scope's mechanics are the
-JAX package's."""
+positions, the explain trace (but its timings), the estimator's
+``z3_rows``, ``size_max_ranges``, ``attr_equals_rows`` and
+``attr_range_rows``, and the named attribute selectivities; the replan
+scope's mechanics are the JAX package's."""
 
 import numpy as np
 import pytest
@@ -30,6 +31,8 @@ HOT = "BBOX(geom,-74.06,39.99,-73.99,40.06)"
 TIERED = SLOTS * (40 + 16 + 40) + SLOTS * 16 * 3
 _PLANNING_ENV = ("GEOMESA_PLANNING_ESTIMATOR_ENABLED",
                  "GEOMESA_PLANNING_ESTIMATOR_MIN_ROWS",
+                 "GEOMESA_PLANNING_SELECTIVITY_EQUALS_DEFAULT",
+                 "GEOMESA_PLANNING_SELECTIVITY_RANGE_DEFAULT",
                  "GEOMESA_PLANNING_REPLAN_THRESHOLD",
                  "GEOMESA_PLANNING_REPLAN_MIN_ROWS")
 
@@ -279,3 +282,87 @@ def test_appends_invalidate_the_estimate(sketch_on):
         ds.compact("evt")
     ests = [ds._store("evt").estimator() for ds in (jds, tds)]
     assert ests[1].z3_rows(box, iv) == ests[0].z3_rows(box, iv) == 6 * SLOTS
+
+
+# -- the estimator's attribute tier (test_zz_planning.py) -----------------
+ATTR_SPEC = ("name:String:index=true,score:Double:index=true,dtg:Date,"
+             "*geom:Point;geomesa.index.profile=lean,"
+             f"geomesa.lean.generation.slots={SLOTS},"
+             "geomesa.lean.compaction.factor=0")
+
+
+@pytest.fixture(scope="module")
+def skewed_attr():
+    """The JAX planning tests' store: the skewed points with indexed
+    ``name`` (90% 'hot') and ``score`` attributes."""
+    from geomesa_tpu.index.attr_lean import LeanAttrIndex as JaxAttr
+    from geomesa_tpu_torch.index.attr_lean import LeanAttrIndex
+    old = LeanAttrIndex.GENERATION_SLOTS
+    # the suite runs the JAX index at CI-sized default generations
+    LeanAttrIndex.GENERATION_SLOTS = JaxAttr.GENERATION_SLOTS
+    yield _both(ATTR_SPEC, _skewed_writes())
+    LeanAttrIndex.GENERATION_SLOTS = old
+
+
+def test_attr_sketch_estimates(skewed_attr, sketch_on):
+    jds, tds = skewed_attr
+    jest, est = (ds._store("evt").estimator() for ds in (jds, tds))
+    hot = est.attr_equals_rows("name", ("hot",))
+    assert hot == jest.attr_equals_rows("name", ("hot",))
+    truth = len(tds.query_result("evt", Query.of("name = 'hot'")).positions)
+    # count-min overcounts only
+    assert truth <= hot <= 1.25 * truth
+    assert est.attr_equals_rows("name", ("hot", "cold", "nope")) == \
+        jest.attr_equals_rows("name", ("hot", "cold", "nope"))
+    for lo, hi in ((0.0, 50.0), (None, 10.0), (99.0, None), (60.0, 20.0)):
+        assert est.attr_range_rows("score", lo, hi) == \
+            jest.attr_range_rows("score", lo, hi)
+    half = est.attr_range_rows("score", 0.0, 50.0)
+    assert 0.3 * N <= half <= 0.7 * N
+    # string attributes carry no histogram; unknown ones no sketch
+    assert est.attr_range_rows("name", "a", "z") is None
+    assert est.attr_equals_rows("nosuch", ("x",)) is None
+
+
+@pytest.mark.parametrize("ecql", [
+    "name = 'cold'",
+    "name = 'hot' AND " + HOT,
+    "score BETWEEN 10 AND 12",
+    "score > 99.5 AND BBOX(geom,-80,35,-70,45)",
+    "name IN ('cold', 'x') AND dtg DURING "
+    "2018-01-02T00:00:00Z/2018-01-04T00:00:00Z",
+])
+def test_attr_plans_costed_alike(skewed_attr, sketch_on, ecql):
+    r, _ = _same(*skewed_attr, ecql)
+    if ecql == "name = 'cold'":
+        assert (r.strategy.index, r.strategy.source) == \
+            ("attr:name", "sketch")
+
+
+def test_selectivity_defaults_are_configurable(monkeypatch):
+    from geomesa_tpu.features.feature_type import parse_spec as jax_spec
+    from geomesa_tpu.filters import parse_ecql as jax_ecql
+    from geomesa_tpu.planning import StrategyDecider as JaxDecider
+    from geomesa_tpu_torch.features.feature_type import parse_spec
+    from geomesa_tpu_torch.filters.ecql import parse_ecql
+    from geomesa_tpu_torch.planning.strategy import StrategyDecider
+    spec = "name:String:index=true,dtg:Date,*geom:Point"
+    d = StrategyDecider(parse_spec("t", spec), stats={}, total_count=1000)
+    jd = JaxDecider(jax_spec("t", spec), stats={}, total_count=1000)
+    rng = (None, "x", True, True)
+    for kind, payload, want in (("equals", "x", 100.0), ("range", rng, 250.0),
+                                ("in", ("x", "y"), 200.0)):
+        assert d._attr_cost("name", kind, payload) == \
+            jd._attr_cost("name", kind, payload) == (want, "heuristic")
+    monkeypatch.setenv("GEOMESA_PLANNING_SELECTIVITY_EQUALS_DEFAULT", "0.5")
+    monkeypatch.setenv("GEOMESA_PLANNING_SELECTIVITY_RANGE_DEFAULT", "0.9")
+    assert d._attr_cost("name", "equals", "x") == \
+        jd._attr_cost("name", "equals", "x") == (500.0, "heuristic")
+    assert d._attr_cost("name", "range", rng)[0] == \
+        jd._attr_cost("name", "range", rng)[0] == 900.0
+    # the configured selectivity flows into real plans
+    chosen, _ = d.decide_with_options(parse_ecql("name = 'x'"))
+    jchosen, _ = jd.decide_with_options(jax_ecql("name = 'x'"))
+    assert (chosen.index, chosen.cost, chosen.source) == \
+        (jchosen.index, jchosen.cost, jchosen.source) == \
+        ("attr:name", 500.0, "heuristic")
