@@ -6,14 +6,20 @@
                           [--mesh-rows 16000000] [--lean-rows 128000000]
                           [--lean-slots 16777216] [--attr-rows 16000000]
                           [--attr-mesh-rows 4000000]
-                          [--lean-attr-rows 128000000] [--profile]
+                          [--lean-attr-rows 128000000]
+                          [--poly-rows 8000000] [--poly-mesh-rows 8000000]
+                          [--lean-poly-rows 64000000]
+                          [--lean-poly3-rows 16000000]
+                          [--lean-poly3-slots 2097152] [--profile]
                           [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch/CUDA;
 2. build: every kernel of ``geomesa_tpu_torch/csrc`` with ``nvcc``, one
-   compiler per source, all started together, from this checkout;
+   compiler per source, all started together, from this checkout, and
+   the native range sweep (``geomesa_tpu_torch/native``, ``g++``), which
+   must be available;
 3. kernel: each kernel's wrapper on the card against its plain PyTorch
    version (z3_mask and z2_mask bit for bit at 2^22 and 2^22 + 37
    candidates, z2_mask also at 2^24, the capacity its scan reaches on the
@@ -111,14 +117,56 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    INCLUDE, cold and warm, on the sketch route and equal to numpy
    oracles (the count-min table is the host hash over the hits), and a
    Count of ``score > 9.5`` (materialized through ``attr:score``); then
-   ``compact`` and two queries again.
+   ``compact``, which must merge a group of host runs in each attribute
+   index (the LeanAttrIndex core the lean XZ indexes share), and two
+   queries again;
+12. polys: ``TpuDataStore(device="cuda")`` on schema ``polys``
+   (``kind:String:index=true,dtg:Date,*geom:Polygon``): ``--poly-rows``
+   footprints in 4 writes, drawn as ``poly_scale_proof.py`` draws them
+   (axis-aligned rectangles around four city hotspots, half-sides
+   0.0005-0.01°, a kind of road/building/park/water/rare), packed
+   object-free, dtg uniform over 2018, ``geomesa.xz.precision`` at its
+   default 12; the host xz3, xz2 and kind indexes built and timed; a city
+   triangle with a day and a region triangle with a week (``xz3``), a
+   day alone (``xz3`` over the whole world), a city BBOX, a region
+   triangle and a continent triangle (``xz2``), the rare kind with a
+   continent BBOX (``attr:kind``) and five ids (``id``), each strategy as
+   expected and each hit set equal to a numpy oracle (interval overlap
+   for boxes, a separating-axis test for the convex triangles); each xz
+   query's range plan timed with the native sweep and the numpy sweep,
+   which must agree; a heatmap, which raises ``KeyError`` as the JAX
+   store does (a polygon schema has no x/y columns); then a 1M-row
+   append, which the kept indexes serve as their tail, and the queries
+   again;
+13. mesh polys: the same on ``TpuDataStore(mesh=device_mesh(1))``
+   (``--poly-mesh-rows``; ``ShardedXZ3Index`` / ``ShardedXZ2Index`` on
+   the card) and a Count and 64-bin dtg Histogram over the city BBOX;
+14. lean polys: ``poly_scale_proof``'s lean schema
+   (``kind:String:index=true,*geom:Polygon``), ``--lean-poly-rows`` rows
+   in 4 writes at ``--lean-slots`` generations under 60 B a slot of
+   budget (the xz2 index must hold device and host generations); the
+   xz2 queries above plus a city triangle and a continent
+   BBOX, the rare kind with a continent BBOX and five ids, against the
+   oracles; tiers, accounted and allocated device bytes; then
+   ``compact`` and a query again;
+15. lean tracks: the same footprints with a dtg (``LeanXZ3Index``),
+   ``--lean-poly3-rows`` rows at ``--lean-poly3-slots`` generations (8
+   at the defaults; the xz3 index must hold device and host
+   generations): the spatio-temporal and temporal-only queries of phase
+   12 and the spatial-only ones, which run on ``xz3`` with an open
+   interval clamped to the data's extent; then ``compact``, which must
+   merge a group of host runs, and a query again.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 7, phase 8,
 phases 9-10 and phase 11; a kernel of a path that was never launched on
 it fails the run (on the lean path, density_grid; on the attribute path,
 z3_mask, which the city query launches; the lean attribute path runs no
-kernel).  The last lines printed are one ``{"kernels": [...]}`` JSON object,
+kernel).  They are set to 0 and read around each of phases 12-15 as
+well, and reported: the JAX package runs no Pallas kernel on its xz
+paths (host numpy and plain XLA), and the port none on them.  The
+z3 index phase's range plans are timed again there with the native and
+the numpy sweep.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
 ...}``.  Without a CUDA device, or without the ``geomesa_tpu_torch``
 package beside this script, it exits non-zero and prints no result.
@@ -1986,7 +2034,7 @@ def lean_attr_phase(rng, args, centres, dev, report):
     idxs = {k: store._indexes[k] for k in ("z3", "attr:actor", "attr:score")}
     tiers = {k: i.tier_counts() for k, i in idxs.items()}
     if (tiers["attr:actor"]["host"] == 0 or tiers["attr:score"]["host"] == 0
-            or tiers["z3"]["keys"] == 0):
+            or tiers["z3"]["keys"] == 0 or tiers["z3"]["host"] == 0):
         raise AssertionError(f"lean attribute tiers {tiers}")
     dev_bytes = {k: i.device_bytes() for k, i in idxs.items()}
     rep = {"rows": n, "slots": slots, "budget_bytes": budget,
@@ -2084,6 +2132,11 @@ def lean_attr_phase(rng, args, centres, dev, report):
     compact_s = time.perf_counter() - t0
     if not all(k in res for k in idxs):
         raise AssertionError(f"compact covered {sorted(res)}")
+    # the host-run merge of the LeanAttrIndex core (which the lean XZ
+    # indexes share) must run on the card: at 8 generations each
+    # attribute index holds a group of four host runs
+    if any(res[k]["merged_groups"] == 0 for k in ("attr:actor", "attr:score")):
+        raise AssertionError(f"lean attr compact merged nothing: {res}")
     after = [run_attr_query(ds, "lattrs", q, cols) for q in (qs[0], qs[5])]
     rep["compact"] = {"s": compact_s, "generations_before": gens,
                       "result": res, "queries": after,
@@ -2097,6 +2150,492 @@ def lean_attr_phase(rng, args, centres, dev, report):
     del ds, store, idxs
     if cuda:
         torch.cuda.empty_cache()
+
+
+#: poly_scale_proof.py's OSM-building-shaped stream (``_slice_data``):
+#: footprint centres drawn from four hotspots (New York, Paris, Beijing,
+#: Johannesburg) with σ = 15° in x and 10° in y, half-sides U(0.0005,
+#: 0.01)°, and a kind of road/building/park/water/rare
+POLY_HOTSPOTS = ((-74.0, 40.7), (2.3, 48.8), (116.4, 39.9), (28.0, -26.2))
+POLY_KINDS = ("road", "building", "park", "water", "rare")
+POLY_KIND_P = (0.4, 0.4, 0.1, 0.0999, 0.0001)
+POLY_SPEC = "kind:String:index=true,dtg:Date,*geom:Polygon"
+LEAN_POLY_SPEC = "kind:String:index=true,*geom:Polygon"
+#: the lean polygon phases' budget, in bytes a generation slot: the xz
+#: index gets 0.75 of it (45 B: its sentinel charge and device
+#: generations of 20 B slots, the rest on the host); the kind index its
+#: floor of two class-default generations
+LEAN_POLY_BUDGET_PER_SLOT = 60
+#: the continent window of the polygon phases: South America, away from
+#: the hotspots (the widest range plan, a sparse tail of rows)
+CONTINENT = (-85.0, -56.0, -34.0, 12.0)
+
+
+def footprints(rng, n: int):
+    """``n`` footprints as ``poly_scale_proof._slice_data`` draws them:
+    ``(bbox (n, 4), kind index, dtg uniform over 2018)``."""
+    import numpy as np
+    hs = np.asarray(POLY_HOTSPOTS)
+    hot = rng.integers(0, len(hs), n)
+    x = np.clip(hs[hot, 0] + rng.normal(0, 15.0, n), -179.8, 179.8)
+    y = np.clip(hs[hot, 1] + rng.normal(0, 10.0, n), -84.8, 84.8)
+    w = rng.uniform(0.0005, 0.01, n)
+    h = rng.uniform(0.0005, 0.01, n)
+    bbox = np.stack([x - w, y - h, x + w, y + h], axis=1)
+    kind = rng.choice(len(POLY_KINDS), n, p=POLY_KIND_P).astype(np.uint8)
+    t = rng.integers(MS_2018, MS_2019, n)
+    return bbox, kind, t
+
+
+def rect_box(bb, box, chunk: int = 1 << 24):
+    """Rows whose rectangle meets ``box`` (closed intervals on both
+    axes): the oracle of a BBOX query over axis-aligned footprints."""
+    import numpy as np
+    out = []
+    for lo in range(0, len(bb), chunk):
+        b = bb[lo:lo + chunk]
+        out.append(lo + np.flatnonzero(
+            (b[:, 0] <= box[2]) & (b[:, 2] >= box[0])
+            & (b[:, 1] <= box[3]) & (b[:, 3] >= box[1])))
+    return np.concatenate(out)
+
+
+def rect_convex(bb, ring):
+    """Rows whose rectangle meets the convex polygon ``ring`` (vertices,
+    not closed): the separating-axis test over both rectangle axes and
+    every edge normal of the polygon, closed intervals."""
+    import numpy as np
+    pts = np.asarray(ring, np.float64)
+    env = (pts[:, 0].min(), pts[:, 1].min(), pts[:, 0].max(),
+           pts[:, 1].max())
+    cand = rect_box(bb, env)
+    b = bb[cand]
+    keep = np.ones(len(cand), bool)
+    for i in range(len(pts)):
+        (ax, ay), (bx, by) = pts[i], pts[(i + 1) % len(pts)]
+        nx, ny = by - ay, ax - bx
+        proj = pts[:, 0] * nx + pts[:, 1] * ny
+        rmin = (np.minimum(nx * b[:, 0], nx * b[:, 2])
+                + np.minimum(ny * b[:, 1], ny * b[:, 3]))
+        rmax = (np.maximum(nx * b[:, 0], nx * b[:, 2])
+                + np.maximum(ny * b[:, 1], ny * b[:, 3]))
+        keep &= (rmax >= proj.min()) & (rmin <= proj.max())
+    return cand[keep]
+
+
+def _wkt_ring(ring) -> str:
+    pts = list(ring) + [ring[0]]
+    return ", ".join(f"{x} {y}" for x, y in pts)
+
+
+def poly_queries(rng, n_rows: int, dtg: bool, lean: bool) -> list:
+    """The polygon phases' queries as dicts: ``name``, ``ecql``, the
+    expected ``strategy``, the query ``env`` and time window (for the
+    range-planning timings) and ``oracle(bb, kind, t)`` → positions."""
+    import numpy as np
+    (nyx, nyy), (pax, pay), (bjx, bjy), (jox, joy) = POLY_HOTSPOTS
+    city = [(nyx - 0.6, nyy - 0.5), (nyx + 0.6, nyy - 0.3),
+            (nyx, nyy + 0.6)]
+    region = [(pax - 3.0, pay - 2.5), (pax + 3.0, pay - 2.0),
+              (pax + 0.5, pay + 3.0)]
+    bj_box = (bjx - 2.0, bjy - 1.5, bjx + 2.0, bjy + 1.5)
+    jo_tri = [(jox - 2.5, joy - 2.0), (jox + 2.5, joy - 1.5),
+              (jox, joy + 2.5)]
+    continent = [(-82.0, 12.0), (-34.0, -6.0), (-70.0, -56.0)]
+    day = MS_2018 + int(rng.integers(0, 360)) * DAY
+    day_w = (day, day + DAY - 1000)
+    week = MS_2018 + int(rng.integers(0, 350)) * DAY
+    week_w = (week, week + 7 * DAY - 1000)
+    rare = POLY_KINDS.index("rare")
+    ids = np.sort(rng.choice(n_rows, 5, replace=False))
+
+    def env_of(ring):
+        a = np.asarray(ring)
+        return (a[:, 0].min(), a[:, 1].min(), a[:, 0].max(), a[:, 1].max())
+
+    def inter(ring):
+        return f"INTERSECTS(geom, POLYGON(({_wkt_ring(ring)})))"
+
+    def bbox(b):
+        return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+    def during(w):
+        return f"dtg DURING {iso(w[0])}/{iso(w[1])}"
+
+    def inwin(t, w):
+        return (t >= w[0]) & (t <= w[1])
+
+    def q(name, ecql, strategy, env, window, oracle):
+        return {"name": name, "ecql": ecql, "strategy": strategy,
+                "env": env, "window": window, "oracle": oracle}
+
+    qs = []
+    if dtg:
+        qs += [
+            q("city-day", f"{inter(city)} AND {during(day_w)}", "xz3",
+              env_of(city), day_w,
+              lambda bb, k, t: (lambda c: c[inwin(t[c], day_w)])(
+                  rect_convex(bb, city))),
+            q("region-week", f"{inter(region)} AND {during(week_w)}", "xz3",
+              env_of(region), week_w,
+              lambda bb, k, t: (lambda c: c[inwin(t[c], week_w)])(
+                  rect_convex(bb, region))),
+            q("during-day", during(day_w), "xz3", WORLD, day_w,
+              lambda bb, k, t: np.flatnonzero(inwin(t, day_w))),
+        ]
+    strategy2 = "xz2" if not (lean and dtg) else "xz3"
+    window2 = None if strategy2 == "xz2" else (None, None)
+    qs += [
+        q("bbox-city", bbox(bj_box), strategy2, bj_box, window2,
+          lambda bb, k, t: rect_box(bb, bj_box)),
+        q("intersects-region", inter(jo_tri), strategy2, env_of(jo_tri),
+          window2, lambda bb, k, t: rect_convex(bb, jo_tri)),
+        q("intersects-continent", inter(continent), strategy2,
+          env_of(continent), window2,
+          lambda bb, k, t: rect_convex(bb, continent)),
+    ]
+    if lean and not dtg:
+        qs += [
+            q("intersects-city", inter(city), "xz2", env_of(city), None,
+              lambda bb, k, t: rect_convex(bb, city)),
+            q("bbox-continent", bbox(CONTINENT), "xz2", CONTINENT, None,
+              lambda bb, k, t: rect_box(bb, CONTINENT)),
+        ]
+    if not (lean and dtg):
+        qs += [
+            q("rare-continent", f"kind = 'rare' AND {bbox(CONTINENT)}",
+              "attr:kind", None, None,
+              lambda bb, k, t: (lambda c: c[k[c] == rare])(
+                  rect_box(bb, CONTINENT))),
+            q("ids", "IN (" + ", ".join(f"'{i}'" for i in ids) + ")", "id",
+              None, None, lambda bb, k, t: ids),
+        ]
+    return qs
+
+
+def run_poly_query(ds, schema, q, cols, sweeps: bool) -> dict:
+    """One polygon-phase query: strategy as expected, positions equal to
+    the oracle; its ms, the explain trace's candidate count, and (with
+    ``sweeps``) its range planning timed with the native sweep and with
+    the numpy sweep, whose outputs must agree."""
+    import re
+    import numpy as np
+    from geomesa_tpu_torch.planning import ExplainString
+    ex = ExplainString()
+    t0 = time.perf_counter()
+    res = ds.query_result(schema, q["ecql"], ex)
+    ms = (time.perf_counter() - t0) * 1e3
+    want = q["oracle"](*cols)
+    if res.strategy.index != q["strategy"]:
+        raise AssertionError(f"poly {q['name']}: strategy "
+                             f"{res.strategy.index}, expected "
+                             f"{q['strategy']}")
+    if not np.array_equal(res.positions, want):
+        raise AssertionError(f"poly {q['name']}: {len(res.positions)} "
+                             f"hits, oracle {len(want)}")
+    scanned = re.search(r"scanned (\d+)", str(ex))
+    row = {"query": q["name"], "strategy": res.strategy.index, "ms": ms,
+           "plan_ms": res.plan_time_ms, "scan_ms": res.scan_time_ms,
+           "hits": int(len(want)),
+           "candidates": int(scanned.group(1)) if scanned else None}
+    if sweeps and q["env"] is not None and q["strategy"] in ("xz2", "xz3"):
+        row.update(zip(("ranges", "ranges_native_ms", "ranges_numpy_ms"),
+                       xz_range_sweeps(ds._store(schema), q)))
+    return row
+
+
+def xz_range_sweeps(store, q):
+    """A query's covering-range plan, timed with the native sweep and
+    again with the numpy sweep (both packages' fallback); the two plans
+    must be equal.  Returns ``(ranges, native ms, numpy ms)``."""
+    from geomesa_tpu_torch import native
+    from geomesa_tpu_torch.config import DEFAULT_MAX_RANGES
+    from geomesa_tpu_torch.index.xz3 import xz3_bin_code_ranges
+    idx = store._indexes.get(q["strategy"]) or store.index(q["strategy"])
+    env = q["env"]
+    if q["strategy"] == "xz2":
+        def plan():
+            return [tuple(r) for r in idx.sfc.ranges(
+                [env], max_ranges=DEFAULT_MAX_RANGES).tolist()]
+    else:
+        lo, hi = q["window"]
+        if lo is None:
+            lo = idx.t_min_ms if hasattr(idx, "t_min_ms") else int(
+                idx.dtg.min())
+            hi = idx.t_max_ms if hasattr(idx, "t_max_ms") else int(
+                idx.dtg.max())
+
+        def plan():
+            return xz3_bin_code_ranges(idx.sfc, env, lo, hi, idx.period,
+                                       DEFAULT_MAX_RANGES)
+    return sweep_pair(plan)
+
+
+def sweep_pair(plan):
+    """``(len(plan()), native ms, numpy ms)`` of one range-planning call,
+    the numpy one with the native dispatch switched off; raises when the
+    two disagree."""
+    from geomesa_tpu_torch import native
+    t0 = time.perf_counter()
+    a = plan()
+    native_ms = (time.perf_counter() - t0) * 1e3
+    saved = native.zranges_native, native.xz_ranges_native
+    native.zranges_native = native.xz_ranges_native = (
+        lambda *args, **kw: None)
+    try:
+        t0 = time.perf_counter()
+        b = plan()
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        native.zranges_native, native.xz_ranges_native = saved
+    if not _same_plan(a, b):
+        raise AssertionError("the native and numpy sweeps disagree")
+    return getattr(a, "num_ranges", None) or len(a), native_ms, numpy_ms
+
+
+def _same_plan(a, b) -> bool:
+    import numpy as np
+    if hasattr(a, "rbin"):
+        return all(np.array_equal(getattr(a, k), getattr(b, k))
+                   for k in ("rbin", "rzlo", "rzhi"))
+    return a == b
+
+
+def z3_sweeps(qs) -> list:
+    """The z3 index phase's plans (``plan_z3_query`` of each of its
+    queries) timed with the native sweep and the numpy sweep."""
+    from geomesa_tpu_torch.index.z3 import plan_z3_query
+    rows = []
+    for kind, boxes, lo, hi in qs:
+        n, a, b = sweep_pair(lambda: plan_z3_query(boxes, lo, hi, "week"))
+        rows.append({"kind": kind, "plan_native_ms": a,
+                     "plan_numpy_ms": b})
+    return rows
+
+
+def _poly_write(ds, schema, bb, kind, t, lean: bool):
+    """One write of footprints, packed object-free."""
+    import numpy as np
+    from geomesa_tpu_torch.geometry.packed import packed_from_boxes
+    names = np.array(POLY_KINDS)
+    data = {"kind": names[kind] if lean else names[kind].astype(object),
+            "geom": packed_from_boxes(bb)}
+    if t is not None:
+        data["dtg"] = t
+    t0 = time.perf_counter()
+    ds.write(schema, data)
+    return time.perf_counter() - t0
+
+
+def _poly_store_phase(rng, args, dev, report, key: str, mesh: bool):
+    """The default-profile polygon store (``polys``) or its one-card mesh
+    twin (``mesh_polys``): rows in 4 writes, the xz3, xz2, attribute and
+    id queries against the oracles; the default store then takes a
+    1M-row append the kept indexes serve as their tail, and the mesh
+    store a stats call."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore, device_mesh
+    from geomesa_tpu_torch.process.density import density_process
+    from geomesa_tpu_torch.stats.stat import Histogram
+
+    n = args.poly_mesh_rows if mesh else args.poly_rows
+    ds = (TpuDataStore(device=dev, mesh=device_mesh(1)) if mesh
+          else TpuDataStore(device=dev))
+    ds.create_schema("polys", POLY_SPEC)
+    store = ds._store("polys")
+    per = n // 4
+    parts, write_s = [], []
+    for _ in range(4):
+        bb, kind, t = footprints(rng, per)
+        parts.append((bb, kind, t))
+        write_s.append(_poly_write(ds, "polys", bb, kind, t, lean=False))
+    cols = tuple(np.concatenate(c) for c in zip(*parts))
+    build = {}
+    for name in ("xz3", "xz2"):
+        t0 = time.perf_counter()
+        idx = store.index(name)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        build[name] = time.perf_counter() - t0
+        want = ("ShardedXZ3Index", "ShardedXZ2Index") if mesh else (
+            "XZ3Index", "XZ2Index")
+        if type(idx).__name__ not in want:
+            raise AssertionError(f"{key}: {name} index is "
+                                 f"{type(idx).__name__}")
+    t0 = time.perf_counter()
+    store.attribute_index("kind")
+    build["attr:kind"] = time.perf_counter() - t0
+    qs = poly_queries(rng, 4 * per, dtg=True, lean=False)
+    rows = [run_poly_query(ds, "polys", q, cols, sweeps=not mesh)
+            for q in qs]
+    rep = {"rows": 4 * per, "write_s": write_s,
+           "write_rows_per_s": [per / w for w in write_s],
+           "build_s": build, "queries": rows}
+    # a heatmap over polygons: the reference bins x/y columns, which a
+    # polygon schema does not have, and raises; so does the port
+    try:
+        density_process(ds, "polys", "INCLUDE", WORLD, 256, 256)
+        raise AssertionError(f"{key}: a polygon heatmap answered")
+    except KeyError as e:
+        rep["heatmap"] = f"KeyError {e}"
+    if mesh:
+        spec = f"Count();Histogram(dtg,64,{MS_2018},{MS_2019})"
+        q = next(q for q in qs if q["name"] == "bbox-city")
+        t0 = time.perf_counter()
+        got = ds.stats("polys", q["ecql"], spec)
+        ms = (time.perf_counter() - t0) * 1e3
+        hit = cols[2][q["oracle"](*cols)]
+        hist = Histogram("dtg", 64, MS_2018, MS_2019)
+        hist.observe({"dtg": hit})
+        if (got.stats[0].count != len(hit)
+                or not np.array_equal(got.stats[1].counts, hist.counts)):
+            raise AssertionError(f"{key}: stats disagree with the oracle")
+        rep["stats"] = {"spec": spec, "ms": ms, "count": int(len(hit))}
+    else:
+        m = min(1_000_000, per * 4 // 8)
+        bb, kind, t = footprints(rng, m)
+        parts.append((bb, kind, t))
+        rep["append_s"] = _poly_write(ds, "polys", bb, kind, t, lean=False)
+        cols = tuple(np.concatenate(c) for c in zip(*parts))
+        rep["after_append"] = [run_poly_query(ds, "polys", q, cols,
+                                              sweeps=False) for q in qs]
+        tails = {k: store.index_tail(k) for k in ("xz3", "xz2")}
+        if (any(v is None or len(v) != m for v in tails.values())
+                or store.build_counts.get("xz3") != 1):
+            raise AssertionError(f"{key}: kept xz indexes, builds "
+                                 f"{store.build_counts}")
+        rep["build_counts"] = dict(store.build_counts)
+    report[key] = rep
+    log(f"{key}: {4 * per} rows in 4 writes "
+        f"({', '.join(f'{w:.2f}' for w in write_s)} s); built "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in build.items())
+        + "; queries equal to the oracle: "
+        + ", ".join(f"{r['query']} {r['strategy']} {r['hits']} hits "
+                    f"{r['candidates']} candidates {r['ms']:.1f} ms"
+                    + (f" (ranges {r['ranges']}: native "
+                       f"{r['ranges_native_ms']:.2f} ms, numpy "
+                       f"{r['ranges_numpy_ms']:.2f} ms)"
+                       if "ranges" in r else "") for r in rows)
+        + f"; heatmap {rep['heatmap']}"
+        + (f"; stats {rep['stats']['ms']:.1f} ms" if mesh else
+           f"; after a {len(parts[-1][0])}-row append "
+           f"({rep['append_s']:.2f} s): "
+           + ", ".join(f"{r['query']} {r['ms']:.1f} ms"
+                       for r in rep["after_append"])))
+    del ds, store
+
+
+def polys_phase(rng, args, dev, report):
+    """Polygons on the default profile (host xz3/xz2 indexes)."""
+    _poly_store_phase(rng, args, dev, report, "polys", mesh=False)
+
+
+def mesh_polys_phase(rng, args, dev, report):
+    """Polygons on a one-card mesh (ShardedXZ3Index / ShardedXZ2Index)."""
+    _poly_store_phase(rng, args, dev, report, "mesh_polys", mesh=True)
+
+
+def _lean_poly_phase(rng, args, dev, report, key: str, n: int, dtg: bool,
+                     slots: int):
+    """A lean polygon store: ``n`` footprints in 4 writes at ``slots``-slot
+    generations under the lean polygon budget; its tiers (device and host
+    generations both), accounted and allocated device bytes, the queries
+    against the oracles, then ``compact`` and the first query again."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore
+
+    cuda = dev.type == "cuda"
+    # a dropped store frees its device memory at the cyclic collector
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    budget = LEAN_POLY_BUDGET_PER_SLOT * slots
+    ud = ["geomesa.index.profile=lean", f"geomesa.lean.hbm.budget={budget}",
+          f"geomesa.lean.generation.slots={slots}",
+          "geomesa.lean.compaction.factor=0"]
+    spec = POLY_SPEC if dtg else LEAN_POLY_SPEC
+    ds = TpuDataStore(device=dev)
+    ds.create_schema(key, f"{spec};{','.join(ud)}")
+    store = ds._store(key)
+    kind_key = "xz3" if dtg else "xz2"
+    per = n // 4
+    parts, write_s = [], []
+    for _ in range(4):
+        bb, kind, t = footprints(rng, per)
+        parts.append((bb, kind, t))
+        t0 = time.perf_counter()
+        _poly_write(ds, key, bb, kind, t if dtg else None, lean=True)
+        for k in (kind_key, "attr:kind"):
+            store._indexes[k].block()
+        write_s.append(time.perf_counter() - t0)
+    cols = tuple(np.concatenate(c) for c in zip(*parts))
+    del parts
+    if store.lean_kind != kind_key:
+        raise AssertionError(f"{key}: lean kind {store.lean_kind}")
+    idxs = {k: store._indexes[k] for k in (kind_key, "attr:kind")}
+    tiers = {k: i.tier_counts() for k, i in idxs.items()}
+    dev_bytes = {k: i.device_bytes() for k, i in idxs.items()}
+    rep = {"rows": 4 * per, "slots": slots, "budget_bytes": budget,
+           "write_s": write_s, "write_rows_per_s": [per / w for w in write_s],
+           "tiers": tiers, "device_bytes": dev_bytes,
+           "device_bytes_total": sum(dev_bytes.values()),
+           "memory_allocated": (int(torch.cuda.memory_allocated())
+                                if cuda else None)}
+    if tiers[kind_key]["device"] == 0 or tiers[kind_key]["host"] == 0:
+        raise AssertionError(f"{key}: tiers {tiers}")
+    log(f"{key}: {4 * per} rows in 4 writes "
+        f"({', '.join(f'{w:.2f}' for w in write_s)} s); tiers {tiers}; "
+        f"accounted device bytes {rep['device_bytes_total']}, allocated "
+        f"{rep['memory_allocated']}")
+    qs = poly_queries(rng, 4 * per, dtg=dtg, lean=True)
+    rows = [run_poly_query(ds, key, q, cols, sweeps=True) for q in qs]
+    lat = np.array([r["ms"] for r in rows])
+    rep.update(queries=rows, query_ms_p50=float(np.median(lat)),
+               query_ms_max=float(lat.max()))
+    log(f"{key}: queries equal to the oracle: " + ", ".join(
+        f"{r['query']} {r['strategy']} {r['hits']} hits {r['candidates']} "
+        f"candidates {r['ms']:.1f} ms"
+        + (f" (ranges {r['ranges']}: native {r['ranges_native_ms']:.2f} "
+           f"ms, numpy {r['ranges_numpy_ms']:.2f} ms)"
+           if "ranges" in r else "") for r in rows))
+    t0 = time.perf_counter()
+    res = ds.compact(key)
+    for i in idxs.values():
+        i.block()
+    compact_s = time.perf_counter() - t0
+    if set(res) != set(idxs):
+        raise AssertionError(f"{key}: compact covered {sorted(res)}")
+    # the lean tracks' generations leave a group of four host runs
+    if dtg and res[kind_key]["merged_groups"] == 0:
+        raise AssertionError(f"{key}: compact merged nothing: {res}")
+    after = run_poly_query(ds, key, qs[0], cols, sweeps=False)
+    rep["compact"] = {"s": compact_s, "result": res, "query": after}
+    log(f"{key}: compact in {compact_s:.3f} s ({res}); {after['query']} "
+        f"again equal to the oracle, {after['ms']:.1f} ms")
+    report[key] = rep
+    del ds, store, idxs
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def lean_polys_phase(rng, args, dev, report):
+    """The lean XZ2 store: poly_scale_proof's schema, ``--lean-poly-rows``
+    rows at ``--lean-slots`` generations, device and host ones."""
+    _lean_poly_phase(rng, args, dev, report, "lean_polys",
+                     args.lean_poly_rows, dtg=False, slots=args.lean_slots)
+
+
+def lean_tracks_phase(rng, args, dev, report):
+    """The lean XZ3 store: the same footprints with a dtg over 2018,
+    ``--lean-poly3-rows`` rows at ``--lean-poly3-slots`` generations
+    (device and host ones, and a compaction that merges host runs); a
+    spatio-temporal, a spatial-only (open, clamped interval) and a
+    temporal-only query."""
+    _lean_poly_phase(rng, args, dev, report, "lean_tracks",
+                     args.lean_poly3_rows, dtg=True,
+                     slots=args.lean_poly3_slots)
 
 
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
@@ -2127,6 +2666,18 @@ def main(argv=None) -> int:
                     help="rows of the mesh attribute phase")
     ap.add_argument("--lean-attr-rows", type=int, default=128_000_000,
                     help="rows of the lean attribute phase")
+    ap.add_argument("--poly-rows", type=int, default=8_000_000,
+                    help="rows of the default-profile polygon phase")
+    ap.add_argument("--poly-mesh-rows", type=int, default=8_000_000,
+                    help="rows of the mesh polygon phase")
+    ap.add_argument("--lean-poly-rows", type=int, default=64_000_000,
+                    help="rows of the lean XZ2 polygon phase")
+    ap.add_argument("--lean-poly3-rows", type=int, default=16_000_000,
+                    help="rows of the lean XZ3 polygon phase")
+    ap.add_argument("--lean-poly3-slots", type=int, default=1 << 21,
+                    help="slots per generation of the lean XZ3 phase (8 "
+                         "generations at 16M rows: device and host tiers, "
+                         "and a compaction that merges host runs)")
     ap.add_argument("--profile", action="store_true",
                     help="profile the z3 and z2 index queries, the mesh "
                          "phase's stats, query and heatmap, and the lean "
@@ -2164,6 +2715,15 @@ def main(argv=None) -> int:
     libs = kbuild.build_all()
     report["build_s"] = time.perf_counter() - t0
     log(f"build: {sorted(libs)} in {report['build_s']:.2f} s")
+    # the native range sweep (g++), which every range plan goes through
+    from geomesa_tpu_torch import native
+    if not native.available():
+        raise AssertionError(f"the native range sweep is not available: "
+                             f"{native.build_error()}")
+    report["native"] = {"available": True,
+                        "load_s": native.build_seconds()}
+    log(f"build: native range sweep available, built and loaded in "
+        f"{native.build_seconds():.2f} s")
 
     rng = np.random.default_rng(args.seed)
     centres = np.stack([rng.uniform(-130.0, 150.0, 50),
@@ -2240,6 +2800,32 @@ def main(argv=None) -> int:
     log(f"attribute paths: launches {attr_launches}, lean "
         f"{report['lean_attr_path_launches']}; "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
+
+    # the polygon paths (xz3/xz2 on the default profile, the mesh and the
+    # lean profile): counts set to 0 just before each, read just after.
+    # The JAX package runs no Pallas kernel on them (its xz programs are
+    # host numpy or plain XLA), so none is required here; the counts are
+    # reported
+    report["z3_sweeps"] = z3_sweeps(qs)
+    xz_launches = {}
+    for name, phase in (("polys", polys_phase),
+                        ("mesh_polys", mesh_polys_phase),
+                        ("lean_polys", lean_polys_phase),
+                        ("lean_tracks", lean_tracks_phase)):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        phase(rng, args, dev, report)
+        phase_s[name] = time.perf_counter() - t0
+        xz_launches[name] = {k: fn.launches for k, fn in counters.items()}
+    report["xz_path_launches"] = xz_launches
+    z3s = report["z3_sweeps"]
+    log(f"polygon paths: launches {xz_launches}; "
+        + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in xz_launches)
+        + "; z3 plans native "
+        f"{sum(r['plan_native_ms'] for r in z3s):.1f} ms, numpy "
+        f"{sum(r['plan_numpy_ms'] for r in z3s):.1f} ms over "
+        f"{len(z3s)} queries")
     report["total_s"] = time.perf_counter() - t_start
 
     def pick(rows, **kw):

@@ -19,6 +19,19 @@ array, row ``s`` being shard ``s``'s slots (the JAX package's global
 arrays reshaped), plus ``shard_counts``, ``segments`` (the residency
 segments), ``n_total`` and ``version``, and for z3 the time extent and
 ``period``.
+
+An ``XZ2Index``'s state holds ``g``, ``codes``, ``pos``, ``bbox`` and the
+packed geometries ``geoms`` (a dict of the ``PackedGeometry`` buffers);
+an ``XZ3Index``'s adds ``period``, ``bins`` and ``dtg``.  A sharded XZ
+index's state holds ``codes``, ``gid``, ``bx0``, ``by0``, ``bx1``,
+``by1`` (and for XZ3 ``bins`` and ``dtg``) as ``(n_shards, capacity)``
+arrays, with ``g``, ``n_total``, ``geoms`` (and ``period``).  A lean XZ
+index's state (``LeanXZ2Index`` / ``LeanXZ3Index``) holds ``kind``,
+``g``, the time extent and ``period`` for XZ3, and its core
+``LeanAttrIndex``'s settings (``generation_slots``,
+``hbm_budget_bytes``, ``compaction_factor``), ``n_rows`` and, per
+generation, ``tier``, ``n``, ``gen_id`` and ``keys``, ``sec``, ``gid``
+(the whole capacity of a device run, the ``n`` rows of a host run).
 """
 
 from __future__ import annotations
@@ -27,16 +40,25 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .geometry.packed import PackedGeometry
+from .index.attr_lean import _AttrGeneration
+from .index.xz2 import XZ2Index
+from .index.xz2_lean import LeanXZ2Index, LeanXZ3Index
+from .index.xz3 import XZ3Index
 from .index.z2 import Z2PointIndex
 from .index.z3 import Z3PointIndex
 from .index.z3_lean import HostRun, LeanZ3Index, _Generation
 from .parallel.scan import ShardedZ3Index
+from .parallel.xz import ShardedXZ2Index, ShardedXZ3Index
 from .parallel.z2 import ShardedZ2Index
 
-__all__ = ["lean_z3_index_from_state", "lean_z3_index_state",
-           "sharded_index_state", "sharded_z2_index_from_state",
-           "sharded_z3_index_from_state", "z2_index_from_state",
-           "z2_index_state", "z3_index_from_state", "z3_index_state"]
+__all__ = ["lean_xz_index_from_state", "lean_xz_index_state",
+           "lean_z3_index_from_state", "lean_z3_index_state",
+           "sharded_index_state", "sharded_xz_index_from_state",
+           "sharded_xz_index_state", "sharded_z2_index_from_state",
+           "sharded_z3_index_from_state", "xz_index_from_state",
+           "xz_index_state", "z2_index_from_state", "z2_index_state",
+           "z3_index_from_state", "z3_index_state"]
 
 _COLUMNS = ("bins", "z", "pos", "x", "y", "dtg")
 _Z2_COLUMNS = ("z", "pos", "x", "y")
@@ -213,6 +235,139 @@ def lean_z3_index_from_state(state: dict, device=None) -> LeanZ3Index:
         v = state[k]
         setattr(idx, k, None if v is None else int(v))
     idx._payload = [tuple(np.asarray(a) for a in state["payload"])]
+    return idx
+
+
+_PACKED_FIELDS = ("kinds", "coords", "ring_offsets", "part_ring_offsets",
+                  "geom_part_offsets", "bbox")
+_SHARDED_XZ_COLUMNS = ("codes", "gid", "bx0", "by0", "bx1", "by1")
+
+
+def _packed_state(geoms) -> dict | None:
+    if geoms is None:
+        return None
+    return {k: np.array(getattr(geoms, k)) for k in _PACKED_FIELDS}
+
+
+def _packed_from_state(d: dict | None) -> PackedGeometry | None:
+    if d is None:
+        return None
+    return PackedGeometry(**{k: np.array(d[k]) for k in _PACKED_FIELDS})
+
+
+def xz_index_state(idx) -> dict:
+    """The state of an ``XZ2Index`` or ``XZ3Index`` (of either package)
+    as numpy arrays and ints (see the module doc)."""
+    state = {"g": int(idx.sfc.g), "codes": np.array(idx.codes),
+             "pos": np.array(idx.pos), "bbox": np.array(idx.bbox),
+             "geoms": _packed_state(idx.geoms)}
+    if hasattr(idx, "bins"):
+        state.update(period=str(idx.period.value), bins=np.array(idx.bins),
+                     dtg=np.array(idx.dtg))
+    return state
+
+
+def xz_index_from_state(state: dict):
+    """A port ``XZ3Index`` (when the state has ``bins``) or ``XZ2Index``
+    holding ``state``'s columns (host arrays, copied)."""
+    geoms = _packed_from_state(state["geoms"])
+    cols = [np.array(state[k]) for k in ("codes", "pos", "bbox")]
+    if "bins" in state:
+        return XZ3Index(str(state["period"]), int(state["g"]),
+                        np.array(state["bins"]), *cols,
+                        np.array(state["dtg"]), geoms)
+    return XZ2Index(int(state["g"]), *cols, geoms)
+
+
+def sharded_xz_index_state(idx) -> dict:
+    """The state of a sharded XZ2 or XZ3 index (of either package): a
+    JAX global array reshaped to ``(n_shards, capacity)``, a port index's
+    per-shard tensors stacked."""
+    n_shards = (len(idx.codes) if isinstance(idx.codes, list)
+                else idx.mesh.devices.size)
+
+    def cols(col):
+        return (np.stack([_to_numpy(t) for t in col])
+                if isinstance(col, list)
+                else _to_numpy(col).reshape(n_shards, -1))
+    state = dict(zip(_SHARDED_XZ_COLUMNS,
+                     [cols(idx.codes), cols(idx.gid)]
+                     + [cols(c) for c in idx.bbox_cols]))
+    state.update(g=int(idx.sfc.g), n_total=int(len(idx)),
+                 geoms=_packed_state(idx.geoms))
+    if hasattr(idx, "bins"):
+        state.update(bins=cols(idx.bins), dtg=cols(idx.dtg),
+                     period=str(idx.period.value))
+    return state
+
+
+def sharded_xz_index_from_state(state: dict, mesh):
+    """A port ``ShardedXZ3Index`` (when the state has ``bins``) or
+    ``ShardedXZ2Index`` over ``mesh`` holding ``state``'s per-shard
+    columns."""
+    codes, gid, *bbox = _shard_columns(state, _SHARDED_XZ_COLUMNS, mesh)
+    geoms = _packed_from_state(state["geoms"])
+    if "bins" in state:
+        bins, dtg = _shard_columns(state, ("bins", "dtg"), mesh)
+        return ShardedXZ3Index(mesh, str(state["period"]), int(state["g"]),
+                               bins, codes, gid, bbox, dtg, geoms,
+                               int(state["n_total"]))
+    return ShardedXZ2Index(mesh, int(state["g"]), codes, gid, bbox, geoms,
+                           int(state["n_total"]))
+
+
+def lean_xz_index_state(idx) -> dict:
+    """The state of a ``LeanXZ2Index`` or ``LeanXZ3Index`` (of either
+    package) through its ``LeanAttrIndex`` core (see the module doc)."""
+    core = idx._core
+    gens = []
+    for g in core.generations:
+        d = {"tier": g.tier, "n": int(g.n), "gen_id": int(g.gen_id)}
+        src = (g.spilled if g.tier == "host"
+               else (g.keys, g.sec, g.gid))
+        d.update(zip(("keys", "sec", "gid"),
+                     (np.array(_to_numpy(a)) for a in src)))
+        gens.append(d)
+    state = {"kind": "xz3" if hasattr(idx, "period") else "xz2",
+             "g": int(idx.g), "generations": gens, "n_rows": len(core),
+             "generation_slots": int(core.generation_slots),
+             "hbm_budget_bytes": int(core.hbm_budget_bytes),
+             "compaction_factor": int(core.compaction_factor)}
+    if state["kind"] == "xz3":
+        state.update(period=str(idx.period.value), t_min_ms=idx.t_min_ms,
+                     t_max_ms=idx.t_max_ms)
+    return state
+
+
+def lean_xz_index_from_state(state: dict, device=None):
+    """A port ``LeanXZ3Index`` or ``LeanXZ2Index`` holding ``state``'s
+    generations: device runs on ``device`` (copied), host runs in host
+    RAM."""
+    settings = dict(generation_slots=int(state["generation_slots"]),
+                    hbm_budget_bytes=int(state["hbm_budget_bytes"]),
+                    compaction_factor=int(state["compaction_factor"]),
+                    device=device)
+    if state["kind"] == "xz3":
+        idx = LeanXZ3Index(period=str(state["period"]), g=int(state["g"]),
+                           **settings)
+        for k in ("t_min_ms", "t_max_ms"):
+            v = state[k]
+            setattr(idx, k, None if v is None else int(v))
+    else:
+        idx = LeanXZ2Index(g=int(state["g"]), **settings)
+    core = idx._core
+    for d in state["generations"]:
+        cols = [np.array(d[k]) for k in ("keys", "sec", "gid")]
+        if d["tier"] == "host":
+            gen = _AttrGeneration.merged_host(cols)
+        else:
+            gen = _AttrGeneration.merged_device(
+                *(torch.tensor(c, device=core.device) for c in cols),
+                n=int(d["n"]))
+        gen.gen_id = int(d["gen_id"])
+        core.generations.append(gen)
+    core._gen_counter = max([g.gen_id for g in core.generations], default=0)
+    core._n_rows = int(state["n_rows"])
     return idx
 
 

@@ -1,6 +1,7 @@
 """Space-filling-curve layer: dimension normalization, time binning,
-morton interleaving on int64 tensors, the Z2 and Z3 curves, and z-range
-decomposition."""
+morton interleaving on int64 tensors, the Z2 and Z3 curves, z-range
+decomposition, and (in ``xz2`` / ``xz3``) the XZ curves of non-point
+geometries."""
 
 from .binnedtime import (
     BinnedTime,

@@ -19,6 +19,10 @@ candidates afterwards (filters/Z3Filter.scala semantics).  With no budget
 pressure the result is exact and merged, matching sfcurve's output (e.g.
 box (2,2)-(3,6) at any precision → 3 ranges, see Z2Test.scala
 "calculate ranges").
+
+The native C++ copy of the same sweep (:mod:`geomesa_tpu_torch.native`)
+serves the call when its library is available; the numpy sweep below
+serves it otherwise (and is the CPU tests' differential oracle).
 """
 
 from __future__ import annotations
@@ -93,6 +97,12 @@ def zranges(
         raise ValueError(f"expected (B, {dims}) box bounds, got {mins.shape}/{maxs.shape}")
     budget = DEFAULT_MAX_RANGES if max_ranges is None else int(max_ranges)
     depth_cap = bits if max_levels is None else min(bits, int(max_levels))
+
+    from .. import native
+
+    res = native.zranges_native(mins, maxs, dims, bits, budget, depth_cap)
+    if res is not None:
+        return res
 
     mins = mins.astype(np.uint64)
     maxs = maxs.astype(np.uint64)

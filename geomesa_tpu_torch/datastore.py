@@ -15,7 +15,10 @@ reference's StatsCombiner role) and feed the cost-based strategy decider.
 What the port serves: point schemas, with or without a dtg attribute, on
 the default profile, through the ``z3``, ``z2``, ``id`` and attribute
 indexes (one per indexed attribute, tiered by z3 keys on point schemas
-with a dtg, by date with only a dtg), full scans and empty plans; with
+with a dtg, by date with only a dtg); polygon and line schemas through
+the ``xz3`` (with a dtg) and ``xz2`` indexes (host numpy; kept across
+writes with the appended rows as their tail, like the attribute
+indexes); full scans and empty plans; with
 ``mesh=`` (one process driving a :func:`~geomesa_tpu_torch.parallel.
 device_mesh`) the indexes are their sharded variants and ``stats`` and
 density push down per shard.  Attribute indexes are KEPT across writes:
@@ -28,7 +31,10 @@ The LEAN (scale) profile — a schema created with
 write (without a mesh) holds ``LEAN_AUTO_ROWS`` rows or more — stores its
 columns chunked (:class:`~geomesa_tpu_torch.features.lean.LeanBatch`,
 implicit feature ids) and indexes them in the tiered generational
-:class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index`, one
+:class:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index` (point schemas
+with a dtg) or :class:`~geomesa_tpu_torch.index.xz2_lean.LeanXZ3Index` /
+:class:`~geomesa_tpu_torch.index.xz2_lean.LeanXZ2Index` (polygon and
+line schemas with and without a dtg: ``lean_kind``), one
 :class:`~geomesa_tpu_torch.index.attr_lean.LeanAttrIndex` per indexed
 numeric, date or string attribute (which together take
 ``LEAN_ATTR_BUDGET_FRACTION`` of the lean device budget), plus
@@ -42,9 +48,9 @@ that observes far more candidates than costed replans once.  Schemas
 may name query interceptors (``geomesa.query.interceptors``), an
 age-off window (``geomesa.age.off``) and z-prefixed UUID feature ids
 (``geomesa.fid.strategy=z3``).
-Lean stores over a mesh, non-point lean schemas, fused serving, deletes,
-persistence, multi-controller meshes, visibilities and authorizations
-are not ported and raise rather than degrade.
+Lean stores over a mesh, fused serving, deletes, persistence,
+multi-controller meshes, visibilities and authorizations are not ported
+and raise rather than degrade.
 """
 
 from __future__ import annotations
@@ -65,12 +71,16 @@ from .index.attr_lean import NUMERIC_TYPES, LeanAttrIndex
 from .index.attribute import AttributeIndex
 from .index.id import IdIndex, LeanIdIndex
 from .index.pyramid import tile_env
+from .index.xz2 import XZ2Index
+from .index.xz2_lean import LeanXZ2Index, LeanXZ3Index
+from .index.xz3 import XZ3Index
 from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
 from .index.z3_lean import LeanZ3Index
 from .jobs import run_pyramid_build
 from .parallel.attribute import ShardedAttributeIndex
 from .parallel.scan import ShardedZ3Index
+from .parallel.xz import ShardedXZ2Index, ShardedXZ3Index
 from .parallel.z2 import ShardedZ2Index
 from .planning.estimator import CardinalityEstimator
 from .planning.explain import Explainer
@@ -100,8 +110,10 @@ def _max_numeric_id(ids: np.ndarray) -> int:
     return int(s[mask].astype(np.int64).max())
 
 
-#: current key-layout version of each ported index
-_CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION}
+#: current key-layout version of each ported index (the JAX package's
+#: table: the xz layouts have one version)
+_CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION,
+                           "xz3": 1, "xz2": 1}
 
 
 class _SchemaStore:
@@ -123,6 +135,11 @@ class _SchemaStore:
 
     #: tail fraction that triggers a rebuild of a kept attribute index
     TAIL_COMPACT_FRACTION = 8  # tail > coverage/8 (12.5%)
+
+    #: which generational scale index a lean schema rides ("z3" for
+    #: points with a dtg, "xz3" / "xz2" for non-point geometries with and
+    #: without a dtg); set by _init_lean
+    lean_kind = "z3"
 
     def __init__(self, sft: FeatureType, device, mesh=None):
         self.sft = sft
@@ -160,12 +177,12 @@ class _SchemaStore:
     @property
     def query_indices(self) -> set | None:
         """Indices the planner may choose for this schema (None = every
-        index): the lean profile serves z3 (the scale index), id
-        (implicit-id lookups) and, for its lexicode-indexable attributes,
-        the generational attribute index."""
+        index): the lean profile serves its scale index (``lean_kind``),
+        id (implicit-id lookups) and, for its lexicode-indexable
+        attributes, the generational attribute index."""
         if not self.lean:
             return None
-        out = {"z3", "id"}
+        out = {self.lean_kind, "id"}
         if self._lean_attr_names():
             out.add("attr")
         return out
@@ -185,15 +202,19 @@ class _SchemaStore:
         sft = self.sft
         if self.mesh is not None:
             raise NotImplementedError(
-                "lean-profile schemas over a device mesh are not ported")
-        if sft.geom_field and not sft.is_points:
-            raise NotImplementedError(
-                "non-point lean-profile schemas (the lean xz indexes) are "
-                "not ported")
-        if not (sft.is_points and sft.geom_field and sft.dtg_field):
+                "lean-profile schemas over a device mesh are not ported "
+                "(ROADMAP A7)")
+        if sft.is_points and sft.geom_field and sft.dtg_field:
+            self.lean_kind = "z3"
+        elif sft.geom_field and not sft.is_points:
+            # non-point schemas ride the generational XZ tier: XZ3
+            # (bin, code) when the schema has time, XZ2 otherwise
+            self.lean_kind = "xz3" if sft.dtg_field else "xz2"
+        else:
             raise ValueError(
                 "geomesa.index.profile=lean requires a point geometry "
-                "plus a dtg attribute (z3 scale index)")
+                "plus a dtg attribute (z3 scale index) or a non-point "
+                "geometry (xz2 scale index)")
         self.lean = True
         self.batch = LeanBatch(sft)
 
@@ -204,9 +225,13 @@ class _SchemaStore:
         t = np.asarray(self.batch.column(self.sft.dtg_field), np.int64)
         return x, y, t
 
-    def _lean_index(self) -> LeanZ3Index:
-        """The live lean scale index, created by the first write (before
+    def _lean_index(self):
+        """The live lean scale index (``lean_kind``: LeanZ3Index,
+        LeanXZ3Index or LeanXZ2Index), created by the first write (before
         the batch grows) and maintained incrementally by every write."""
+        kind = self.lean_kind
+        if kind != "z3":
+            return self._lean_xz_index(kind)
         idx = self._indexes.get("z3")
         if idx is None:
             idx = LeanZ3Index(
@@ -224,6 +249,44 @@ class _SchemaStore:
                 idx.generation_listeners.append(self.pyramid_trigger)
             self._indexes["z3"] = idx
             self.build_counts["z3"] = self.build_counts.get("z3", 0) + 1
+        return idx
+
+    def _lean_xz_index(self, kind: str):
+        """The live lean XZ index, under the same budget as the lean z3
+        index (less the attribute carve-out); a late build streams the
+        column store's envelopes in 2^22-row steps."""
+        idx = self._indexes.get(kind)
+        if idx is not None:
+            return idx
+        settings = dict(
+            generation_slots=self._lean_user_int(
+                "geomesa.lean.generation.slots", None),
+            hbm_budget_bytes=self._lean_z3_budget(),
+            compaction_factor=self._lean_user_int(
+                "geomesa.lean.compaction.factor",
+                self.LEAN_COMPACTION_FACTOR),
+            device=self.device)
+        n = len(self.batch)
+        step = 1 << 22
+        if kind == "xz2":
+            idx = LeanXZ2Index(g=self.sft.xz_precision, **settings)
+            if n:
+                bb = self.batch.geom_bbox()
+                for lo in range(0, n, step):
+                    idx.append_bboxes(bb[lo:lo + step], base_gid=lo)
+        else:
+            idx = LeanXZ3Index(period=self.sft.z3_interval,
+                               g=self.sft.xz_precision, **settings)
+            if n:
+                bb = self.batch.geom_bbox()
+                t = self.batch.column(self.sft.dtg_field)
+                for lo in range(0, n, step):
+                    idx.append_bboxes(bb[lo:lo + step],
+                                      np.asarray(t[lo:lo + step], np.int64),
+                                      base_gid=lo)
+        self._indexes[kind] = idx
+        self._index_coverage[kind] = n
+        self.build_counts[kind] = self.build_counts.get(kind, 0) + 1
         return idx
 
     def _lean_budget(self) -> int:
@@ -273,7 +336,8 @@ class _SchemaStore:
             step = 1 << 22
             if n:
                 col = self.batch.column(attr)
-                dtg = self.batch.column(self.sft.dtg_field)
+                dtg = (self.batch.column(self.sft.dtg_field)
+                       if self.sft.dtg_field else np.zeros(n, np.int64))
                 for lo in range(0, n, step):
                     idx.append(col[lo:lo + step],
                                np.asarray(dtg[lo:lo + step], np.int64),
@@ -303,10 +367,19 @@ class _SchemaStore:
         attr_idx = [(a, self._lean_attr_index(a))
                     for a in self._lean_attr_names()]
         self.batch.append_batch(chunk)
-        x, y = chunk.geom_xy(self.sft.geom_field)
-        dtg = np.asarray(chunk.column(self.sft.dtg_field), np.int64)
-        idx.append(np.asarray(x, np.float64), np.asarray(y, np.float64),
-                   dtg)
+        if self.lean_kind == "z3":
+            x, y = chunk.geom_xy(self.sft.geom_field)
+            dtg = np.asarray(chunk.column(self.sft.dtg_field), np.int64)
+            idx.append(np.asarray(x, np.float64), np.asarray(y, np.float64),
+                       dtg)
+        else:
+            dtg = (np.asarray(chunk.column(self.sft.dtg_field), np.int64)
+                   if self.sft.dtg_field else np.zeros(len(chunk), np.int64))
+            if self.lean_kind == "xz3":
+                idx.append_bboxes(chunk.geoms.bbox, dtg, base_gid=prior)
+            else:
+                idx.append_bboxes(chunk.geoms.bbox, base_gid=prior)
+            self._index_coverage[self.lean_kind] = len(self.batch)
         for a, ai in attr_idx:
             ai.append(chunk.column(a), dtg, base_gid=prior)
             self._index_coverage[f"attr:{a}"] = len(self.batch)
@@ -328,7 +401,8 @@ class _SchemaStore:
                 return None
             return max(0.0, budget_ms - (time.perf_counter() - t0) * 1e3)
 
-        for key in ["z3"] + [f"attr:{a}" for a in self._lean_attr_names()]:
+        for key in [self.lean_kind] + [f"attr:{a}"
+                                       for a in self._lean_attr_names()]:
             idx = self._indexes.get(key)
             if idx is not None:
                 out[key] = idx.compact(budget_ms=remaining())
@@ -336,8 +410,9 @@ class _SchemaStore:
 
     def build_pyramids(self) -> int:
         """Build density pyramids over the lean index's sealed
-        generations; the number built (0 for default-profile schemas)."""
-        if not self.lean or self.batch is None:
+        generations; the number built (0 for default-profile schemas and
+        for the lean XZ indexes, which have no pyramids)."""
+        if not self.lean or self.batch is None or self.lean_kind != "z3":
             return 0
         return self._lean_index().build_pyramids()
 
@@ -502,18 +577,22 @@ class _SchemaStore:
     def index(self, name: str):
         """Lazily-built index accessor with the JAX registry's
         applicability (index/registry.py): z3 on point schemas with a dtg
-        attribute, z2 on point schemas, id on every schema, ``attr`` on
-        schemas with an indexed attribute (built per attribute through
-        :meth:`attribute_index`); on the lean profile the lean z3 index
-        and implicit-id lookups only."""
+        attribute, z2 on point schemas, xz3 on schemas with a geometry
+        and a dtg, xz2 on schemas with a geometry, id on every schema,
+        ``attr`` on schemas with an indexed attribute (built per attribute
+        through :meth:`attribute_index`); on the lean profile the lean
+        scale index (``lean_kind``) and implicit-id lookups only.  The xz
+        indexes are KEPT across writes, serving the appended rows as
+        their tail (index_tail), and rebuild once the tail outgrows
+        ``TAIL_COMPACT_FRACTION`` of them."""
         if self.lean:
-            if name == "z3":
+            if name == self.lean_kind:
                 return self._lean_index()
             if name == "id":
                 return LeanIdIndex(len(self.batch))
             raise ValueError(
                 f"index {name!r} is not available on lean-profile "
-                f"schema {self.sft.name!r} (z3/id only)")
+                f"schema {self.sft.name!r} ({self.lean_kind}/id only)")
         if name == "id":
             if "id" not in self._indexes:
                 self._indexes["id"] = IdIndex.build(self.batch.ids)
@@ -533,6 +612,17 @@ class _SchemaStore:
                                  "the 'attr' index")
             raise ValueError("the attribute index is built per attribute — "
                              "use _SchemaStore.attribute_index(name)")
+        if name in ("xz3", "xz2"):
+            if not (sft.geom_field and (name == "xz2" or sft.dtg_field)):
+                raise ValueError(f"schema {sft.name!r} does not support the "
+                                 f"{name!r} index")
+            self._maybe_compact(name)
+            if name not in self._indexes:
+                build = self._build_xz3 if name == "xz3" else self._build_xz2
+                self._indexes[name] = build()
+                self._index_coverage[name] = len(self.batch)
+                self.build_counts[name] = self.build_counts.get(name, 0) + 1
+            return self._indexes[name]
         if not (sft.is_points and sft.geom_field
                 and (name == "z2" or sft.dtg_field)):
             raise ValueError(f"schema {sft.name!r} does not support the "
@@ -548,6 +638,12 @@ class _SchemaStore:
 
     def z2_index(self) -> Z2PointIndex | ShardedZ2Index:
         return self.index("z2")
+
+    def xz3_index(self):
+        return self.index("xz3")
+
+    def xz2_index(self):
+        return self.index("xz2")
 
     def id_index(self) -> IdIndex | LeanIdIndex:
         return self.index("id")
@@ -574,6 +670,24 @@ class _SchemaStore:
         return Z2PointIndex.build(
             x, y, version=_index_version(self.sft, "z2"), device=self.device)
 
+    def _build_xz3(self):
+        # the sequence codes' resolution is the schema's
+        # geomesa.xz.precision (the reference's default 12)
+        dtg = self.batch.column(self.sft.dtg_field)
+        if self.mesh is not None:
+            return ShardedXZ3Index.build(
+                self.batch.geoms, dtg, period=self.sft.z3_interval,
+                g=self.sft.xz_precision, mesh=self.mesh)
+        return XZ3Index.build(self.batch.geoms, dtg,
+                              period=self.sft.z3_interval,
+                              g=self.sft.xz_precision)
+
+    def _build_xz2(self):
+        if self.mesh is not None:
+            return ShardedXZ2Index.build(
+                self.batch.geoms, g=self.sft.xz_precision, mesh=self.mesh)
+        return XZ2Index.build(self.batch.geoms, g=self.sft.xz_precision)
+
 
 def _index_version(sft: FeatureType, index: str) -> int:
     """The schema's key-layout version of ``index``
@@ -591,8 +705,9 @@ def _index_version(sft: FeatureType, index: str) -> int:
 
 class TpuDataStore:
     """In-process spatio-temporal datastore over device-resident z3 and
-    z2 indexes, sharded over a device mesh when one is given, and the
-    tiered lean z3 and attribute indexes for lean-profile schemas."""
+    z2 indexes and host xz3/xz2 indexes, sharded over a device mesh when
+    one is given, and the tiered lean z3, xz and attribute indexes for
+    lean-profile schemas."""
 
     #: first-write row count at which a qualifying schema (points with a
     #: dtg, no mesh, auto ids) switches to the lean profile
@@ -680,12 +795,14 @@ class TpuDataStore:
                     "lean-profile schemas use implicit feature ids "
                     "(row number); explicit ids are not supported")
             if isinstance(data, FeatureBatch):
-                chunk = ChunkView(sft, dict(data.columns), len(data))
+                chunk = ChunkView(sft, dict(data.columns), len(data),
+                                  geoms=data.geoms)
             else:
-                cols, _ = build_columns(sft, data, keep_fixed_strings=True)
-                chunk = ChunkView(sft, cols,
-                                  len(next(iter(cols.values()))) if cols
-                                  else 0)
+                cols, geoms = build_columns(sft, data,
+                                            keep_fixed_strings=True)
+                n_chunk = (len(next(iter(cols.values()))) if cols
+                           else len(geoms) if geoms is not None else 0)
+                chunk = ChunkView(sft, cols, n_chunk, geoms=geoms)
             store._lean_write(chunk)
             store.next_fid = len(store.batch)
             return len(chunk)
@@ -780,7 +897,8 @@ class TpuDataStore:
         the world sweep while ``tile·2^z`` stays at or below
         ``geomesa.density.pyramid.base``, a bbox scan beyond).  Otherwise
         the tile runs through :func:`density_process` with the tile
-        envelope ANDed into the filter (CQL string).  The JAX store's
+        envelope ANDed into the filter (CQL string), as it does on a lean
+        XZ schema, whose index has no density path.  The JAX store's
         admission token, spans and metrics are not ported; a deadline
         (``timeout_ms``) raises rather than being ignored."""
         if timeout_ms is not None:
@@ -792,8 +910,9 @@ class TpuDataStore:
         if not (0 <= z <= 30) or not (0 <= x < n and 0 <= y < n):
             raise ValueError(f"tile ({z}/{x}/{y}) out of range")
         store = self._store(name)
-        if query is None and store.lean:
-            return np.asarray(store.z3_index().density_tile(z, x, y, tile),
+        if (query is None and store.lean and store.batch is not None
+                and store.lean_kind == "z3"):
+            return np.asarray(store._lean_index().density_tile(z, x, y, tile),
                               np.float64)
         env = tile_env(z, x, y)
         gf = self.get_schema(name).geom_field

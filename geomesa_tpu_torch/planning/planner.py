@@ -12,12 +12,14 @@ Exactness contract: whatever the index strategy returns is treated as a
 on candidates, so results are oracle-equal regardless of strategy.
 
 The port serves the strategies of its store's indexes — ``z3`` (with
-several time windows batched into one scan), ``z2``, ``id``,
+several time windows batched into one scan), ``z2``, ``xz3`` and ``xz2``
+(candidates envelope-exact; the residual filter runs the exact geometry
+predicate; a temporal-only ``xz3`` query scans the whole world), ``id``,
 ``attr:<name>`` (tier-refined by the query's time window, or by a
 covering z3 plan where the attribute index carries the z3 tier, plus the
 rows appended since the index was built), ``full`` and ``none``, and an
-OR split over them; on a lean store ``z3`` and ``attr`` run on the tiered
-lean indexes, costed by the store's sketch-fed estimator where it has
+OR split over them; on a lean store ``z3``, ``xz3``, ``xz2`` and
+``attr`` run on the tiered lean indexes, costed by the store's sketch-fed estimator where it has
 one, and a scan whose probe observes far more candidates than costed
 replans once (planning/adaptive.py).  Hints it does not serve raise.
 """
@@ -36,6 +38,7 @@ from ..features.feature_type import FeatureType
 from ..filters.ast import And, Filter, IdFilter, Include, Not, Or
 from ..filters.ecql import parse_ecql
 from ..filters.evaluate import evaluate_filter
+from ..geometry.types import Polygon
 from .adaptive import ReplanSignal, replan_scope
 from .explain import Explainer, ExplainNull
 from .strategy import FilterStrategy, StrategyDecider
@@ -247,13 +250,16 @@ class QueryPlanner:
         if name == "full":
             explain("Executing full-table scan")
             return None
-        if name not in ("z3", "z2", "id") and not name.startswith("attr:"):
+        if (name not in ("z3", "z2", "xz3", "xz2", "id")
+                and not name.startswith("attr:")):
             raise NotImplementedError(f"strategy {name!r} is not ported")
         explain(lambda: f"Executing {name} index scan")
         if name == "id":
             return store.id_index().query(strategy.ids)
         if name.startswith("attr:"):
             return self._add_tail(self._scan_attr(strategy), name)
+        if name in ("xz3", "xz2"):
+            return self._scan_xz(strategy)
         boxes = [g.envelope.as_tuple() for g in strategy.geometries] or [
             (-180.0, -90.0, 180.0, 90.0)
         ]
@@ -275,6 +281,25 @@ class QueryPlanner:
         parts = [idx.query(boxes, lo, hi, **mr)
                  for lo, hi in strategy.intervals]
         return _union(parts)
+
+    def _scan_xz(self, strategy: FilterStrategy) -> np.ndarray:
+        """Candidates of an xz3 / xz2 strategy, envelope-exact (the
+        residual filter runs the exact geometry predicate), with the rows
+        appended since a kept index's build."""
+        name = strategy.index
+        if name == "xz2":
+            idx = self.store.xz2_index()
+            parts = [idx.query(g, exact=False) for g in strategy.geometries]
+            return self._add_tail(_union(parts), name)
+        idx = self.store.xz3_index()
+        # temporal-only: scan the whole world (a strategy with no geometry
+        # would otherwise produce no scan at all)
+        geoms_q = strategy.geometries or (
+            Polygon([(-180.0, -90.0), (180.0, -90.0), (180.0, 90.0),
+                     (-180.0, 90.0)]),)
+        parts = [idx.query(g, lo, hi, exact=False)
+                 for g in geoms_q for lo, hi in strategy.intervals]
+        return self._add_tail(_union(parts), name)
 
     def _scan_attr(self, strategy: FilterStrategy) -> np.ndarray:
         """Candidates of an attribute strategy: its predicate on the

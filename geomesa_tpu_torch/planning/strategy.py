@@ -7,19 +7,20 @@ AttributeFilterStrategy, IdFilterStrategy}.scala) and the cost-based
 decider (planning/StrategyDecider.scala:67-112,140-152) that estimates
 per-strategy feature counts from stats and picks the cheapest.
 
-The port offers the strategies of the indexes it has: ``id`` for
-feature-id filters, ``z3`` on point schemas with a dtg attribute, ``z2``
-on point schemas, ``attr:<name>`` for each indexed-attribute predicate
-at the top AND level, the full scan, the empty plan, and an OR split
-over them, in the JAX package's order so that ties in the cost
-comparison resolve alike.  A lean store allows ``z3``, ``id`` and, for
-its lexicode-indexable attributes, ``attr``, so a pure-spatial query
-runs on z3 with an open interval; there z3 and attribute options are
-costed from the sketch-fed estimator (planning/estimator.py) when the
-store has one.  A replanning query folds its observed candidate count
-back in (``decide_with_options(observed=)``).  The JAX package's xz
-strategies are not ported (non-point schemas fall to the full scan or an
-attribute index).
+The port offers the JAX package's strategies: ``id`` for feature-id
+filters, ``z3`` on point schemas with a dtg attribute and ``xz3`` on
+non-point ones (bounded intervals only), ``z2`` on point schemas and
+``xz2`` on non-point ones, ``attr:<name>`` for each indexed-attribute
+predicate at the top AND level, the full scan, the empty plan, and an OR
+split over them, in the JAX package's order so that ties in the cost
+comparison resolve alike.  A lean store allows its scale index
+(``z3``, ``xz3`` or ``xz2``), ``id`` and, for its lexicode-indexable
+attributes, ``attr``, so a pure-spatial query runs on z3 (or xz3) with
+an open interval; there z3 and attribute options are costed from the
+sketch-fed estimator (planning/estimator.py) when the store has one (an
+xz3 option asks it too, and its missing z3 table answers None).  A
+replanning query folds its observed candidate count back in
+(``decide_with_options(observed=)``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ class FilterStrategy:
     """A candidate execution strategy: which index serves the query and at
     what estimated cost (feature count to scan)."""
 
-    #: 'z3' | 'z2' | 'id' | 'attr:<name>' | 'or-split' | 'full' | 'none'
+    #: 'z3' | 'z2' | 'xz3' | 'xz2' | 'id' | 'attr:<name>' | 'or-split'
+    #: | 'full' | 'none'
     index: str
     cost: float
     geometries: tuple = ()      # extracted query geometries
@@ -55,7 +57,7 @@ class FilterStrategy:
     #: sketches), 'stats' (whole-store stats), 'heuristic' (fallback
     #: constants), or 'observed' (a replan folded a scan's actual in)
     source: str = "heuristic"
-    #: sketch-sized covering-range budget for z3 scans; None = the
+    #: sketch-sized covering-range budget for z3/xz scans; None = the
     #: geomesa.scan.ranges.target default
     max_ranges: int | None = None
 
@@ -251,15 +253,15 @@ class StrategyDecider:
         return None
 
     def _z3_option(self, geometries, intervals, frac_cost: float,
-                   frac_source: str) -> FilterStrategy:
-        """A z3 option costed by the sketch tier when it answers, else by
-        the fraction product."""
+                   frac_source: str, index: str = "z3") -> FilterStrategy:
+        """A z3 (or xz3) option costed by the sketch tier when it answers,
+        else by the fraction product."""
         cost, source, mr = frac_cost, frac_source, None
         est = self._estimate_z3(geometries, intervals)
         if est is not None:
             cost, source = float(est), "sketch"
             mr = self.estimator.size_max_ranges(est)
-        return FilterStrategy("z3", max(1.0, cost), geometries=geometries,
+        return FilterStrategy(index, max(1.0, cost), geometries=geometries,
                               intervals=intervals, source=source,
                               max_ranges=mr)
 
@@ -292,30 +294,36 @@ class StrategyDecider:
             return [FilterStrategy("none", 0.0)]
 
         spatial = bool(geoms and geoms.values)
-        # the z3 POINT index serves half-open intervals too, because it
-        # clamps them to the data's time extent (the reference requires
-        # bounded intervals, SpatioTemporalFilterStrategy — clamping
-        # removes that need here)
+        # fully-bounded intervals serve either z index; the z3 POINT index
+        # also serves half-open intervals because it clamps them to the
+        # data's time extent (the reference requires bounded intervals,
+        # SpatioTemporalFilterStrategy — clamping removes that need here)
         all_ivs = tuple(intervals.values) if intervals else ()
-        usable = all_ivs
+        bounded = tuple(iv for iv in all_ivs
+                        if iv[0] is not None and iv[1] is not None)
+        usable = all_ivs if sft.is_points else bounded
         temporal = bool(usable)
 
         sp_frac = self._spatial_fraction(geoms.values if geoms else ())
         tm_frac = self._temporal_fraction(usable)
 
-        if temporal and dtg and sft.is_points and self._enabled("z3"):
-            qgeoms = tuple(geoms.values) if geoms else ()
-            out.append(self._z3_option(
-                qgeoms, usable, self.total * sp_frac * tm_frac,
-                self._frac_source(spatial, True)))
-        if spatial and sft.is_points:
-            if self._enabled("z2"):
+        if temporal and dtg:
+            idx = "z3" if sft.is_points else "xz3"
+            if self._enabled(idx):
+                qgeoms = tuple(geoms.values) if geoms else ()
+                out.append(self._z3_option(
+                    qgeoms, usable, self.total * sp_frac * tm_frac,
+                    self._frac_source(spatial, True), index=idx))
+        if spatial:
+            idx = "z2" if sft.is_points else "xz2"
+            if self._enabled(idx):
                 out.append(FilterStrategy(
-                    "z2", max(1.0, self.total * sp_frac),
+                    idx, max(1.0, self.total * sp_frac),
                     geometries=tuple(geoms.values),
                     intervals=tuple(intervals.values) if intervals else (),
                     source=self._frac_source(True, False)))
-            elif not temporal and dtg and self._enabled("z3"):
+            elif (not temporal and dtg and sft.is_points
+                  and self._enabled("z3")):
                 # no z2 available (the lean profile serves only the z3
                 # scale index, or geomesa.indices.enabled=z3): a
                 # pure-spatial query runs on z3 with an OPEN interval,
@@ -323,6 +331,16 @@ class StrategyDecider:
                 out.append(self._z3_option(
                     tuple(geoms.values), ((None, None),),
                     self.total * sp_frac, self._frac_source(True, False)))
+            elif (not temporal and dtg and not sft.is_points
+                  and self._enabled("xz3")):
+                # the non-point analog: a lean XZ3 schema (no xz2) serves
+                # pure-spatial queries with an open interval, which the
+                # xz3 indexes clamp to the data's extent
+                out.append(FilterStrategy(
+                    "xz3", max(1.0, self.total * sp_frac),
+                    geometries=tuple(geoms.values),
+                    intervals=((None, None),),
+                    source=self._frac_source(True, False)))
 
         indexed = ({a.name for a in sft.attributes if a.indexed}
                    if self._enabled("attr") else set())
@@ -406,7 +424,7 @@ class StrategyDecider:
             return o
         cost = max(1.0, float(observed[o.index]))
         mr = o.max_ranges
-        if self.estimator is not None and o.index == "z3":
+        if self.estimator is not None and o.index in ("z3", "xz3"):
             mr = self.estimator.size_max_ranges(cost)
         return replace(o, cost=cost, source="observed", max_ranges=mr)
 

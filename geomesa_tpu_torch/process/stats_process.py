@@ -155,9 +155,12 @@ def _lean_sketch_pushdown(store, schema: str, query, stat_spec: str):
     stat = parse_stat(stat_spec)
     stats = flatten_stats(stat)
     attr_types = {a: sft.attribute(a).type for a in st._lean_attr_names()}
-    idx = st.z3_index()
-    z3_period = idx.period if idx.version >= 2 else None
-    plan = plan_pushdown(stats, attr_types, "z3", sft.geom_field,
+    # Z3Histogram pushes down on a lean z3 store only (its cells come off
+    # the z3 keys); a lean XZ store's attribute sub-stats still fold
+    idx = st._lean_index() if st.lean_kind == "z3" else None
+    z3_period = (idx.period if idx is not None and idx.version >= 2
+                 else None)
+    plan = plan_pushdown(stats, attr_types, st.lean_kind, sft.geom_field,
                          sft.dtg_field, slo, shi, t_open,
                          z3_period=z3_period)
     if plan is None:

@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 
 from geomesa_tpu.datastore import TpuDataStore as JaxStore
+from geomesa_tpu.geometry.types import Polygon as JaxPolygon
 from geomesa_tpu.process.density import density_process as jax_density
 from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
 from geomesa_tpu_torch.features.lean import LeanBatch
+from geomesa_tpu_torch.geometry.types import Polygon
 from geomesa_tpu_torch.index.z3_lean import LeanZ3Index
 
 MS_2018 = 1514764800000
@@ -266,8 +268,20 @@ def test_left_out_features_raise(stores):
                      ).create_schema("attr", attr_spec)
     tds.create_schema("attr", attr_spec)
     assert tds._store("attr").query_indices == {"z3", "id", "attr"}
-    with pytest.raises(NotImplementedError, match="non-point"):
-        tds.create_schema("poly", "v:Int,*poly:Polygon" + lean)
+    # non-point lean schemas ride the lean XZ indexes: both stores answer
+    # alike
+    poly_spec = "v:Int,*poly:Polygon" + lean
+    ring = [(0, 0), (1, 0), (1, 1), (0, 1)]
+    for ds, poly_cls in ((jds, JaxPolygon), (tds, Polygon)):
+        ds.create_schema("poly", poly_spec)
+        ds.write("poly", {"v": np.arange(3), "poly": [
+            poly_cls([(x + i, y) for x, y in ring]) for i in range(3)]})
+    for q in ("BBOX(poly, 0.5, 0.5, 1.5, 0.7)", "v = 2", "IN ('1')"):
+        a, b = jds.query_result("poly", q), tds.query_result("poly", q)
+        assert b.strategy.index == a.strategy.index
+        assert list(b.positions) == list(a.positions)
+    assert (tds._store("poly").lean_kind == jds._store("poly").lean_kind
+            == "xz2")
     # pyramids and the cell-count fold are ported: they answer as the
     # JAX store does
     assert tds.build_pyramids("evt") == jds.build_pyramids("evt")

@@ -3,8 +3,9 @@ queries (z3, z2), a heatmap, a mesh store's query and stats, and a lean
 store's query, heatmap, tile, count, compaction, pyramid build,
 pyramid-served tile, Z3Histogram stat and a replanned query, and
 attribute queries on a default, a 2-shard mesh and a lean store (with
-the lean attribute stat push-down) loads neither ``jax`` nor any module
-of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
+the lean attribute stat push-down), and a polygon store's xz3 and xz2
+queries with the native range sweep loaded, loads neither ``jax`` nor
+any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
 import ast
@@ -97,6 +98,20 @@ for key, store, spec in (
     attr[key] = [aq.strategy.index, int(len(aq.positions)),
                  rq2.strategy.index, int(len(rq2.positions))]
 attr["lean_minmax"] = ls.stats("a", "INCLUDE", "MinMax(score)").max
+from geomesa_tpu_torch import native
+from geomesa_tpu_torch.geometry.packed import packed_from_boxes
+cx, cy = rng.uniform(-10, 10, n), rng.uniform(-10, 10, n)
+ds.create_schema("p", "dtg:Date,*geom:Polygon")
+ds.write("p", {"dtg": rng.integers(1514764800000, 1517443200000, n),
+               "geom": packed_from_boxes(np.stack([cx - 0.1, cy - 0.1,
+                                                    cx + 0.1, cy + 0.1], 1))})
+px3 = ds.query_result("p", "INTERSECTS(geom, POLYGON((-5 -5, 5 -5, 0 5, "
+                           "-5 -5))) AND dtg DURING "
+                           "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+px2 = ds.query_result("p", "BBOX(geom, -5, -5, 5, 5)")
+poly = [px3.strategy.index, int(len(px3.positions)), px2.strategy.index,
+        int(len(px2.positions)), native.available(),
+        "geomesa_tpu_torch.native" in sys.modules]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -121,7 +136,7 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "replan_source": rq.strategy.source,
                   "replan_hits": rq.positions.tolist(),
                   "replans": str(rex).count("Replanning: z3 observed"),
-                  "attr": attr}))
+                  "attr": attr, "poly": poly}))
 """
 
 
@@ -161,6 +176,10 @@ def test_import_and_query_load_no_jax():
         assert attr[key][2] == "attr:score"
         assert attr[key][1:] == attr["default"][1:]
     assert 9.9 < attr["lean_minmax"] < 10
+    poly = out["poly"]
+    assert poly[0] == "xz3" and poly[1] > 0
+    assert poly[2] == "xz2" and poly[3] > poly[1]
+    assert poly[4] is True and poly[5] is True
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
