@@ -10,7 +10,9 @@
                           [--poly-rows 8000000] [--poly-mesh-rows 8000000]
                           [--lean-poly-rows 64000000]
                           [--lean-poly3-rows 16000000]
-                          [--lean-poly3-slots 2097152] [--profile]
+                          [--lean-poly3-slots 2097152]
+                          [--life-rows 16000000]
+                          [--life-mesh-rows 4000000] [--profile]
                           [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
@@ -90,7 +92,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    fallen, every merged generation has inherited its parents' pyramid,
    and two queries and the pyramid-served world heatmap still equal the
    oracle.  Kernel launches of three queries are counted with
-   ``torch.profiler``;
+   ``torch.profiler``.  Last, ``age_off`` of the rows dated before
+   2018-01-15 tombstones them (timed with the stats' re-observe over the
+   live rows): ``get_count``, the estimator-costed queries (the oracle
+   less the tombstoned rows), a region heatmap and the z = 3 tile (now
+   the materializing path through the density kernel, exact grids) and
+   ``Count()`` on INCLUDE, whose push-down must fall back;
 9. attr: ``TpuDataStore(device="cuda")`` on schema ``attrs``
    (``actor:String:index=true,score:Double:index=true,dtg:Date,
    *geom:Point``): ``--attr-rows`` GDELT-like rows in 4 writes, ``actor``
@@ -155,7 +162,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    generations): the spatio-temporal and temporal-only queries of phase
    12 and the spatial-only ones, which run on ``xz3`` with an open
    interval clamped to the data's extent; then ``compact``, which must
-   merge a group of host runs, and a query again.
+   merge a group of host runs, and a query again;
+16. lifecycle: ``TpuDataStore(device="cuda", auth_provider=...)`` on the
+   facade's schema, ``--life-rows`` GDELT-like rows in 4 writes labelled
+   "", ``user``, ``admin`` and ``user&admin``, ``actor`` guarded by
+   ``admin``, read by a caller authorized for ``user``: the index
+   phase's 20 queries as BBOX+DURING (z3) and BBOX (z2), positions equal
+   to the oracle restricted to the visible rows, ``max_features``, a
+   filter on the guarded attribute (no hit), ``get_count``,
+   ``get_bounds`` and a region heatmap (materialized: the density
+   kernel, bit-equal to the snap oracle); then a delete of 1% of the
+   rows by id (timed; the first query after it, which rebuilds the
+   indexes, timed apart), the queries again, the same delete again
+   (0 rows) and ``age_off`` of the rows before 2018-01-15;
+17. legacy: the same rows on a schema pinned to the v1 key layouts
+   (``geomesa.index.versions=z3:1,z2:1``): the 40 queries equal to the
+   oracle, their candidates next to the current layout's; then
+   ``migrate_schema`` and the queries again (now with the current
+   layout's candidates);
+18. mesh lifecycle: ``device_mesh(1)``, ``--life-mesh-rows`` rows in 2
+   labelled writes, a delete of 1% of them: Count, MinMax and a 64-bin
+   Histogram of ``score`` pushed down through hist1d over the sharded
+   index rebuilt after the delete, equal to numpy, and the queries;
+   then the same rows and delete read by a caller authorized for
+   ``user``, the queries restricted to its rows.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 7, phase 8,
@@ -164,7 +194,10 @@ it fails the run (on the lean path, density_grid; on the attribute path,
 z3_mask, which the city query launches; the lean attribute path runs no
 kernel).  They are set to 0 and read around each of phases 12-15 as
 well, and reported: the JAX package runs no Pallas kernel on its xz
-paths (host numpy and plain XLA), and the port none on them.  The
+paths (host numpy and plain XLA), and the port none on them.  They are
+set to 0 and read around each of phases 16-18, which must launch
+z3_mask, z2_mask and density_grid (16), z3_mask and z2_mask (17), and
+z3_mask, z2_mask and hist1d (18).  The
 z3 index phase's range plans are timed again there with the native and
 the numpy sweep.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -1727,10 +1760,439 @@ def lean_phase(rng, args, centres, qs, dev, report):
         f"{res['z3']['generations']} generations, tiers {res['z3']['tiers']}; "
         f"queries equal to the oracle; world heatmap {wrow['ms']:.1f} ms, "
         f"{sealed} sealed generations (merged ones inherited) from pyramids")
+    rep["tombstones"] = lean_tombstones(ds, store, (x, y, t), checks, box,
+                                        env3, (t3x, t3y), cuda)
     report["lean"] = rep
     del ds, store, idx
     if cuda:
         torch.cuda.empty_cache()
+
+
+#: the age-off cutoff of the lifecycle checks: rows dated before
+#: 2018-01-15
+AGE_OFF_MS = MS_2018 + 14 * DAY
+
+
+def lean_tombstones(ds, store, cols, checks, box, env3, t3,
+                    cuda: bool) -> dict:
+    """The lean phase's store after ``age_off`` of the rows dated before
+    2018-01-15 (tombstoned, not removed): the count, the estimator-costed
+    queries (the oracle less the tombstoned rows), a region heatmap and
+    the z = 3 tile (now the materializing path and the density kernel:
+    exact grids) and ``Count()`` on INCLUDE, whose push-down must fall
+    back."""
+    import numpy as np
+    from geomesa_tpu_torch import density_process
+    from geomesa_tpu_torch.age_off import age_off
+    from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+
+    x, y, t = cols
+    n = len(x)
+    expired = t < AGE_OFF_MS
+    n_expired = int(expired.sum())
+    live = ~expired
+    t0 = time.perf_counter()
+    got = age_off(ds, "scale", older_than_ms=AGE_OFF_MS)
+    age_s = time.perf_counter() - t0
+    if got != n_expired or int(store.tombstone.sum()) != n_expired:
+        raise AssertionError(f"lean age_off tombstoned {got} rows, oracle "
+                             f"{n_expired}")
+    count = ds.get_count("scale")
+    if count != n - n_expired:
+        raise AssertionError(f"lean get_count {count} after age_off, oracle "
+                             f"{n - n_expired}")
+    rows = []
+    for kind, ecql, boxes, lo, hi in checks:
+        t0 = time.perf_counter()
+        res = ds.query_result("scale", ecql)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = (box_oracle(x, y, boxes) if lo is None
+                else oracle(x, y, t, boxes, lo, hi))
+        want = want[live[want]]
+        if (res.strategy.source != "sketch"
+                or not np.array_equal(res.positions, want)):
+            raise AssertionError(
+                f"lean {kind} after age_off: {res.strategy.index} "
+                f"({res.strategy.source}), {len(res.positions)} hits, "
+                f"oracle {len(want)}")
+        rows.append({"query": kind, "ms": ms, "hits": int(len(want))})
+    kind, q_and, boxes, lo, hi = checks[3]
+    hits = oracle(x, y, t, boxes, lo, hi)
+    hits = hits[live[hits]]
+    t3x, t3y = t3
+    tile_hits = box_oracle(x, y, [env3])
+    tile_hits = tile_hits[live[tile_hits]]
+    drows = []
+    for name, run, env, want_hits in (
+            (kind, lambda: density_process(ds, "scale", q_and, box), box,
+             hits),
+            (f"tile_3_{t3x}_{t3y}",
+             lambda: ds.density_tile("scale", 3, t3x, t3y), env3,
+             tile_hits)):
+        d0 = density_grid_kernel.launches
+        t0 = time.perf_counter()
+        grid = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = snap_counts(x[want_hits], y[want_hits], env, 256, 256)
+        if grid.shape != (256, 256) or not np.array_equal(
+                grid.astype(np.float64), want.astype(np.float32)):
+            raise AssertionError(f"lean {name} after age_off: grid "
+                                 f"disagrees with the oracle "
+                                 f"({float(grid.sum())} against "
+                                 f"{float(want.sum())} points)")
+        launched = density_grid_kernel.launches - d0
+        route = "materialized" if launched else "pushed down"
+        if cuda and launched != 1:
+            raise AssertionError(f"lean {name} after age_off: density_grid "
+                                 f"launched {launched} times, not once")
+        drows.append({"query": name, "ms": ms, "points": float(want.sum()),
+                      "route": route, "density_grid_launches": launched})
+    routes = StatRoute()
+    try:
+        t0 = time.perf_counter()
+        got, how = routes.run(lambda: ds.stats("scale", "INCLUDE",
+                                               "Count()").count)
+        count_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        routes.close()
+    if got != n - n_expired or how != "materialized":
+        raise AssertionError(f"lean Count() after age_off: {got} by {how}, "
+                             f"oracle {n - n_expired} materialized")
+    lat = np.array([r["ms"] for r in rows])
+    out = {"expired": n_expired, "age_off_s": age_s, "get_count": count,
+           "queries": rows, "query_ms_p50": float(np.median(lat)),
+           "query_ms_max": float(lat.max()), "density": drows,
+           "count": {"ms": count_ms, "count": int(got), "route": how}}
+    log(f"lean: age_off tombstoned {n_expired} rows in {age_s:.2f} s "
+        f"(with the stats re-observed over {n - n_expired} live rows); "
+        f"get_count {count}; {len(rows)} queries equal to the oracle less "
+        f"the tombstones, p50 {np.median(lat):.1f} ms, max "
+        f"{lat.max():.1f} ms; "
+        + ", ".join(f"{d['query']} {d['ms']:.1f} ms ({d['route']})"
+                    for d in drows)
+        + f"; Count() {count_ms:.1f} ms ({how})")
+    return out
+
+
+#: the lifecycle phase's row labels, one per write, and the caller's
+#: authorizations: it sees the first two writes
+LABELS = ("", "user", "admin", "user&admin")
+AUTHS = frozenset({"user"})
+#: the lifecycle phases' schema (the facade's), and its v1-layout twin
+LIFE_SPEC = "actor:String,dtg:Date,*geom:Point"
+LEGACY_SPEC = LIFE_SPEC + ";geomesa.index.versions='z3:1,z2:1'"
+
+
+def life_queries(qs) -> list:
+    """The index phase's 20 queries as ECQL: each BBOX+DURING (z3) and
+    its boxes alone (z2), with the oracle's whole-second bounds."""
+    out = []
+    for kind, boxes, lo, hi in qs:
+        geo = " OR ".join(f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+                          for b in boxes)
+        if len(boxes) > 1:
+            geo = f"({geo})"
+        out.append((f"{kind}-during", "z3",
+                    f"{geo} AND dtg DURING {iso(lo)}/{iso(hi)}", boxes,
+                    lo - lo % 1000, hi - hi % 1000))
+        out.append((f"{kind}-bbox", "z2", geo, boxes, None, None))
+    return out
+
+
+def scanned(explain_text: str) -> int:
+    """The candidates a query handed its residual filter (the explain
+    trace's estimate audit)."""
+    import re
+    return int(re.search(r"scanned (\d+)", explain_text).group(1))
+
+
+def run_life_queries(ds, name, lq, cols, visible=None, label="") -> list:
+    """Each of ``lq`` through ``ds`` against the oracle over ``cols``
+    (restricted to ``visible`` rows when given): strategy, positions and
+    the candidates scanned."""
+    import numpy as np
+    from geomesa_tpu_torch.planning import ExplainString
+    x, y, t = cols
+    rows = []
+    for kind, strategy, ecql, boxes, lo, hi in lq:
+        ex = ExplainString()
+        t0 = time.perf_counter()
+        res = ds.query_result(name, ecql, ex)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = (box_oracle(x, y, boxes) if lo is None
+                else oracle(x, y, t, boxes, lo, hi))
+        if visible is not None:
+            want = want[visible[want]]
+        if (res.strategy.index != strategy
+                or not np.array_equal(res.positions, want)):
+            raise AssertionError(
+                f"{label} {kind}: {res.strategy.index} (expected "
+                f"{strategy}), {len(res.positions)} hits, oracle "
+                f"{len(want)}")
+        rows.append({"query": kind, "ms": ms, "hits": int(len(want)),
+                     "candidates": scanned(str(ex))})
+    return rows
+
+
+def life_summary(rows) -> str:
+    import numpy as np
+    lat = np.array([r["ms"] for r in rows])
+    return (f"{len(rows)} queries equal to the oracle, p50 "
+            f"{np.median(lat):.1f} ms, max {lat.max():.1f} ms")
+
+
+def lifecycle_phase(rng, args, centres, qs, dev, report):
+    """Deletes, visibilities and the read APIs on the default profile:
+    ``--life-rows`` GDELT-like rows in 4 writes labelled ``LABELS``, with
+    ``actor`` guarded by ``admin``, read by a caller authorized for
+    ``user`` (the first two writes); the index phase's queries, a
+    ``max_features`` limit, a probe of the guarded attribute, get_count,
+    get_bounds and a materialized region heatmap; then a delete of 1% of
+    the rows by id (timed, and the first query after it, which rebuilds
+    the indexes, timed apart), the queries again, a repeated delete that
+    counts 0, and ``age_off`` of the rows before 2018-01-15.  Returns the
+    rows written and the candidates of each query, which the legacy
+    phase compares."""
+    import numpy as np
+    from geomesa_tpu_torch import TpuDataStore, density_process
+    from geomesa_tpu_torch.age_off import age_off
+    from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+    from geomesa_tpu_torch.planning.planner import Query
+    from geomesa_tpu_torch.security import StaticAuthorizationsProvider
+
+    actors = np.array(["USA", "GBR", "FRA", "CHN", "IND", "BRA", "RUS"],
+                      dtype=object)
+    ds = TpuDataStore(device=dev,
+                      auth_provider=StaticAuthorizationsProvider(AUTHS))
+    ds.create_schema("life", LIFE_SPEC)
+    n = args.life_rows
+    per = n // 4
+    chunks, write_s = [], []
+    for label in LABELS:
+        x, y, t = gdelt_like(rng, per, centres)
+        chunk = {"actor": actors[rng.integers(0, len(actors), per)],
+                 "dtg": t, "geom": (x, y)}
+        chunks.append(chunk)
+        t0 = time.perf_counter()
+        ds.write("life", chunk, visibility=label,
+                 attribute_visibilities={"actor": "admin"})
+        write_s.append(time.perf_counter() - t0)
+    x, y, t = (np.concatenate([c["geom"][0] for c in chunks]),
+               np.concatenate([c["geom"][1] for c in chunks]),
+               np.concatenate([c["dtg"] for c in chunks]))
+    visible = np.arange(n) < 2 * per
+    lq = life_queries(qs)
+    rows = run_life_queries(ds, "life", lq, (x, y, t), visible, "lifecycle")
+    cands = [r["candidates"] for r in rows]
+    # max_features fills from the rows the caller may see
+    for kind, _s, ecql, boxes, lo, hi in (lq[8], lq[9], lq[16]):
+        want = (box_oracle(x, y, boxes) if lo is None
+                else oracle(x, y, t, boxes, lo, hi))
+        want = want[visible[want]]
+        k = max(1, len(want) // 2)
+        got = ds.query_result("life", Query.of(ecql, max_features=k))
+        if not np.array_equal(got.positions, want[:k]):
+            raise AssertionError(f"lifecycle {kind}: max_features {k} gave "
+                                 f"{len(got.positions)} rows")
+    # the guarded attribute answers no filter for this caller
+    probe = ds.query_result("life", f"actor = 'USA' AND {lq[17][2]}")
+    if len(probe.positions):
+        raise AssertionError(f"lifecycle: a guarded actor matched "
+                             f"{len(probe.positions)} rows")
+    count = ds.get_count("life")
+    env = ds.get_bounds("life").as_tuple()
+    want_env = (x[visible].min(), y[visible].min(), x[visible].max(),
+                y[visible].max())
+    if count != 2 * per or env != want_env:
+        raise AssertionError(f"lifecycle: get_count {count}, bounds {env}; "
+                             f"oracle {2 * per}, {want_env}")
+    kind, _s, q_region, boxes, lo, hi = lq[16]    # a region, a week
+    box = boxes[0]
+    hits = oracle(x, y, t, boxes, lo, hi)
+    hits = hits[visible[hits]]
+    d0 = density_grid_kernel.launches
+    t0 = time.perf_counter()
+    grid = density_process(ds, "life", q_region, box)
+    heat_ms = (time.perf_counter() - t0) * 1e3
+    want = snap_counts(x[hits], y[hits], box, 256, 256)
+    if not np.array_equal(grid.astype(np.float64), want.astype(np.float32)):
+        raise AssertionError(f"lifecycle heatmap: {float(grid.sum())} "
+                             f"points, oracle {float(want.sum())}")
+    heat_launches = density_grid_kernel.launches - d0
+    log(f"lifecycle: {n} rows in 4 labelled writes "
+        f"({', '.join(f'{s:.2f}' for s in write_s)} s); restricted "
+        f"{life_summary(rows)}; max_features and the guarded-attribute "
+        f"probe equal; get_count {count}; region heatmap {heat_ms:.1f} ms "
+        f"(density_grid x{heat_launches})")
+
+    # a delete of 1% of the rows by id, then every query again
+    dpos = rng.choice(n, n // 100, replace=False)
+    ids = np.array([str(p) for p in dpos], dtype=object)
+    t0 = time.perf_counter()
+    removed = ds.delete("life", ids)
+    delete_s = time.perf_counter() - t0
+    if removed != len(dpos) or ds._store("life")._indexes:
+        raise AssertionError(f"lifecycle delete removed {removed} of "
+                             f"{len(dpos)} rows")
+    keep = np.ones(n, bool)
+    keep[dpos] = False
+    xk, yk, tk, vk = x[keep], y[keep], t[keep], visible[keep]
+    first = run_life_queries(ds, "life", lq[:1], (xk, yk, tk), vk,
+                             "lifecycle after delete")
+    after = run_life_queries(ds, "life", lq[1:], (xk, yk, tk), vk,
+                             "lifecycle after delete")
+    again = ds.delete("life", ids)
+    if again != 0:
+        raise AssertionError(f"lifecycle: a repeated delete removed {again}")
+    t0 = time.perf_counter()
+    aged = age_off(ds, "life", older_than_ms=AGE_OFF_MS)
+    age_s = time.perf_counter() - t0
+    want_aged = int((tk < AGE_OFF_MS).sum())
+    live = tk >= AGE_OFF_MS
+    if aged != want_aged or ds.get_count("life") != int((vk & live).sum()):
+        raise AssertionError(f"lifecycle age_off removed {aged}, oracle "
+                             f"{want_aged}")
+    report["lifecycle"] = {
+        "rows": n, "write_s": write_s, "queries": rows,
+        "get_count": count, "heatmap_ms": heat_ms,
+        "heatmap_density_grid_launches": heat_launches,
+        "deleted": removed, "delete_s": delete_s,
+        "first_query_after_delete_ms": first[0]["ms"],
+        "queries_after_delete": first + after, "aged_off": aged,
+        "age_off_s": age_s}
+    log(f"lifecycle: deleted {removed} rows by id in {delete_s:.2f} s; the "
+        f"first query after it (index rebuild) {first[0]['ms']:.1f} ms; "
+        f"{life_summary(after)}; a repeated delete counts 0; age_off "
+        f"removed {aged} rows in {age_s:.2f} s")
+    del ds
+    return chunks, (x, y, t), cands
+
+
+def legacy_phase(args, chunks, cols, cands, qs, dev, report):
+    """The lifecycle phase's rows on a schema pinned to the v1 key layouts
+    (the legacy curves): the same queries, with the candidates of each
+    next to the current layout's, then ``migrate_schema`` and the queries
+    again (now with the current layout's candidates)."""
+    from geomesa_tpu_torch import TpuDataStore
+
+    ds = TpuDataStore(device=dev)
+    ds.create_schema("legacy", LEGACY_SPEC)
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        ds.write("legacy", chunk)
+    write_s = time.perf_counter() - t0
+    store = ds._store("legacy")
+    lq = life_queries(qs)
+    v1 = run_life_queries(ds, "legacy", lq, cols, label="legacy v1")
+    if (store.z3_index().version, store.z2_index().version) != (1, 1):
+        raise AssertionError("the legacy store's indexes are not v1")
+    for r, c in zip(v1, cands):
+        r["candidates_v2"] = c
+    t0 = time.perf_counter()
+    old = ds.migrate_schema("legacy")
+    migrate_s = time.perf_counter() - t0
+    v2 = run_life_queries(ds, "legacy", lq, cols, label="legacy migrated")
+    if (old["z3"], old["z2"], store.z3_index().version) != (1, 1, 2):
+        raise AssertionError(f"migrate_schema from {old}")
+    if [r["candidates"] for r in v2] != cands:
+        raise AssertionError("after migration the candidates differ from "
+                             "the current layout's")
+    report["legacy"] = {"write_s": write_s, "queries_v1": v1,
+                        "migrate_s": migrate_s, "queries_migrated": v2}
+    differ = sum(r["candidates"] != r["candidates_v2"] for r in v1)
+    log(f"legacy: {len(chunks)} writes in {write_s:.2f} s; v1 "
+        f"{life_summary(v1)}; candidates v1/v2 "
+        + ", ".join(f"{r['candidates']}/{r['candidates_v2']}" for r in v1)
+        + f" ({differ} of {len(v1)} differ); migrate_schema "
+          f"{migrate_s * 1e3:.1f} ms, then {life_summary(v2)}")
+    del ds, store
+
+
+def mesh_lifecycle_phase(rng, args, centres, qs, dev, report):
+    """``device_mesh(1)``: ``--life-mesh-rows`` rows in 2 writes labelled
+    "" and ``admin``, a delete of 1% of them; Count, MinMax and a
+    Histogram of ``score`` pushed down through hist1d over the sharded
+    index rebuilt after the delete, and the queries; then the same rows
+    and delete read by a caller authorized for ``user`` only (the first
+    write), the queries restricted to it."""
+    import numpy as np
+    from geomesa_tpu_torch import TpuDataStore, device_mesh
+    from geomesa_tpu_torch.ops.hist1d_kernel import hist1d
+    from geomesa_tpu_torch.security import StaticAuthorizationsProvider
+
+    spec = "actor:String,score:Double,dtg:Date,*geom:Point"
+    n = args.life_mesh_rows
+    per = n // 2
+    chunks = []
+    for _ in range(2):
+        x, y, t = gdelt_like(rng, per, centres)
+        chunks.append({"actor": np.array(["USA"] * per, dtype=object),
+                       "score": rng.uniform(0.0, 100.0, per), "dtg": t,
+                       "geom": (x, y)})
+    x, y, t, score = (np.concatenate([c["geom"][0] for c in chunks]),
+                      np.concatenate([c["geom"][1] for c in chunks]),
+                      np.concatenate([c["dtg"] for c in chunks]),
+                      np.concatenate([c["score"] for c in chunks]))
+    dpos = rng.choice(n, n // 100, replace=False)
+    ids = np.array([str(p) for p in dpos], dtype=object)
+    keep = np.ones(n, bool)
+    keep[dpos] = False
+    xk, yk, tk, sk = x[keep], y[keep], t[keep], score[keep]
+    lq = life_queries(qs)
+    out = {}
+    for label, auths in (("open", None), ("restricted", AUTHS)):
+        ds = TpuDataStore(
+            device=dev, mesh=device_mesh(1),
+            auth_provider=(None if auths is None
+                           else StaticAuthorizationsProvider(auths)))
+        ds.create_schema("mlife", spec)
+        for chunk, vis in zip(chunks, ("", "admin")):
+            ds.write("mlife", chunk, visibility=vis)
+        ds.query_result("mlife", lq[0][2])   # builds the sharded indexes
+        t0 = time.perf_counter()
+        removed = ds.delete("mlife", ids)
+        delete_s = time.perf_counter() - t0
+        if removed != len(dpos):
+            raise AssertionError(f"mesh lifecycle delete removed {removed}")
+        visible = (None if auths is None
+                   else (np.arange(n) < per)[keep])
+        rows = run_life_queries(ds, "mlife", lq, (xk, yk, tk), visible,
+                                f"mesh lifecycle ({label})")
+        rep = {"deleted": removed, "delete_s": delete_s, "queries": rows}
+        if auths is None:
+            stats = []
+            kind, _s, q, boxes, lo, hi = lq[28]   # a continent, a month
+            for name, ecql, hits in (
+                    (kind, q, oracle(xk, yk, tk, boxes, lo, hi)),
+                    ("include", "INCLUDE", np.arange(len(xk)))):
+                h0 = hist1d.launches
+                t0 = time.perf_counter()
+                c, mm, h = ds.stats(
+                    "mlife", ecql,
+                    "Count();MinMax(score);Histogram(score,64,0,100)").stats
+                ms = (time.perf_counter() - t0) * 1e3
+                sc = sk[hits]
+                want_h = np.bincount(
+                    np.clip(sc / (100.0 / 64), 0, 63).astype(np.int64),
+                    minlength=64)
+                if (c.count != len(hits) or (mm.min, mm.max)
+                        != (sc.min(), sc.max())
+                        or not np.array_equal(h.counts, want_h)):
+                    raise AssertionError(f"mesh lifecycle stats {name} "
+                                         "disagree with numpy")
+                stats.append({"stats": name, "ms": ms,
+                              "hist1d_launches": hist1d.launches - h0})
+            rep["stats"] = stats
+        out[label] = rep
+        del ds
+    report["mesh_lifecycle"] = out
+    log(f"mesh lifecycle: {n} rows, deleted {len(dpos)} by id in "
+        f"{out['open']['delete_s']:.2f} s; stats after the delete equal to "
+        f"numpy: " + ", ".join(f"{s['stats']} {s['ms']:.1f} ms (hist1d "
+                               f"x{s['hist1d_launches']})"
+                               for s in out["open"]["stats"])
+        + f"; open {life_summary(out['open']['queries'])}; restricted "
+          f"{life_summary(out['restricted']['queries'])}")
 
 
 #: the attribute phases' schema: GDELT's actor code and GoldsteinScale
@@ -2678,6 +3140,10 @@ def main(argv=None) -> int:
                     help="slots per generation of the lean XZ3 phase (8 "
                          "generations at 16M rows: device and host tiers, "
                          "and a compaction that merges host runs)")
+    ap.add_argument("--life-rows", type=int, default=16_000_000,
+                    help="rows of the lifecycle and legacy phases")
+    ap.add_argument("--life-mesh-rows", type=int, default=4_000_000,
+                    help="rows of the mesh lifecycle phase")
     ap.add_argument("--profile", action="store_true",
                     help="profile the z3 and z2 index queries, the mesh "
                          "phase's stats, query and heatmap, and the lean "
@@ -2819,6 +3285,44 @@ def main(argv=None) -> int:
         phase_s[name] = time.perf_counter() - t0
         xz_launches[name] = {k: fn.launches for k, fn in counters.items()}
     report["xz_path_launches"] = xz_launches
+
+    # the lifecycle paths (deletes, visibilities, the read APIs, the v1
+    # layouts, the mesh after a delete): counts set to 0 just before
+    # each, read just after; each must launch the kernels it runs
+    life_launches = {}
+    need = {"lifecycle": ("z3_mask", "z2_mask", "density_grid"),
+            "legacy": ("z3_mask", "z2_mask"),
+            "mesh_lifecycle": ("z3_mask", "z2_mask", "hist1d")}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    chunks, cols, cands = lifecycle_phase(rng, args, centres, qs, dev,
+                                          report)
+    phase_s["lifecycle"] = time.perf_counter() - t0
+    life_launches["lifecycle"] = {k: fn.launches
+                                  for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    legacy_phase(args, chunks, cols, cands, qs, dev, report)
+    phase_s["legacy"] = time.perf_counter() - t0
+    life_launches["legacy"] = {k: fn.launches for k, fn in counters.items()}
+    del chunks, cols
+    torch.cuda.empty_cache()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mesh_lifecycle_phase(rng, args, centres, qs, dev, report)
+    phase_s["mesh_lifecycle"] = time.perf_counter() - t0
+    life_launches["mesh_lifecycle"] = {k: fn.launches
+                                       for k, fn in counters.items()}
+    for phase, names in need.items():
+        if min(life_launches[phase][k] for k in names) <= 0:
+            raise AssertionError(f"a kernel of the {phase} path was never "
+                                 f"launched on it: {life_launches[phase]}")
+    report["life_path_launches"] = life_launches
+    log(f"lifecycle paths: launches {life_launches}; "
+        + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in life_launches))
     z3s = report["z3_sweeps"]
     log(f"polygon paths: launches {xz_launches}; "
         + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in xz_launches)

@@ -1,12 +1,11 @@
-"""Age-off (TTL): the scan-time half.
+"""Age-off (TTL): expired rows hidden at scan time and deleted.
 
-The port's copy of the JAX package's ``age_off.py`` scan-time pieces.
-The reference ages out expired rows two ways (accumulo/iterators/
-AgeOffIterator.scala, DtgAgeOffFilter): a scan-time filter hiding rows
-older than the retention period, and physical removal during
-compaction.  This module holds the first: a query interceptor ANDs a
-retention window onto every query.  The physical delete (the JAX
-package's ``age_off()``) needs deletes, which the port does not have.
+The port's copy of the JAX package's ``age_off.py``.  The reference
+ages out expired rows two ways (accumulo/iterators/AgeOffIterator.scala,
+DtgAgeOffFilter): a scan-time filter hiding rows older than the
+retention period (:class:`AgeOffInterceptor`, ANDing a retention window
+onto every query), and physical removal during compaction
+(:func:`age_off`, built on the store's ``delete``).
 
 Retention periods are duration strings (``"7 days"``, ``"12 hours"``,
 ``"30 minutes"``, ``"45 seconds"``, ``"500 millis"``) stored in schema
@@ -18,7 +17,10 @@ from __future__ import annotations
 import re
 import time
 
-__all__ = ["parse_duration_ms", "AgeOffInterceptor", "AGE_OFF_KEY"]
+import numpy as np
+
+__all__ = ["parse_duration_ms", "AgeOffInterceptor", "AGE_OFF_KEY",
+           "age_off"]
 
 AGE_OFF_KEY = "geomesa.age.off"
 
@@ -72,3 +74,38 @@ class AgeOffInterceptor:
         f = query.filter
         new = window if isinstance(f, _Include) else And((f, window))
         return replace(query, filter=new)
+
+
+def age_off(store, type_name: str, older_than_ms: int | None = None,
+            retention=None, dry_run: bool = False) -> int:
+    """Physically delete rows whose dtg is before the cutoff (the
+    compaction-time AgeOffIterator role): ``older_than_ms``, or now less
+    ``retention`` (a duration; default the schema's ``geomesa.age.off``).
+    Returns the affected count — with ``dry_run`` the expired rows, tombstoned
+    ones included, without deleting them.
+
+    A lean store's expired rows are deleted through their implicit ids
+    (``row_ids``); the JAX package's ``age_off`` reads the whole id
+    column there, which its lean batch refuses (AttributeError)."""
+    sft = store.get_schema(type_name)
+    if older_than_ms is None:
+        if retention is None:
+            # the scan-time filter's table config (geomesa.age.off)
+            retention = sft.user_data.get(AGE_OFF_KEY)
+        if retention is None:
+            raise ValueError("need older_than_ms or retention (schema has "
+                             f"no {AGE_OFF_KEY})")
+        older_than_ms = int(time.time() * 1000) - parse_duration_ms(retention)
+    if not sft.dtg_field:
+        raise ValueError(f"schema {type_name!r} has no dtg field")
+    schema_store = store._store(type_name)
+    batch = schema_store.batch
+    if batch is None or len(batch) == 0:
+        return 0
+    dtg = batch.column(sft.dtg_field)
+    expired = np.flatnonzero(dtg < older_than_ms)
+    if dry_run or not len(expired):
+        return int(len(expired))
+    ids = (batch.row_ids(expired) if schema_store.lean
+           else batch.ids[expired])
+    return store.delete(type_name, ids)

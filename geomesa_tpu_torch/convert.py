@@ -32,6 +32,14 @@ index's state (``LeanXZ2Index`` / ``LeanXZ3Index``) holds ``kind``,
 ``hbm_budget_bytes``, ``compaction_factor``), ``n_rows`` and, per
 generation, ``tier``, ``n``, ``gen_id`` and ``keys``, ``sec``, ``gid``
 (the whole capacity of a device run, the ``n`` rows of a host run).
+
+Every index state keeps its key-layout ``version``: a v1 state rebuilds
+an index on the legacy curve (``curve/legacy.py``).
+
+A schema store's row-level state (:func:`schema_store_state`) holds its
+``tombstone`` (or None), ``visibilities`` (or None), the per-attribute
+``attr_visibilities``, ``index_versions`` and ``next_fid``; its columns
+are not part of it (write the same rows into both stores).
 """
 
 from __future__ import annotations
@@ -52,7 +60,8 @@ from .parallel.scan import ShardedZ3Index
 from .parallel.xz import ShardedXZ2Index, ShardedXZ3Index
 from .parallel.z2 import ShardedZ2Index
 
-__all__ = ["lean_xz_index_from_state", "lean_xz_index_state",
+__all__ = ["apply_schema_store_state", "schema_store_state",
+           "lean_xz_index_from_state", "lean_xz_index_state",
            "lean_z3_index_from_state", "lean_z3_index_state",
            "sharded_index_state", "sharded_xz_index_from_state",
            "sharded_xz_index_state", "sharded_z2_index_from_state",
@@ -369,6 +378,42 @@ def lean_xz_index_from_state(state: dict, device=None):
     core._gen_counter = max([g.gen_id for g in core.generations], default=0)
     core._n_rows = int(state["n_rows"])
     return idx
+
+
+def schema_store_state(store) -> dict:
+    """The row-level state of a schema store (of either package; see the
+    module doc), copied."""
+    def labels(a):
+        return None if a is None else np.array(a, dtype=object)
+
+    return {"tombstone": (None if store.tombstone is None
+                          else np.array(store.tombstone, dtype=bool)),
+            "visibilities": labels(store.visibilities),
+            "attr_visibilities": {k: labels(v) for k, v
+                                  in store.attr_visibilities.items()},
+            "index_versions": {k: int(v)
+                               for k, v in store.index_versions.items()},
+            "next_fid": int(store.next_fid)}
+
+
+def apply_schema_store_state(store, state: dict) -> None:
+    """Give a port schema store ``state``'s row-level state (copied); its
+    built indexes are dropped, as their layout versions may change."""
+    tomb = state["tombstone"]
+    store.tombstone = None if tomb is None else np.array(tomb, dtype=bool)
+    vis = state["visibilities"]
+    store.visibilities = None if vis is None else np.array(vis, dtype=object)
+    store.attr_visibilities = {k: np.array(v, dtype=object)
+                               for k, v in state["attr_visibilities"].items()}
+    store.index_versions = dict(state["index_versions"])
+    store.next_fid = int(state["next_fid"])
+    store._vis_masks = {}
+    if store.tombstone is not None and store.tombstone.any():
+        # the deleting store recomputed its sketches over the live rows
+        store.recompute_stats()
+    # each index rebuilds (a lean one streams the column store) at the
+    # carried layout versions
+    store.drop_indexes()
 
 
 def _to_numpy(a) -> np.ndarray:

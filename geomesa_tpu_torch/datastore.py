@@ -48,9 +48,21 @@ that observes far more candidates than costed replans once.  Schemas
 may name query interceptors (``geomesa.query.interceptors``), an
 age-off window (``geomesa.age.off``) and z-prefixed UUID feature ids
 (``geomesa.fid.strategy=z3``).
-Lean stores over a mesh, fused serving, deletes, persistence,
-multi-controller meshes, visibilities and authorizations are not ported
-and raise rather than degrade.
+
+Deletes remove rows on the default profile and mesh (every built index
+is dropped with its coverage, as row positions move, and rebuilds on the
+next query) and tombstone them on the lean profile (positions stay
+stable; the indexes keep serving deleted rows as candidates that every
+query masks out, and the lean push-downs fall back to the materializing
+paths).  Row visibilities (``write(..., visibility=)``) and attribute
+visibilities (``attribute_visibilities=``) are evaluated against the
+caller's authorizations (``auth_provider``) on every query, filter, stat
+and bound.  Schemas pinned to the v1 key layouts
+(``geomesa.index.versions=z3:1,z2:1``) key and query with the legacy
+curves (``curve/legacy.py``) until ``migrate_schema``.
+Lean stores over a mesh, fused serving, persistence, multi-controller
+meshes, ``explain_analyze`` and ``storage_report`` are not ported and
+raise rather than degrade.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from .device import resolve_device
 from .features.batch import FeatureBatch, build_columns
 from .features.feature_type import FeatureType, parse_spec
 from .features.lean import ChunkView, LeanBatch
+from .geometry.types import Envelope
 from .index.attr_lean import NUMERIC_TYPES, LeanAttrIndex
 from .index.attribute import AttributeIndex
 from .index.id import IdIndex, LeanIdIndex
@@ -83,16 +96,27 @@ from .parallel.scan import ShardedZ3Index
 from .parallel.xz import ShardedXZ2Index, ShardedXZ3Index
 from .parallel.z2 import ShardedZ2Index
 from .planning.estimator import CardinalityEstimator
-from .planning.explain import Explainer
+from .planning.explain import Explainer, ExplainString
 from .planning.interceptor import apply_interceptors, load_interceptors
 from .planning.planner import Query, QueryPlanner, QueryResult
 from .planning.strategy import FilterStrategy
+from .security import parse_visibility, visibility_mask
 from .stats.stat import (
-    BBoxStat, CountStat, EnumerationStat, MinMax, Stat, TopK, observe_shared,
+    BBoxStat, CountStat, EnumerationStat, Histogram, MinMax, Stat, TopK,
+    observe_shared,
 )
 from .utils.feature_id import z3_feature_ids
 
-__all__ = ["TpuDataStore"]
+__all__ = ["TpuDataStore", "CURRENT_INDEX_VERSIONS"]
+
+
+def _check_schema_name(name: str) -> None:
+    """Schema names are letters, digits, underscore and dash (the
+    reference's stores restrict table-backed names the same way)."""
+    if not re.fullmatch(r"[A-Za-z0-9_-]+", name):
+        raise ValueError(
+            f"invalid schema name {name!r}: letters, digits, "
+            "underscore and dash only")
 
 
 def _max_numeric_id(ids: np.ndarray) -> int:
@@ -110,10 +134,28 @@ def _max_numeric_id(ids: np.ndarray) -> int:
     return int(s[mask].astype(np.int64).max())
 
 
-#: current key-layout version of each ported index (the JAX package's
-#: table: the xz layouts have one version)
-_CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION,
-                           "xz3": 1, "xz2": 1}
+#: current per-index key-layout versions (the reference's Z3IndexV7-style
+#: version registry); v1 of z3/z2 is the legacy semi-normalized curve
+#: (curve/legacy.py)
+CURRENT_INDEX_VERSIONS = {"z3": Z3_INDEX_VERSION, "z2": Z2_INDEX_VERSION,
+                          "xz2": 1, "xz3": 1, "attr": 1, "id": 1}
+
+
+def _parse_index_versions(user_data: dict) -> dict:
+    """Per-schema overrides from user data: ``geomesa.index.versions =
+    "z3:1,z2:1"`` pins listed indexes to old layouts (data imported from
+    a system that wrote legacy keys); ``current`` (or nothing) keeps
+    every index at its current layout."""
+    versions = dict(CURRENT_INDEX_VERSIONS)
+    raw = (user_data or {}).get("geomesa.index.versions", "")
+    if raw and raw != "current":
+        for part in raw.split(","):
+            name, _, v = part.strip().partition(":")
+            if name not in versions:
+                raise ValueError(f"unknown index {name!r} in "
+                                 "geomesa.index.versions")
+            versions[name] = int(v)
+    return versions
 
 
 class _SchemaStore:
@@ -145,7 +187,20 @@ class _SchemaStore:
         self.sft = sft
         self.device = device
         self.mesh = mesh
+        #: per-index key-layout versions (``geomesa.index.versions``;
+        #: migrate_schema moves them to the current layouts)
+        self.index_versions: dict = _parse_index_versions(sft.user_data)
         self.batch: FeatureBatch | LeanBatch | None = None
+        #: deleted-row mask (lean profile: rows are never removed and ids
+        #: never reused — the delete as a mask every query applies)
+        self.tombstone: np.ndarray | None = None
+        #: per-feature visibility labels (object array of strings)
+        self.visibilities: np.ndarray | None = None
+        #: attr name → per-feature labels guarding just that attribute
+        #: (the reference's attribute-level visibility)
+        self.attr_visibilities: dict[str, np.ndarray] = {}
+        #: per-auth-set row masks and attribute-masked batches
+        self._vis_masks: dict = {}
         self._indexes: dict = {}
         #: rows each kept (attribute) index covers — the rows appended
         #: since ride as its tail (index_tail)
@@ -236,7 +291,7 @@ class _SchemaStore:
         if idx is None:
             idx = LeanZ3Index(
                 period=self.sft.z3_interval,
-                version=_index_version(self.sft, "z3"),
+                version=self.index_versions["z3"],
                 generation_slots=self._lean_user_int(
                     "geomesa.lean.generation.slots", None),
                 hbm_budget_bytes=self._lean_z3_budget(),
@@ -245,6 +300,18 @@ class _SchemaStore:
                     self.LEAN_COMPACTION_FACTOR),
                 device=self.device)
             idx.payload_provider = self._lean_payload
+            # a rebuild (after migrate_schema) streams the column store
+            # in 2^22-row steps; the seal hook registers only after it,
+            # so seals during the stream never recurse into the builder
+            n = len(self.batch)
+            if n:
+                x, y = self.batch.geom_xy()
+                t = self.batch.column(self.sft.dtg_field)
+                step = 1 << 22
+                for lo in range(0, n, step):
+                    idx.append(np.asarray(x[lo:lo + step], np.float64),
+                               np.asarray(y[lo:lo + step], np.float64),
+                               np.asarray(t[lo:lo + step], np.int64))
             if self.pyramid_trigger is not None:
                 idx.generation_listeners.append(self.pyramid_trigger)
             self._indexes["z3"] = idx
@@ -354,19 +421,31 @@ class _SchemaStore:
         raw = (self.sft.user_data or {}).get(key)
         return int(raw) if raw not in (None, "") else default
 
-    def _lean_write(self, chunk: ChunkView) -> None:
+    def _lean_write(self, chunk: ChunkView, visibility: str = "") -> None:
         """Streaming ingest: observe stats on the chunk, append its
         columns by reference, and push its keys into the live index —
-        O(chunk) per write."""
+        O(chunk) per write.  Visibility labels materialize only once a
+        write carries one (an object per row is real memory at lean
+        scale); the tombstone grows with every write once it exists."""
+        n_new = len(chunk)
+        prior = len(self.batch)
+        if visibility or self.visibilities is not None:
+            if self.visibilities is None:
+                self.visibilities = np.full(prior, "", dtype=object)
+            self.visibilities = np.concatenate(
+                [self.visibilities, np.full(n_new, visibility, dtype=object)])
+        self._vis_masks = {}
         # TopK and Enumeration of one attribute share one unique pass
         observe_shared(self._stats, chunk)
-        prior = len(self.batch)
-        # index BEFORE the batch grows (it is created empty; a late
-        # attribute index streams the batch's current rows)
+        # index BEFORE the batch grows (a new or rebuilt index streams
+        # the batch's current rows)
         idx = self._lean_index()
         attr_idx = [(a, self._lean_attr_index(a))
                     for a in self._lean_attr_names()]
         self.batch.append_batch(chunk)
+        if self.tombstone is not None:
+            self.tombstone = np.concatenate(
+                [self.tombstone, np.zeros(n_new, dtype=bool)])
         if self.lean_kind == "z3":
             x, y = chunk.geom_xy(self.sft.geom_field)
             dtg = np.asarray(chunk.column(self.sft.dtg_field), np.int64)
@@ -431,6 +510,131 @@ class _SchemaStore:
             self._estimator = CardinalityEstimator(self)
         return self._estimator
 
+    def _lean_observe_masked(self, proto: Stat, mask: np.ndarray | None):
+        """Fold the (masked) rows into a fresh copy of ``proto`` in 2^22-row
+        slices, never materializing the full row set (the chunked
+        re-observe for restricted callers and post-delete stats)."""
+        fresh = proto.fresh_copy()
+        n = len(self.batch)
+        step = 1 << 22
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            view = self.batch.slice_view(lo, hi)
+            if mask is not None:
+                sub = mask[lo:hi]
+                if not sub.all():
+                    if not sub.any():
+                        continue
+                    view = view.take(np.flatnonzero(sub))
+            fresh.observe(view)
+        return fresh
+
+    def _numeric_histograms(self, live: np.ndarray | None) -> None:
+        """32-bin range histograms of the indexed numeric attributes over
+        the live rows (the stats-analyze products the cost estimator
+        reads; bounds come from the data, so they exist only after a
+        recompute)."""
+        for a in self.sft.attributes:
+            if (a.indexed and a.type in ("int", "long", "float", "double")
+                    and a.name in self.batch.columns):
+                col = self.batch.column(a.name)
+                if len(col) and col.dtype != object:
+                    sel = col if live is None else col[live]
+                    if len(sel):
+                        lo, hi = float(sel.min()), float(sel.max())
+                        if hi > lo:
+                            self._stats[f"{a.name}_histogram"] = \
+                                Histogram(a.name, 32, lo, hi)
+
+    def _lean_recompute_stats(self) -> None:
+        """Chunked recompute over the LIVE rows (deletes tombstone rows
+        but sketches are not invertible — the re-observe contract of
+        recompute_stats, sliced to bound host memory)."""
+        self._stats = {}
+        self._init_stats()
+        if not len(self.batch):
+            return
+        live = None if self.tombstone is None else ~self.tombstone
+        self._numeric_histograms(live)
+        for key, s in list(self._stats.items()):
+            self._stats[key] = self._lean_observe_masked(s, live)
+
+    def recompute_stats(self) -> None:
+        """Rebuild every sketch from the current rows (sketches are not
+        invertible, so deletes re-observe); indexed numeric attributes
+        additionally get range histograms."""
+        if self.lean:
+            self._lean_recompute_stats()
+            return
+        self._stats = {}
+        self._init_stats()
+        if self.batch is not None and len(self.batch):
+            self._numeric_histograms(None)
+            for s in self._stats.values():
+                s.observe(self.batch)
+
+    def has_tombstones(self) -> bool:
+        """Whether a delete tombstoned any row (lean profile): the lean
+        push-downs then fall back, as they cannot see row liveness."""
+        return self.tombstone is not None and bool(self.tombstone.any())
+
+    def drop_indexes(self) -> None:
+        """Forget every built index with its coverage (the cached
+        attribute z3-tier keys and the id index included): after a delete
+        moved the row positions, or a layout migration, a kept index or
+        its tail would hand back wrong rows.  Each rebuilds on its next
+        use."""
+        self._indexes.clear()
+        self._index_coverage.clear()
+
+    def masked_batch(self, auths):
+        """Batch with attribute-guarded values nulled for these auths —
+        used for FILTERING as well as results, so a restricted caller
+        cannot probe guarded values via CQL predicates.  Cached per auth
+        set (at most 16 masked batches); unguarded columns share the
+        original arrays."""
+        if not self.attr_visibilities or self.batch is None:
+            return self.batch
+        key = ("attrs", frozenset(auths))
+        cache = self._vis_masks
+        if key not in cache:
+            masked_keys = [k for k in cache
+                           if isinstance(k, tuple) and k[0] == "attrs"]
+            if len(masked_keys) >= 16:
+                cache.pop(masked_keys[0], None)
+            cols = dict(self.batch.columns)
+            changed = False
+            for attr, labels in self.attr_visibilities.items():
+                if attr not in cols:
+                    continue
+                mask = visibility_mask(labels, frozenset(auths))
+                if mask.all():
+                    continue
+                col = cols[attr]
+                col = col.astype(object) if col.dtype != object else col.copy()
+                col[~mask] = None
+                cols[attr] = col
+                changed = True
+            cache[key] = (FeatureBatch(self.batch.sft, cols, self.batch.ids,
+                                       self.batch.geoms)
+                          if changed else self.batch)
+        return cache[key]
+
+    def vis_mask(self, auths) -> np.ndarray | None:
+        """Cached per-auth-set visibility mask over all features (at most
+        64 auth sets); None when every label is visible."""
+        if self.visibilities is None:
+            return None
+        key = frozenset(auths)
+        cache = self._vis_masks
+        if key not in cache:
+            row_keys = [k for k in cache if isinstance(k, frozenset)]
+            if len(row_keys) >= 64:
+                cache.pop(row_keys[0], None)
+            mask = visibility_mask(self.visibilities, key)
+            cache[key] = None if mask.all() else mask
+        return cache[key]
+
     def _init_stats(self):
         sft = self.sft
         self._stats["count"] = CountStat()
@@ -449,8 +653,27 @@ class _SchemaStore:
                 self._stats[f"{a.name}_topk"] = TopK(a.name)
                 self._stats[f"{a.name}_enumeration"] = EnumerationStat(a.name)
 
-    def write(self, batch: FeatureBatch):
-        self.batch = batch if self.batch is None else self.batch.concat(batch)
+    def write(self, batch: FeatureBatch, visibility: str = "",
+              attribute_visibilities: dict | None = None):
+        vis = np.full(len(batch), visibility, dtype=object)
+        prior = 0 if self.batch is None else len(self.batch)
+        if self.batch is None:
+            self.batch = batch
+            self.visibilities = vis
+        else:
+            self.batch = self.batch.concat(batch)
+            self.visibilities = np.concatenate([self.visibilities, vis])
+        # per-attribute labels: other attributes and rows pad with ""
+        # (visible)
+        touched = set(self.attr_visibilities) | set(
+            attribute_visibilities or ())
+        for attr in touched:
+            col = self.attr_visibilities.get(
+                attr, np.full(prior, "", dtype=object))
+            label = (attribute_visibilities or {}).get(attr, "")
+            self.attr_visibilities[attr] = np.concatenate(
+                [col, np.full(len(batch), label, dtype=object)])
+        self._vis_masks = {}
         # the id index is a sorted snapshot of the ids: rebuilt lazily
         self._indexes.pop("id", None)
         for s in self._stats.values():
@@ -598,7 +821,7 @@ class _SchemaStore:
                 self._indexes["id"] = IdIndex.build(self.batch.ids)
                 self.build_counts["id"] = self.build_counts.get("id", 0) + 1
             return self._indexes["id"]
-        if name not in _CURRENT_INDEX_VERSIONS and name != "attr":
+        if name not in CURRENT_INDEX_VERSIONS:
             raise NotImplementedError(f"index {name!r} is not ported")
         sft = self.sft
         enabled = sft.enabled_indices
@@ -654,10 +877,10 @@ class _SchemaStore:
         if self.mesh is not None:
             return ShardedZ3Index.build(
                 x, y, dtg, period=self.sft.z3_interval, mesh=self.mesh,
-                version=_index_version(self.sft, "z3"))
+                version=self.index_versions["z3"])
         return Z3PointIndex.build(
             x, y, dtg, period=self.sft.z3_interval,
-            version=_index_version(self.sft, "z3"), device=self.device)
+            version=self.index_versions["z3"], device=self.device)
 
     def _build_z2(self):
         # the z2 index owns its x/y copies: the JAX store shares them with
@@ -666,9 +889,9 @@ class _SchemaStore:
         x, y = self.batch.geom_xy()
         if self.mesh is not None:
             return ShardedZ2Index.build(
-                x, y, mesh=self.mesh, version=_index_version(self.sft, "z2"))
+                x, y, mesh=self.mesh, version=self.index_versions["z2"])
         return Z2PointIndex.build(
-            x, y, version=_index_version(self.sft, "z2"), device=self.device)
+            x, y, version=self.index_versions["z2"], device=self.device)
 
     def _build_xz3(self):
         # the sequence codes' resolution is the schema's
@@ -689,18 +912,16 @@ class _SchemaStore:
         return XZ2Index.build(self.batch.geoms, g=self.sft.xz_precision)
 
 
-def _index_version(sft: FeatureType, index: str) -> int:
-    """The schema's key-layout version of ``index``
-    (``geomesa.index.versions`` user data, e.g. ``"z3:1,z2:1"``, pins old
-    layouts; only the current ones are ported)."""
-    raw = (sft.user_data or {}).get("geomesa.index.versions", "")
-    version = _CURRENT_INDEX_VERSIONS[index]
-    if raw and raw != "current":
-        for part in raw.split(","):
-            name, _, v = part.strip().partition(":")
-            if name == index:
-                version = int(v)
-    return version
+class _MaskedStoreView:
+    """Delegates to a _SchemaStore but substitutes the attribute-masked
+    batch (attribute-level visibility for restricted callers)."""
+
+    def __init__(self, store: _SchemaStore, batch: FeatureBatch):
+        self._store = store
+        self.batch = batch
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
 
 
 class TpuDataStore:
@@ -719,18 +940,19 @@ class TpuDataStore:
         caller names the CPU; with no card and no explicit ``"cpu"`` this
         raises.  ``mesh``: a :class:`~geomesa_tpu_torch.parallel.mesh.
         DeviceMesh`; every index then builds its sharded variant over it
-        (``device`` still places the query path's heatmap grids)."""
+        (``device`` still places the query path's heatmap grids).
+        ``auth_provider``: an :class:`~geomesa_tpu_torch.security.
+        AuthorizationsProvider`; queries, stats and bounds then see only
+        the rows (and attribute values) its authorizations satisfy."""
         if catalog_dir is not None:
             raise NotImplementedError(
                 "catalog persistence and lean snapshots are not ported")
         if multihost:
             raise NotImplementedError(
                 "multi-controller (multihost) stores are not ported")
-        if auth_provider is not None:
-            raise NotImplementedError(
-                "authorizations and visibilities are not ported")
         self.device = resolve_device(device)
         self._mesh = mesh
+        self._auth_provider = auth_provider
         self._schemas: dict[str, _SchemaStore] = {}
         #: per-schema query interceptors (``geomesa.query.interceptors``
         #: and ``geomesa.age.off`` user data), loaded at create_schema
@@ -742,14 +964,11 @@ class TpuDataStore:
             sft = sft_or_name
         else:
             sft = parse_spec(sft_or_name, spec)
-        if not re.fullmatch(r"[A-Za-z0-9_-]+", sft.name):
-            raise ValueError(
-                f"invalid schema name {sft.name!r}: letters, digits, "
-                "underscore and dash only")
+        _check_schema_name(sft.name)
         if sft.name in self._schemas:
             raise ValueError(f"schema {sft.name!r} already exists")
         store = _SchemaStore(sft, self.device, mesh=self._mesh)
-        store.pyramid_trigger = self._pyramid_listener(sft.name)
+        store.pyramid_trigger = self._pyramid_listener(store)
         self._schemas[sft.name] = store
         # interceptors resolve EAGERLY: a typoed class path fails
         # create_schema, not the first query
@@ -759,6 +978,55 @@ class TpuDataStore:
     def get_schema(self, name: str) -> FeatureType:
         return self._store(name).sft
 
+    def update_schema(self, name: str, sft: FeatureType) -> None:
+        """Replace schema metadata (the reference's updateSchema,
+        MetadataBackedDataStore.scala:205 — renames and user-data
+        updates).  Attributes cannot be added or removed;
+        ``geomesa.index.versions=current`` migrates the layouts first.
+        A rename is validated (name grammar, collisions) before any state
+        changes, and the interceptors re-resolve, so a bad one fails
+        here rather than at the next query."""
+        store = self._store(name)
+        if ([a.name for a in sft.attributes]
+                != [a.name for a in store.sft.attributes]):
+            raise ValueError("updateSchema cannot add/remove attributes")
+        if sft.user_data.get("geomesa.index.versions") == "current":
+            self.migrate_schema(name)
+        if sft.name != name:
+            _check_schema_name(sft.name)
+            if sft.name in self._schemas:
+                raise ValueError(f"cannot rename schema {name!r} to "
+                                 f"{sft.name!r}: that schema already exists")
+        store.sft = sft
+        self._interceptors.pop(name, None)
+        if sft.name != name:
+            self._schemas[sft.name] = self._schemas.pop(name)
+        self._interceptors[sft.name] = load_interceptors(sft)
+
+    def remove_schema(self, name: str) -> None:
+        """Drop a schema with its rows, indexes and stats (no error when
+        it does not exist)."""
+        self._schemas.pop(name, None)
+        self._interceptors.pop(name, None)
+
+    def migrate_schema(self, name: str) -> dict:
+        """Upgrade a schema's index layouts to the CURRENT versions (the
+        reference's index-format migration): indexes rebuild from the
+        column store with current key math on next use (a lean scale
+        index at once, streamed).  Returns the versions before."""
+        store = self._store(name)
+        old = dict(store.index_versions)
+        store.index_versions = dict(CURRENT_INDEX_VERSIONS)
+        # stale layouts must not serve another query
+        store.drop_indexes()
+        if "geomesa.index.versions" in store.sft.user_data:
+            ud = dict(store.sft.user_data)
+            del ud["geomesa.index.versions"]
+            store.sft = FeatureType(store.sft.name, store.sft.attributes,
+                                    store.sft.default_geom, ud)
+        return old
+
+    @property
     def type_names(self) -> list[str]:
         return sorted(self._schemas)
 
@@ -770,9 +1038,17 @@ class TpuDataStore:
     # -- ingest -----------------------------------------------------------
     def write(self, name: str, data, ids=None, visibility: str = "",
               attribute_visibilities: dict | None = None) -> int:
-        """Append features: a FeatureBatch or a dict of columns."""
-        if visibility or attribute_visibilities:
-            raise NotImplementedError("visibilities are not ported")
+        """Append features: a FeatureBatch or a dict of columns.
+
+        ``visibility`` is a visibility expression (e.g. ``"admin&ops"``)
+        on every feature of this write; queries made with an auth
+        provider see only features whose expression their authorizations
+        satisfy.  ``attribute_visibilities`` maps attribute names to
+        expressions guarding just that attribute: unauthorized callers
+        see the row with the guarded values nulled (default profile and
+        mesh only)."""
+        if visibility:
+            parse_visibility(visibility)  # validate eagerly
         store = self._store(name)
         sft = store.sft
         # auto-profile: only point schemas WITH a dtg, and only without a
@@ -781,7 +1057,7 @@ class TpuDataStore:
         if (not store.lean and store.batch is None and self._mesh is None
                 and sft.is_points and sft.geom_field
                 and sft.dtg_field and not isinstance(data, FeatureBatch)
-                and ids is None):
+                and ids is None and not attribute_visibilities):
             first = next(iter(data.values()), ())
             n_first = (len(first[0]) if isinstance(first, tuple)
                        else len(first))
@@ -789,6 +1065,10 @@ class TpuDataStore:
                 store._init_lean()
                 sft.user_data["geomesa.index.profile"] = "lean"
         if store.lean:
+            if attribute_visibilities:
+                raise ValueError(
+                    "attribute-level visibility is not supported on "
+                    "lean-profile schemas (row visibility is)")
             if ids is not None or (isinstance(data, FeatureBatch)
                                    and data.ids_explicit):
                 raise ValueError(
@@ -803,9 +1083,17 @@ class TpuDataStore:
                 n_chunk = (len(next(iter(cols.values()))) if cols
                            else len(geoms) if geoms is not None else 0)
                 chunk = ChunkView(sft, cols, n_chunk, geoms=geoms)
-            store._lean_write(chunk)
+            store._lean_write(chunk, visibility)
             store.next_fid = len(store.batch)
             return len(chunk)
+        for attr, expr in (attribute_visibilities or {}).items():
+            spec = sft.attribute(attr)   # KeyError on typos
+            if spec.is_geometry or attr == sft.dtg_field:
+                raise ValueError(
+                    "cannot set attribute visibility on geometry or the "
+                    f"dtg field ({attr!r}): indexes scan them unmasked")
+            if expr:
+                parse_visibility(expr)
         batch = (data if isinstance(data, FeatureBatch)
                  else FeatureBatch.from_dict(store.sft, data, ids=ids))
         if not batch.ids_explicit:
@@ -813,7 +1101,7 @@ class TpuDataStore:
             # shallow copy so the caller's batch is never mutated: with
             # ``geomesa.fid.strategy=z3`` user data, z-prefixed UUIDs
             # (Z3FeatureIdGenerator locality), else a monotonic counter,
-            # never reused
+            # never reused (not even after deletes)
             if (sft.user_data.get("geomesa.fid.strategy") == "z3"
                     and sft.is_points and sft.dtg_field):
                 x, y = batch.geom_xy()
@@ -840,9 +1128,57 @@ class TpuDataStore:
                     f"feature id {clash!r} already exists in schema "
                     f"{name!r} (delete it first, or use auto-generated ids)")
             next_fid = max(store.next_fid, _max_numeric_id(batch.ids) + 1)
-        store.write(batch)
+        store.write(batch, visibility=visibility,
+                    attribute_visibilities=attribute_visibilities)
         store.next_fid = next_fid
         return len(batch)
+
+    def delete(self, name: str, ids) -> int:
+        """Remove features by id (the reference's modifying writer /
+        removeFeatures path); returns how many rows this call removed.
+        On the lean profile the rows are TOMBSTONED: positions stay
+        stable, the live indexes keep them and every query masks them
+        out, and a second delete of the same ids counts 0.  Elsewhere
+        the rows leave the column store, every built index is dropped
+        with its coverage (row positions moved) and rebuilds on its next
+        use.  Stats are recomputed from the surviving rows — sketches are
+        not invertible.  Auto ids are never reused."""
+        store = self._store(name)
+        req = np.atleast_1d(np.asarray(ids, dtype=object))
+        if store.lean:
+            # duplicate ids cannot double-count: the lookup is unique'd
+            rows = LeanIdIndex(len(store.batch)).query(req)
+            newly = rows
+            if len(rows):
+                if store.tombstone is None:
+                    store.tombstone = np.zeros(len(store.batch), dtype=bool)
+                newly = rows[~store.tombstone[rows]]
+                store.tombstone[rows] = True
+            if len(newly):
+                store._vis_masks = {}
+                store._lean_recompute_stats()
+            return int(len(newly))
+        if store.batch is None or not len(store.batch):
+            return 0
+        drop = {str(i) for i in req}
+        ids_all = store.batch.ids
+        keep = np.fromiter((str(i) not in drop for i in ids_all), bool,
+                           len(ids_all))
+        removed = int(len(keep) - np.count_nonzero(keep))
+        if removed:
+            if store._id_set is not None:
+                store._id_set.difference_update(
+                    str(i) for i in ids_all[~keep])
+            store.batch = store.batch.take(np.flatnonzero(keep))
+            if store.visibilities is not None:
+                store.visibilities = store.visibilities[keep]
+            for attr in list(store.attr_visibilities):
+                store.attr_visibilities[attr] = \
+                    store.attr_visibilities[attr][keep]
+            store._vis_masks = {}
+            store.drop_indexes()
+            store.recompute_stats()
+        return removed
 
     # -- query ------------------------------------------------------------
     def query(self, name: str, query="INCLUDE",
@@ -851,18 +1187,82 @@ class TpuDataStore:
 
     def query_result(self, name: str, query="INCLUDE",
                      explain: Explainer | None = None) -> QueryResult:
+        return self._query_result_ex(name, query, explain)[0]
+
+    def _query_result_ex(self, name: str, query="INCLUDE",
+                         explain: Explainer | None = None,
+                         materialize: bool = True):
+        """The shared query executor: returns ``(result, eval_store)``,
+        the store (possibly attribute-masked for this caller) whose batch
+        the residual filter ran over, so a caller that skips the result
+        batch (``materialize=False``) gathers its columns from it.
+
+        Rows this caller may not see — a failed visibility, a lean
+        tombstone — are masked out before sort and ``max_features``, so
+        the limit fills from visible rows; attribute-guarded values are
+        nulled for the filter as well as the result."""
         store = self._store(name)
         q = query if isinstance(query, Query) else Query.of(query)
         q = self._intercept(store.sft, q)
         if store.batch is None or len(store.batch) == 0:
-            return QueryResult(FeatureBatch.empty(store.sft),
-                               np.empty(0, dtype=np.int64),
-                               FilterStrategy("none", 0), 0.0, 0.0)
-        return QueryPlanner(store.sft, store).run(q, explain)
+            result = QueryResult(FeatureBatch.empty(store.sft),
+                                 np.empty(0, dtype=np.int64),
+                                 FilterStrategy("none", 0), 0.0, 0.0)
+            return result, store
+        allowed = None
+        eval_store = store
+        if self._auth_provider is not None:
+            auths = self._auth_provider.get_authorizations()
+            allowed = store.vis_mask(auths)
+            masked = store.masked_batch(auths)
+            if masked is not store.batch:
+                eval_store = _MaskedStoreView(store, masked)
+        if store.tombstone is not None:
+            live = ~store.tombstone
+            allowed = live if allowed is None else (allowed & live)
+        result = QueryPlanner(store.sft, eval_store).run(
+            q, explain, allowed=allowed, materialize=materialize)
+        return result, eval_store
+
+    def _hit_columns(self, name: str, query):
+        """The hits of ``query`` as a column batch (ids are not minted on
+        the lean profile: an id-free view of the hit rows).  The
+        materializing stat and heatmap paths read their columns from
+        it."""
+        result, eval_store = self._query_result_ex(name, query,
+                                                   materialize=False)
+        batch = eval_store.batch
+        pos = result.positions
+        if batch is None or not len(pos):
+            return result, FeatureBatch.empty(self._store(name).sft)
+        if isinstance(batch, LeanBatch):
+            return result, batch.take_view(pos)
+        return result, batch.take(pos)
+
+    def explain(self, name: str, query="INCLUDE") -> str:
+        """The query's plan as text (the reference's explainQuery): the
+        planner's trace of strategy options, costs and the chosen
+        index."""
+        ex = ExplainString()
+        self.query_result(name, query, ex)
+        return str(ex)
+
+    def explain_analyze(self, name: str, query="INCLUDE"):
+        raise NotImplementedError(
+            "explain_analyze (traced actuals) is not ported: it needs the "
+            "observability layer (ROADMAP A8)")
+
+    def storage_report(self) -> dict:
+        raise NotImplementedError(
+            "storage_report is not ported: it needs the observability "
+            "layer's resource accounting (ROADMAP A8)")
 
     def _intercept(self, sft: FeatureType, q: Query) -> Query:
         """The schema's interceptors' rewrite of ``q`` (QueryInterceptor
-        SPI: age-off windows, guards that raise)."""
+        SPI: age-off windows, guards that raise); loaded here when an
+        update's failed resolution left none."""
+        if sft.name not in self._interceptors:
+            self._interceptors[sft.name] = load_interceptors(sft)
         return apply_interceptors(self._interceptors[sft.name], sft, q)
 
     # -- aggregation --------------------------------------------------------
@@ -874,6 +1274,124 @@ class TpuDataStore:
         :func:`~geomesa_tpu_torch.process.stats_process.stats_process`)."""
         from .process.stats_process import stats_process
         return stats_process(self, name, query, spec)
+
+    def stats_analyze(self, name: str) -> int:
+        """Recompute a schema's sketches from its stored rows (the
+        reference's stats-analyze / StatsRunner); returns the observed
+        feature count.  With no catalog there is nothing to persist."""
+        store = self._store(name)
+        store.recompute_stats()
+        return 0 if store.batch is None else len(store.batch)
+
+    def _restricted_mask(self, store: _SchemaStore) -> np.ndarray | None:
+        """Visibility mask when this caller cannot see every row (stats
+        are observed over ALL writes, so restricted callers must not read
+        them directly — that would leak counts, values and extents of
+        hidden rows)."""
+        if self._auth_provider is None or store.batch is None:
+            return None
+        return store.vis_mask(self._auth_provider.get_authorizations())
+
+    def _effective_mask(self, store: _SchemaStore,
+                        only_if_restricted: bool = False):
+        """Restricted-visibility mask combined with lean tombstones — the
+        rows this caller can see.  With ``only_if_restricted`` the
+        tombstones ride along only when a visibility restriction exists:
+        the store's sketches already exclude deleted rows (delete-time
+        recompute), so an unrestricted caller never pays the re-observe
+        path for tombstones alone."""
+        mask = self._restricted_mask(store)
+        tomb = store.tombstone
+        if tomb is None or (only_if_restricted and mask is None):
+            return mask
+        live = ~tomb
+        return live if mask is None else (mask & live)
+
+    def get_count(self, name: str, query=None) -> int:
+        """Features of the schema this caller can see (or matching
+        ``query``): the hit count of a query, the effective mask's sum,
+        or the count sketch."""
+        store = self._store(name)
+        if query is not None:
+            return len(self.query_result(name, query).positions)
+        mask = self._effective_mask(store)
+        if mask is not None:
+            return int(mask.sum())
+        return store.stats_map()["count"].count
+
+    def get_bounds(self, name: str):
+        """The spatial extent (an ``Envelope``) of the rows this caller
+        can see, or None.  On the lean profile it is the running extent,
+        or under a mask the x/y columns' extent over the visible rows
+        (never the per-feature bbox materialization)."""
+        store = self._store(name)
+        if store.batch is None or len(store.batch) == 0:
+            return None
+        mask = self._effective_mask(store)
+        if store.lean:
+            if mask is None:
+                env = store.batch.envelope
+                pairs = (np.array([env]) if env is not None
+                         else np.empty((0, 4)))
+            else:
+                x, y = store.batch.geom_xy()
+                pairs = (np.array([[x[mask].min(), y[mask].min(),
+                                    x[mask].max(), y[mask].max()]])
+                         if mask.any() else np.empty((0, 4)))
+            bb = pairs
+        else:
+            bb = store.batch.geom_bbox()
+            if mask is not None:
+                bb = bb[mask] if mask.any() else bb[:0]
+        if not len(bb):
+            return None
+        return Envelope(float(bb[:, 0].min()), float(bb[:, 1].min()),
+                        float(bb[:, 2].max()), float(bb[:, 3].max()))
+
+    def _attr_guarded(self, store: _SchemaStore, attr: str) -> bool:
+        """True when this caller cannot see every value of ``attr``."""
+        if (self._auth_provider is None
+                or attr not in store.attr_visibilities):
+            return False
+        return not visibility_mask(
+            store.attr_visibilities[attr],
+            self._auth_provider.get_authorizations()).all()
+
+    def get_attribute_bounds(self, name: str, attr: str):
+        """``(min, max)`` of an attribute over the rows this caller can
+        see, or None (also when a value of it is guarded from the
+        caller)."""
+        store = self._store(name)
+        if self._attr_guarded(store, attr):
+            return None
+        mask = self._effective_mask(store, only_if_restricted=True)
+        if mask is not None:
+            col = store.batch.column(attr)[mask]
+            if not len(col):
+                return None
+            return col.min(), col.max()
+        mm = store.stats_map().get(f"{attr}_minmax")
+        return None if mm is None or mm.is_empty else mm.bounds
+
+    def stat(self, name: str, key: str) -> Stat | None:
+        """One of the schema's sketches (``count``, ``dtg_minmax``,
+        ``<attr>_minmax``, ...).  For a restricted caller it is observed
+        again over the visible rows, so hidden values cannot leak; None
+        when its attribute is guarded from the caller."""
+        store = self._store(name)
+        stats = store.stats_map()
+        attr = getattr(stats.get(key), "attr", None)
+        if attr and self._attr_guarded(store, attr):
+            return None
+        mask = self._effective_mask(store, only_if_restricted=True)
+        s = stats.get(key)
+        if mask is None or s is None:
+            return s
+        if store.lean:
+            return store._lean_observe_masked(s, mask)
+        fresh = s.fresh_copy()
+        fresh.observe(store.batch.take(np.flatnonzero(mask)))
+        return fresh
 
     def _hit_residency(self, store: _SchemaStore, positions: np.ndarray):
         """Per-hit shard ids, the grouping input of the mesh stats reducer:
@@ -898,7 +1416,9 @@ class TpuDataStore:
         ``geomesa.density.pyramid.base``, a bbox scan beyond).  Otherwise
         the tile runs through :func:`density_process` with the tile
         envelope ANDed into the filter (CQL string), as it does on a lean
-        XZ schema, whose index has no density path.  The JAX store's
+        XZ schema, whose index has no density path, on a lean store with
+        tombstones, and under an auth provider: the exact tile over the
+        rows the caller sees.  The JAX store's
         admission token, spans and metrics are not ported; a deadline
         (``timeout_ms``) raises rather than being ignored."""
         if timeout_ms is not None:
@@ -910,7 +1430,8 @@ class TpuDataStore:
         if not (0 <= z <= 30) or not (0 <= x < n and 0 <= y < n):
             raise ValueError(f"tile ({z}/{x}/{y}) out of range")
         store = self._store(name)
-        if (query is None and store.lean and store.batch is not None
+        if (query is None and self._auth_provider is None and store.lean
+                and not store.has_tombstones() and store.batch is not None
                 and store.lean_kind == "z3"):
             return np.asarray(store._lean_index().density_tile(z, x, y, tile),
                               np.float64)
@@ -933,30 +1454,32 @@ class TpuDataStore:
         default-profile schemas."""
         return self._store(name).compact_lean(budget_ms=budget_ms)
 
-    def _pyramid_listener(self, name: str):
+    def _pyramid_listener(self, store: _SchemaStore):
         """The generation-lifecycle hook parked on every schema store: on
         seal — when ``geomesa.density.pyramid.build`` is ``seal`` at fire
-        time — run one build-behind pyramid pass.  Best-effort by
-        contract: a failed build never fails the write that sealed the
-        generation (queries stay exact through the sweep); each failure
-        counts on the schema store, which keeps the last error."""
-        # a weak reference: the hook lives on the store's own index, and a
+        time — run one build-behind pyramid pass over the schema under
+        its name at that time (a rename keeps the hook working).
+        Best-effort by contract: a failed build never fails the write
+        that sealed the generation (queries stay exact through the
+        sweep); each failure counts on the schema store, which keeps the
+        last error."""
+        # weak references: the hook lives on the store's own index, and a
         # strong one would make a cycle that keeps a dropped store's
         # device memory allocated until the cyclic collector runs
         ds_ref = weakref.ref(self)
+        store_ref = weakref.ref(store)
 
         def on_event(kind: str, gen_ids: list) -> None:
-            ds = ds_ref()
-            if kind != "seal" or ds is None:
+            ds, st = ds_ref(), store_ref()
+            if kind != "seal" or ds is None or st is None:
                 return
             if str(DensityProperties.PYRAMID_BUILD.get() or "off") != "seal":
                 return
             try:
-                run_pyramid_build(ds, name)
+                run_pyramid_build(ds, st.sft.name)
             except Exception as e:  # noqa: BLE001 — build-behind is best-effort
-                store = ds._store(name)
-                store.pyramid_build_failures += 1
-                store.pyramid_build_error = e
+                st.pyramid_build_failures += 1
+                st.pyramid_build_error = e
         return on_event
 
     def build_pyramids(self, name: str) -> int:
@@ -976,6 +1499,3 @@ class TpuDataStore:
 
     def query_fused(self, name: str, query="INCLUDE", **kw):
         raise NotImplementedError("the fused serving plane is not ported")
-
-    def delete(self, name: str, query=None, ids=None) -> int:
-        raise NotImplementedError("deletes and tombstones are not ported")

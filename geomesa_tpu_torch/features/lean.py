@@ -190,6 +190,12 @@ class LeanBatch:
                          geoms=(geoms.take(positions)
                                 if geoms is not None else None))
 
+    def slice_view(self, lo: int, hi: int) -> ChunkView:
+        """Zero-copy row-range view (the chunked stats recompute iterates
+        these; no ids materialized)."""
+        cols = {k: self.column(k)[lo:hi] for k in self._chunks}
+        return ChunkView(self.sft, cols, hi - lo)
+
     def take(self, positions: np.ndarray, columns=None) -> FeatureBatch:
         """Materialize a real FeatureBatch for the requested rows (the
         only place full feature rows come into existence); ``columns``

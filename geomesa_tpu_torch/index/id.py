@@ -27,17 +27,26 @@ class LeanIdIndex:
         return self.n_rows
 
     def query(self, ids) -> np.ndarray:
-        out = []
-        for fid in ids:
-            s = str(fid)
-            if self.prefix:
-                if not s.startswith(self.prefix):
-                    continue
-                s = s[len(self.prefix):]
-            # canonical decimal form only: '007' is NOT row 7's id
-            if s.isdecimal() and str(int(s)) == s and int(s) < self.n_rows:
-                out.append(int(s))
-        return np.unique(np.asarray(sorted(out), dtype=np.int64))
+        """Rows of the given ids, sorted and unique; ids that are not a
+        row's canonical decimal form ('007' is NOT row 7's id) are
+        skipped.  Vectorized: a delete or age-off resolves millions of
+        ids at once."""
+        s = np.asarray(ids, dtype=object).astype(str)
+        if self.prefix and len(s):
+            s = s[np.char.startswith(s, self.prefix)]
+        if not len(s):
+            return np.empty(0, dtype=np.int64)
+        if self.prefix:
+            s = np.char.replace(s, self.prefix, "", count=1)
+        # ≤ 18 digits parse into int64; a longer canonical number is
+        # past any row count
+        ok = np.char.isdecimal(s) & (np.char.str_len(s) <= 18)
+        s = s[ok]
+        rows = s.astype(np.int64)
+        # canonical form: the digits print back unchanged (no leading
+        # zeros, ASCII digits only)
+        rows = rows[(rows.astype(str) == s) & (rows < self.n_rows)]
+        return np.unique(rows)
 
 
 class IdIndex:

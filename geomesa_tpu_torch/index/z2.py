@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_MAX_RANGES
+from ..curve.legacy import legacy_z2_sfc
 from ..curve.sfc import z2_sfc
 from ..curve.zorder import deinterleave2, interleave2
 from ..device import resolve_device
@@ -57,12 +58,11 @@ Z2_INDEX_VERSION = 2
 
 def z2_sfc_for_version(version: int):
     """Curve for a persisted index-layout version (the reference's
-    Z2IndexV1..Vn read-path dispatch, index/index/z2/legacy/).  Only the
-    current layout is ported; the v1 legacy curve is not."""
+    Z2IndexV1..Vn read-path dispatch, index/index/z2/legacy/): v1 is the
+    legacy semi-normalized curve (curve/legacy.py)."""
     if version >= 2:
         return z2_sfc()
-    raise NotImplementedError(
-        f"z2 index layout v{version} (the legacy curve) is not ported")
+    return legacy_z2_sfc()
 
 
 def plan_z2_query(boxes, max_ranges: int = DEFAULT_MAX_RANGES,

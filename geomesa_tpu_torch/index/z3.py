@@ -30,6 +30,7 @@ import torch
 
 from ..config import DEFAULT_MAX_RANGES
 from ..curve.binnedtime import TimePeriod, max_date_ms, max_offset, to_binned_time
+from ..curve.legacy import legacy_z3_sfc
 from ..curve.sfc import z3_sfc
 from ..curve.zorder import deinterleave3
 from ..device import resolve_device
@@ -347,12 +348,11 @@ Z3_INDEX_VERSION = 2
 def z3_sfc_for_version(period: TimePeriod, version: int):
     """Curve for a persisted index-layout version (the read-path
     dispatch of the reference's versioned indices,
-    index/index/z3/legacy/Z3IndexV1.scala).  Only the current layout is
-    ported; the v1 legacy curve is not."""
+    index/index/z3/legacy/Z3IndexV1.scala): v1 is the legacy
+    semi-normalized curve (curve/legacy.py)."""
     if version >= 2:
         return z3_sfc(period)
-    raise NotImplementedError(
-        f"z3 index layout v{version} (the legacy curve) is not ported")
+    return legacy_z3_sfc(period)
 
 
 class Z3PointIndex:

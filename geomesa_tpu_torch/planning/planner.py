@@ -91,8 +91,14 @@ class QueryPlanner:
         self.sft = sft
         self.store = store  # _SchemaStore (datastore.py)
 
-    def run(self, query: Query, explain: Explainer | None = None) -> QueryResult:
-        """Plan and execute."""
+    def run(self, query: Query, explain: Explainer | None = None,
+            allowed: np.ndarray | None = None,
+            materialize: bool = True) -> QueryResult:
+        """Plan and execute.  ``allowed`` is an optional per-feature bool
+        mask (row-level security, lean tombstones) applied before
+        sort/limit so that ``max_features`` fills from authorized rows
+        only.  ``materialize=False`` skips the result-batch gather
+        (positions only: the caller reads the columns it needs)."""
         for hint in _UNSERVED_HINTS:
             if hint in query.hints:
                 raise NotImplementedError(f"query hint {hint} is not ported")
@@ -169,7 +175,11 @@ class QueryPlanner:
                         f"{actual_scanned}, matched "
                         f"{len(positions)} (ratio {ratio:.2f}x)")
 
+        if allowed is not None and len(positions):
+            positions = positions[allowed[positions]]
         positions = self._sort_limit(positions, batch, query)
+        if not materialize:
+            return QueryResult(None, positions, strategy, plan_ms, scan_ms)
         properties = query.properties
         if properties is None and "COLUMN_GROUP" in query.hints:
             group = query.hints["COLUMN_GROUP"]

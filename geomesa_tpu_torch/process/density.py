@@ -9,7 +9,9 @@ density kernel and the partial grids are summed
 reference's server-side DensityScan + client-merge split.  On a lean
 store, unweighted pure bbox+time queries push down next to the lean
 index's keys (:meth:`~geomesa_tpu_torch.index.z3_lean.LeanZ3Index.
-density`).  Every other query runs the query path: its hits are snapped
+density`), unless the store has tombstones.  Under an auth provider
+neither push-down runs.  Every other query runs the query path: its
+hits (the rows the caller sees) are snapped
 to the grid on the store's device by
 :func:`~geomesa_tpu_torch.ops.density.density_grid_auto` (the density
 kernel on the card).
@@ -88,7 +90,7 @@ def density_process(store, schema: str, query, env,
     mesh = getattr(store, "_mesh", None)
     st = store._store(schema)
     lean = getattr(st, "lean", False)
-    if mesh is not None or lean:
+    if (mesh is not None or lean) and store._auth_provider is None:
         q = query if isinstance(query, Query) else Query.of(query)
         sft = store.get_schema(schema)
         if (sft.is_points and sft.dtg_field and st.batch is not None
@@ -97,7 +99,9 @@ def density_process(store, schema: str, query, env,
             if plan is not None:
                 boxes, lo, hi = plan
                 if lean:
-                    if weight_attr is None:
+                    # tombstones and per-row weights need row access:
+                    # the query path serves those
+                    if weight_attr is None and not st.has_tombstones():
                         return st.z3_index().density(boxes, lo, hi, env,
                                                      width, height)
                 else:
@@ -105,8 +109,7 @@ def density_process(store, schema: str, query, env,
                                .astype(np.float64) if weight_attr else None)
                     return st.z3_index().density(boxes, lo, hi, env, width,
                                                  height, weights=weights)
-    result = store.query_result(schema, query)
-    batch = result.batch
+    _, batch = store._hit_columns(schema, query)
     if len(batch) == 0:
         return np.zeros((height, width))
     dev = store.device

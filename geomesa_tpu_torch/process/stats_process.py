@@ -31,28 +31,40 @@ def stats_process(store, schema: str, query, stat_spec: str) -> Stat:
     of Count, whole-extent Z3Histogram and indexed numeric attribute
     sub-stats over a window that covers the data's extent folds next to
     the keys (:func:`_lean_sketch_pushdown`); every other spec
-    materializes the hits."""
+    materializes the hits.  Tombstones turn the lean push-downs off, and
+    an auth provider every push-down: their sketches cover rows the
+    caller may not see."""
     mesh = getattr(store, "_mesh", None)
-    if getattr(store._store(schema), "lean", False):
-        pushed = _lean_count_pushdown(store, schema, query, stat_spec)
-        if pushed is None:
-            pushed = _lean_sketch_pushdown(store, schema, query, stat_spec)
-        if pushed is not None:
-            return pushed
-    elif mesh is not None:
-        pushed = _collective_stats(store, schema, query, stat_spec)
-        if pushed is not None:
-            return pushed
-    result = store.query_result(schema, query)
-    if mesh is not None and len(result.positions):
-        from ..parallel.stats import merged_stats
-        st = store._store(schema)
-        shards = store._hit_residency(st, result.positions)
-        return st.merge_stat_global(
-            merged_stats(result.batch, stat_spec, shards))
+    st = store._store(schema)
+    if getattr(store, "_auth_provider", None) is None:
+        # the push-downs read sketches over every row: a caller with an
+        # auth provider takes the materializing path, which sees only
+        # the rows (and values) it may
+        if getattr(st, "lean", False):
+            pushed = _lean_count_pushdown(store, schema, query, stat_spec)
+            if pushed is None:
+                pushed = _lean_sketch_pushdown(store, schema, query,
+                                               stat_spec)
+            if pushed is not None:
+                return pushed
+        elif mesh is not None:
+            pushed = _collective_stats(store, schema, query, stat_spec)
+            if pushed is not None:
+                return pushed
+    if mesh is not None:
+        result = store.query_result(schema, query)
+        if len(result.positions):
+            from ..parallel.stats import merged_stats
+            shards = store._hit_residency(st, result.positions)
+            return st.merge_stat_global(
+                merged_stats(result.batch, stat_spec, shards))
+        hits = result.batch
+    else:
+        # the hits' columns only (a lean store mints no feature ids)
+        _, hits = store._hit_columns(schema, query)
     stat = parse_stat(stat_spec)
-    if len(result.batch):
-        stat.observe(result.batch)
+    if len(hits):
+        stat.observe(hits)
     return stat
 
 
@@ -78,6 +90,9 @@ def _lean_count_pushdown(store, schema: str, query, stat_spec: str):
     if plan is None:
         return None
     boxes, lo, hi = plan
+    if st.has_tombstones():
+        # deleted rows need row visibility: the materializing path
+        return None
     idx = st.z3_index()
     tiers = idx.tier_counts()
     if tiers["keys"] or tiers["host"]:
@@ -135,6 +150,9 @@ def _lean_sketch_pushdown(store, schema: str, query, stat_spec: str):
     if plan0 is None:
         return None
     boxes, lo, hi = plan0
+    if st.has_tombstones():
+        # deleted rows need row visibility: the materializing path
+        return None
     bb = smap.get(f"{sft.geom_field}_bbox")
     if bb is None or bb.is_empty:
         return None

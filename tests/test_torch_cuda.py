@@ -788,3 +788,79 @@ def test_lean_attr_sketch_folds_on_card_match_cpu(cuda_device, attr_type):
             np.testing.assert_allclose([a.vsum, a.vsumsq],
                                        [b.vsum, b.vsumsq], rtol=1e-12)
     assert hk.hist1d.launches > before
+
+
+def test_v1_layout_scans_on_card_match_cpu(cuda_device):
+    """A schema pinned to the v1 key layouts (the legacy curves) on the
+    card against the same store on the CPU: the z3 and z2 scans launch
+    their mask kernels over legacy-normalized boxes, with equal hits,
+    before and after ``migrate_schema``."""
+    spec = ("name:String,dtg:Date,*geom:Point;"
+            "geomesa.index.versions='z3:1,z2:1'")
+    rng = np.random.default_rng(41)
+    m = 200_000
+    rows = {"name": np.array(["a"] * m, dtype=object),
+            "dtg": rng.integers(MS_2018, MS_2018 + 21 * DAY, m),
+            "geom": (rng.uniform(-75.0, -73.0, m), rng.uniform(40.0, 42.0, m))}
+    stores = []
+    for dev in (cuda_device, "cpu"):
+        ds = TpuDataStore(device=dev)
+        ds.create_schema("ev", spec)
+        ds.write("ev", rows)
+        stores.append(ds)
+    queries = ("BBOX(geom, -74.5, 40.5, -73.5, 41.5) AND dtg DURING "
+               "2018-01-03T00:00:00Z/2018-01-10T00:00:00Z",
+               "BBOX(geom, -74.2, 40.8, -73.9, 41.1)",
+               "BBOX(geom, -180, -90, -74, 41)")
+    for migrate in (False, True):
+        z3_before, z2_before = z3_mask.launches, z2_mask.launches
+        for ecql in queries:
+            g, c = (ds.query_result("ev", ecql) for ds in stores)
+            assert g.strategy.index == c.strategy.index
+            np.testing.assert_array_equal(g.positions, c.positions)
+        assert z3_mask.launches > z3_before
+        assert z2_mask.launches > z2_before
+        versions = {ds._store("ev").z3_index().version for ds in stores}
+        assert versions == ({2} if migrate else {1})
+        if not migrate:
+            for ds in stores:
+                ds.migrate_schema("ev")
+
+
+def test_tombstoned_lean_heatmap_on_card_matches_plain(cuda_device):
+    """A lean store with tombstones on the card against the same store on
+    the CPU: the heatmap falls back from the push-down to the query path,
+    whose density kernel (unit weights, float32) must equal the plain
+    grid; the tile, Count and positions equal too."""
+    spec = ("score:Double,dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+            "geomesa.lean.generation.slots=16384")
+    rng = np.random.default_rng(43)
+    chunks = [{"score": rng.uniform(0, 100, 30_000),
+               "dtg": rng.integers(MS_2018, MS_2018 + 60 * DAY, 30_000),
+               "geom": (rng.uniform(-20, 20, 30_000),
+                        rng.uniform(-10, 10, 30_000))} for _ in range(3)]
+    ids = [str(i) for i in rng.choice(90_000, 9_000, replace=False)]
+    stores = []
+    for dev in (cuda_device, "cpu"):
+        ds = TpuDataStore(device=dev)
+        ds.create_schema("s", spec)
+        for c in chunks:
+            ds.write("s", c)
+        assert ds.delete("s", ids) == 9_000
+        stores.append(ds)
+    q = ("BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+         "2018-01-03T00:00:00Z/2018-01-19T00:00:00Z")
+    for query, env in ((q, (-5, -5, 5, 5)), ("INCLUDE", (-20, -10, 20, 10))):
+        before = density_grid_kernel.launches
+        g, c = (density_process(ds, "s", query, env, 64, 32)
+                for ds in stores)
+        assert density_grid_kernel.launches == before + 1
+        np.testing.assert_array_equal(g, c)
+    np.testing.assert_array_equal(stores[0].density_tile("s", 2, 1, 1),
+                                  stores[1].density_tile("s", 2, 1, 1))
+    for ecql in (q, "INCLUDE"):
+        g, c = (ds.stats("s", ecql, "Count()").count for ds in stores)
+        assert g == c
+        g, c = (ds.query_result("s", ecql).positions for ds in stores)
+        np.testing.assert_array_equal(g, c)
+    assert stores[0].get_count("s") == 81_000

@@ -185,12 +185,14 @@ def test_unserved_options_raise(stores):
     with pytest.raises(NotImplementedError):
         tds.query_result("gdelt", Query.of("INCLUDE", crs="EPSG:3857"))
     with pytest.raises(NotImplementedError):
-        tds.write("gdelt", _batch(4, 3), visibility="admin")
-    with pytest.raises(NotImplementedError):
         TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"] * 2),
                      multihost=True)
-    with pytest.raises(NotImplementedError):
-        TpuDataStore(device="cpu", auth_provider=object())
+    # visibilities and auth providers are served since the lifecycle
+    # slice; the observability-backed reports still raise
+    with pytest.raises(NotImplementedError, match="explain_analyze"):
+        tds.explain_analyze("gdelt", "INCLUDE")
+    with pytest.raises(NotImplementedError, match="storage_report"):
+        tds.storage_report()
 
 
 def test_lean_sized_first_write_raises(monkeypatch):

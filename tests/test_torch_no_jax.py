@@ -3,8 +3,10 @@ queries (z3, z2), a heatmap, a mesh store's query and stats, and a lean
 store's query, heatmap, tile, count, compaction, pyramid build,
 pyramid-served tile, Z3Histogram stat and a replanned query, and
 attribute queries on a default, a 2-shard mesh and a lean store (with
-the lean attribute stat push-down), and a polygon store's xz3 and xz2
-queries with the native range sweep loaded, loads neither ``jax`` nor
+the lean attribute stat push-down), a polygon store's xz3 and xz2
+queries with the native range sweep loaded, and a restricted query on a
+v1-layout store with its deletes and a lean store's delete and age-off,
+loads neither ``jax`` nor
 any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
@@ -112,6 +114,30 @@ px2 = ds.query_result("p", "BBOX(geom, -5, -5, 5, 5)")
 poly = [px3.strategy.index, int(len(px3.positions)), px2.strategy.index,
         int(len(px2.positions)), native.available(),
         "geomesa_tpu_torch.native" in sys.modules]
+from geomesa_tpu_torch.age_off import age_off
+from geomesa_tpu_torch.security import StaticAuthorizationsProvider
+vs = TpuDataStore(device="cpu",
+                  auth_provider=StaticAuthorizationsProvider({"user"}))
+vs.create_schema("v", "actor:String,dtg:Date,*geom:Point;"
+                      "geomesa.index.versions='z3:1,z2:1'")
+for label in ("", "admin"):
+    vs.write("v", {"actor": np.array(["a"] * n, dtype=object),
+                   "dtg": rng.integers(1514764800000, 1517443200000, n),
+                   "geom": (rng.uniform(-10, 10, n),
+                            rng.uniform(-10, 10, n))}, visibility=label)
+vq = vs.query_result("v", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+                          "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+vz2 = vs.query_result("v", "BBOX(geom, -5, -5, 5, 5)")
+life = {"v1": [vs._store("v").index("z3").version,
+               vs._store("v").index("z2").version],
+        "restricted": [int(len(vq.positions)), int(vq.positions.max()),
+                       int(len(vz2.positions)), vs.get_count("v")],
+        "deleted": [vs.delete("v", [str(i) for i in range(0, n, 2)]),
+                    vs.delete("v", ["0"]), vs.get_count("v")],
+        "lean_deleted": [ls.delete("l", ["0", "1", "1"]),
+                         age_off(ls, "l", older_than_ms=1515000000000),
+                         ls.stats("l", "INCLUDE", "Count()").count,
+                         ls.get_count("l")]}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -136,7 +162,7 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "replan_source": rq.strategy.source,
                   "replan_hits": rq.positions.tolist(),
                   "replans": str(rex).count("Replanning: z3 observed"),
-                  "attr": attr, "poly": poly}))
+                  "attr": attr, "poly": poly, "life": life}))
 """
 
 
@@ -180,6 +206,16 @@ def test_import_and_query_load_no_jax():
     assert poly[0] == "xz3" and poly[1] > 0
     assert poly[2] == "xz2" and poly[3] > poly[1]
     assert poly[4] is True and poly[5] is True
+    life = out["life"]
+    assert life["v1"] == [1, 1]
+    # only the unlabelled first write's rows are visible to "user"
+    assert 0 < life["restricted"][0] and life["restricted"][1] < 500
+    assert life["restricted"][2] > life["restricted"][0]
+    assert life["restricted"][3] == 500
+    assert life["deleted"] == [250, 0, 250]
+    assert life["lean_deleted"][0] == 2 and life["lean_deleted"][1] > 0
+    assert (life["lean_deleted"][2] == life["lean_deleted"][3]
+            == 4 * 500 - 2 - life["lean_deleted"][1])
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),

@@ -173,8 +173,19 @@ def test_build_without_device_needs_a_card(monkeypatch):
 
 
 def test_legacy_layout_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tz2.Z2PointIndex.build([0.0], [0.0], version=1, device="cpu")
+    """The v1 layout (the legacy curve) is ported since the lifecycle
+    slice: a v1 index keys and answers as the JAX package's v1 index,
+    built directly and carried across in its state."""
+    x, y = _points(8, 6_000)
+    jidx = jz2.Z2PointIndex.build(x, y, version=1)
+    tidx = tz2.Z2PointIndex.build(x, y, version=1, device="cpu")
+    assert tidx.version == 1
+    carried = convert.z2_index_from_state(convert.z2_index_state(jidx),
+                                          device="cpu")
+    for boxes, kw in QUERIES.values():
+        want = jidx.query(boxes, **kw)
+        np.testing.assert_array_equal(tidx.query(boxes, **kw), want)
+        np.testing.assert_array_equal(carried.query(boxes, **kw), want)
 
 
 # -- the z2 candidate mask ---------------------------------------------------

@@ -158,6 +158,16 @@ def test_build_without_device_needs_a_card(monkeypatch):
 
 
 def test_legacy_layout_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tz3.Z3PointIndex.build([0.0], [0.0], [MS_2018], version=1,
-                               device="cpu")
+    """The v1 layout (the legacy curve) is ported since the lifecycle
+    slice: a v1 index keys and answers as the JAX package's v1 index,
+    built directly and carried across in its state."""
+    x, y, t = _rows(5, 6_000)
+    jidx = jz3.Z3PointIndex.build(x, y, t, version=1)
+    tidx = tz3.Z3PointIndex.build(x, y, t, version=1, device="cpu")
+    assert tidx.version == 1
+    carried = convert.z3_index_from_state(convert.z3_index_state(jidx),
+                                          device="cpu")
+    for boxes, lo, hi in QUERIES:
+        want = jidx.query(boxes, lo, hi)
+        np.testing.assert_array_equal(tidx.query(boxes, lo, hi), want)
+        np.testing.assert_array_equal(carried.query(boxes, lo, hi), want)
