@@ -12,8 +12,8 @@
                           [--lean-poly3-rows 16000000]
                           [--lean-poly3-slots 2097152]
                           [--life-rows 16000000]
-                          [--life-mesh-rows 4000000] [--profile]
-                          [--out FILE]
+                          [--life-mesh-rows 4000000]
+                          [--fsds-rows 4000000] [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -185,7 +185,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    Histogram of ``score`` pushed down through hist1d over the sharded
    index rebuilt after the delete, equal to numpy, and the queries;
    then the same rows and delete read by a caller authorized for
-   ``user``, the queries restricted to its rows.
+   ``user``, the queries restricted to its rows;
+19. persist (run right after phase 16, whose store keeps a catalog in a
+   temporary directory from its creation and is flushed after its
+   age_off; each phase that writes one first checks that the disk has
+   room for twice what it writes): the store dropped (its device memory
+   must fall), the catalog reopened with the same auth provider, the
+   reopen and the first restricted query timed apart (the two together
+   the time to recover), the 40 queries against the oracle (the visible
+   rows less the deleted and aged-off ones), a restricted heatmap (one
+   density_grid launch, bit-equal), a 1M-row write whose auto ids follow
+   every id ever issued, an ``update_schema`` rename; the catalog
+   reopened on ``device_mesh(1)`` (the renamed schema only): Count,
+   MinMax and a 64-bin Histogram of ``dtg`` on a continent-month query
+   and on INCLUDE, pushed down through hist1d, equal to numpy; then
+   ``remove_schema``, after which no file of the schema is left;
+20. lean persist (run right after phase 8, whose store keeps a catalog
+   from its creation and is flushed after its tombstoning age_off, in
+   2^22-row parts): the store dropped, the snapshot reopened, the lazy
+   streaming index rebuild timed inside the first query, the
+   estimator-costed queries against the oracle less the tombstones,
+   ``get_count`` and ``Count()``, and the device bytes allocated since
+   the reopen within 0.99-1.05x of the index's accounted bytes;
+21. fsds: ``FileSystemDataStore`` with the daily datetime scheme,
+   ``--fsds-rows`` GDELT-like rows over 2018 in 4 writes (365 partitions,
+   4 files each); a city-week BBOX+DURING query pruned on the host,
+   equal to the oracle, reading the week's days and a day of over-cover
+   on each side; ``compact`` (one file a partition) and the query again;
+   the store rediscovered from disk and the query again; then
+   ``to_device_store(fs, name, device="cuda")``: the query (z3) and a
+   BBOX-only one (z2) on the card, equal to the oracle and to
+   ``fs.query``.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 7, phase 8,
@@ -197,7 +227,9 @@ well, and reported: the JAX package runs no Pallas kernel on its xz
 paths (host numpy and plain XLA), and the port none on them.  They are
 set to 0 and read around each of phases 16-18, which must launch
 z3_mask, z2_mask and density_grid (16), z3_mask and z2_mask (17), and
-z3_mask, z2_mask and hist1d (18).  The
+z3_mask, z2_mask and hist1d (18), and around each of phases 19-21,
+which must launch every kernel (19) and z3_mask and z2_mask (21); phase
+20's are reported.  The
 z3 index phase's range plans are timed again there with the native and
 the numpy sweep.  The last lines printed are one ``{"kernels": [...]}`` JSON object,
 the ``nvidia-smi`` name/power-limit line, and ``{"ok": true, "device":
@@ -214,8 +246,10 @@ import functools
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 MS_2018 = 1514764800000
@@ -1430,14 +1464,43 @@ def device_launches(fn) -> dict:
                 e.count for e in avg if e.key.startswith("cudaLaunchKernel")))}
 
 
-def lean_phase(rng, args, centres, qs, dev, report):
+def catalog_room(path: str, nbytes: int) -> int:
+    """Raise unless the file system of ``path`` has room for twice the
+    ``nbytes`` a phase is about to write; returns the free bytes."""
+    free = shutil.disk_usage(path).free
+    if free < 2 * nbytes:
+        raise AssertionError(f"{path}: {free} bytes free, a phase writing "
+                             f"~{nbytes} bytes needs twice that")
+    return free
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def allocated_after_gc(cuda: bool):
+    """``torch.cuda.memory_allocated`` after the cyclic collector ran (a
+    dropped store frees its device memory only then, PERF.md §7)."""
+    import torch
+    gc.collect()
+    if not cuda:
+        return None
+    torch.cuda.empty_cache()
+    return int(torch.cuda.memory_allocated())
+
+
+def lean_phase(rng, args, centres, qs, dev, report, cat=None):
     """The lean profile: ``--lean-rows`` GDELT-like rows (with a ``score``)
     written in 4 batches to a schema with no profile set, whose first
     write switches it to lean; a budget that leaves all three tiers;
     BBOX+DURING and BBOX queries (estimator-costed, and one replanned),
     pyramids, Count and Z3Histogram, heatmaps (pushed down, from the
     pyramids and weighted) and tiles against numpy oracles, before and
-    after ``compact``."""
+    after ``compact``.  With ``cat`` the store keeps its catalog there
+    from the start and is flushed after its closing ``age_off``; returns
+    what the lean persist phase reopens and checks."""
     import numpy as np
     import torch
     from geomesa_tpu_torch import TpuDataStore, density_process
@@ -1457,7 +1520,7 @@ def lean_phase(rng, args, centres, qs, dev, report):
           "geomesa.lean.compaction.factor=0"]
     if slots != LeanZ3Index.GENERATION_SLOTS:
         ud.append(f"geomesa.lean.generation.slots={slots}")
-    ds = TpuDataStore(device=dev)
+    ds = TpuDataStore(device=dev, catalog_dir=cat)
     ds.create_schema("scale", "score:Double,dtg:Date,*geom:Point;"
                      + ",".join(ud))
     store = ds._store("scale")
@@ -1763,9 +1826,30 @@ def lean_phase(rng, args, centres, qs, dev, report):
     rep["tombstones"] = lean_tombstones(ds, store, (x, y, t), checks, box,
                                         env3, (t3x, t3y), cuda)
     report["lean"] = rep
+    if cat is None:
+        del ds, store, idx
+        if cuda:
+            torch.cuda.empty_cache()
+        return None
+    # the snapshot: sliced parquet parts with the tombstones, the manifest
+    # last, then the stats
+    catalog_room(cat, n * 40)
+    t0 = time.perf_counter()
+    ds.flush("scale")
+    flush_s = time.perf_counter() - t0
+    persisted = {"flush_s": flush_s, "bytes": dir_bytes(cat),
+                 "parts": len([f for f in os.listdir(
+                     os.path.join(cat, "scale.lean")) if f.startswith(
+                     "part-")]),
+                 "device_bytes": idx.device_bytes(),
+                 "memory_allocated": (int(torch.cuda.memory_allocated())
+                                      if cuda else None)}
+    log(f"lean: flushed {n} rows in {persisted['parts']} parts in "
+        f"{flush_s:.2f} s, {persisted['bytes']} bytes on disk")
+    tomb = store.tombstone.copy()
     del ds, store, idx
-    if cuda:
-        torch.cuda.empty_cache()
+    return {"catalog": cat, "cols": (x, y, t), "checks": checks,
+            "tombstone": tomb, "persisted": persisted}
 
 
 #: the age-off cutoff of the lifecycle checks: rows dated before
@@ -1941,7 +2025,7 @@ def life_summary(rows) -> str:
             f"{np.median(lat):.1f} ms, max {lat.max():.1f} ms")
 
 
-def lifecycle_phase(rng, args, centres, qs, dev, report):
+def lifecycle_phase(rng, args, centres, qs, dev, report, cat=None):
     """Deletes, visibilities and the read APIs on the default profile:
     ``--life-rows`` GDELT-like rows in 4 writes labelled ``LABELS``, with
     ``actor`` guarded by ``admin``, read by a caller authorized for
@@ -1950,10 +2034,13 @@ def lifecycle_phase(rng, args, centres, qs, dev, report):
     get_bounds and a materialized region heatmap; then a delete of 1% of
     the rows by id (timed, and the first query after it, which rebuilds
     the indexes, timed apart), the queries again, a repeated delete that
-    counts 0, and ``age_off`` of the rows before 2018-01-15.  Returns the
-    rows written and the candidates of each query, which the legacy
-    phase compares."""
+    counts 0, and ``age_off`` of the rows before 2018-01-15.  With ``cat``
+    the store keeps its catalog there from the start and is flushed at
+    the end.  Returns the rows written and the candidates of each query,
+    which the legacy phase compares, and what the persist phase reopens
+    and checks."""
     import numpy as np
+    import torch
     from geomesa_tpu_torch import TpuDataStore, density_process
     from geomesa_tpu_torch.age_off import age_off
     from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
@@ -1963,7 +2050,8 @@ def lifecycle_phase(rng, args, centres, qs, dev, report):
     actors = np.array(["USA", "GBR", "FRA", "CHN", "IND", "BRA", "RUS"],
                       dtype=object)
     ds = TpuDataStore(device=dev,
-                      auth_provider=StaticAuthorizationsProvider(AUTHS))
+                      auth_provider=StaticAuthorizationsProvider(AUTHS),
+                      catalog_dir=cat)
     ds.create_schema("life", LIFE_SPEC)
     n = args.life_rows
     per = n // 4
@@ -2064,8 +2152,23 @@ def lifecycle_phase(rng, args, centres, qs, dev, report):
         f"first query after it (index rebuild) {first[0]['ms']:.1f} ms; "
         f"{life_summary(after)}; a repeated delete counts 0; age_off "
         f"removed {aged} rows in {age_s:.2f} s")
+    persisted = None
+    if cat is not None:
+        # parquet rows, the labels dictionary-encoded, then the stats
+        catalog_room(cat, n * 96)
+        t0 = time.perf_counter()
+        ds.flush("life")
+        flush_s = time.perf_counter() - t0
+        persisted = {
+            "catalog": cat, "cols": (xk[live], yk[live], tk[live]),
+            "visible": vk[live], "issued": n, "flush_s": flush_s,
+            "bytes": dir_bytes(cat),
+            "memory_allocated": (int(torch.cuda.memory_allocated())
+                                 if dev.type == "cuda" else None)}
+        log(f"lifecycle: flushed {int(live.sum())} rows in {flush_s:.2f} s, "
+            f"{persisted['bytes']} bytes on disk")
     del ds
-    return chunks, (x, y, t), cands
+    return chunks, (x, y, t), cands, persisted
 
 
 def legacy_phase(args, chunks, cols, cands, qs, dev, report):
@@ -2193,6 +2296,353 @@ def mesh_lifecycle_phase(rng, args, centres, qs, dev, report):
                                for s in out["open"]["stats"])
         + f"; open {life_summary(out['open']['queries'])}; restricted "
           f"{life_summary(out['restricted']['queries'])}")
+
+
+def persist_phase(args, qs, dev, report, life) -> None:
+    """The lifecycle store's catalog (flushed after its delete and
+    age_off): the store dropped (its device memory must fall), reopened
+    with the same auth provider — the reopen and the first query timed
+    apart, the two together the time to recover — then the queries
+    against the oracle (the visible rows less the deleted and aged-off
+    ones), a restricted heatmap (density_grid), a 1M-row write whose auto
+    ids follow every id ever issued, and an ``update_schema`` rename; the
+    catalog reopened on ``device_mesh(1)``, which must hold the renamed
+    schema only, answering Count, MinMax and a 64-bin Histogram of
+    ``dtg`` through hist1d, against numpy; then ``remove_schema``, after
+    which no file of the schema is left."""
+    import numpy as np
+    from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
+    from geomesa_tpu_torch.features.feature_type import parse_spec
+    from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+    from geomesa_tpu_torch.ops.hist1d_kernel import hist1d
+    from geomesa_tpu_torch.security import StaticAuthorizationsProvider
+
+    cuda = dev.type == "cuda"
+    cat = life["catalog"]
+    x, y, t = life["cols"]
+    visible = life["visible"]
+    n = len(x)
+    alloc = allocated_after_gc(cuda)
+    if cuda and alloc >= life["memory_allocated"]:
+        raise AssertionError(f"persist: dropping the store left "
+                             f"{alloc} bytes allocated (was "
+                             f"{life['memory_allocated']})")
+    lq = life_queries(qs)
+    t0 = time.perf_counter()
+    ds = TpuDataStore(device=dev,
+                      auth_provider=StaticAuthorizationsProvider(AUTHS),
+                      catalog_dir=cat)
+    reopen_s = time.perf_counter() - t0
+    if ds.type_names != ["life"] or len(ds._store("life").batch) != n:
+        raise AssertionError(f"persist: reopened {ds.type_names} with "
+                             f"{len(ds._store('life').batch)} rows, not {n}")
+    first = run_life_queries(ds, "life", lq[:1], (x, y, t), visible,
+                             "persist")
+    rest = run_life_queries(ds, "life", lq[1:], (x, y, t), visible,
+                            "persist")
+    if cuda:
+        launches = device_launches(lambda: ds.query_result("life", lq[0][2]))
+    else:
+        launches = None
+    kind, _s, q_region, boxes, lo, hi = lq[16]
+    box = boxes[0]
+    hits = oracle(x, y, t, boxes, lo, hi)
+    hits = hits[visible[hits]]
+    d0 = density_grid_kernel.launches
+    t0 = time.perf_counter()
+    grid = density_process(ds, "life", q_region, box)
+    heat_ms = (time.perf_counter() - t0) * 1e3
+    want = snap_counts(x[hits], y[hits], box, 256, 256)
+    if not np.array_equal(grid.astype(np.float64), want.astype(np.float32)):
+        raise AssertionError(f"persist heatmap: {float(grid.sum())} points, "
+                             f"oracle {float(want.sum())}")
+    heat_launches = density_grid_kernel.launches - d0
+    # auto ids after the reopen follow every id ever issued: deleted and
+    # aged-off ids are never reused
+    m = 1_000_000
+    rng = np.random.default_rng(args.seed + 10)
+    centres = np.stack([rng.uniform(-130.0, 150.0, 50),
+                        rng.uniform(-40.0, 60.0, 50)], axis=1)
+    xa, ya, ta = gdelt_like(rng, m, centres)
+    t0 = time.perf_counter()
+    ds.write("life", {"actor": np.array(["USA"] * m, dtype=object),
+                      "dtg": ta, "geom": (xa, ya)}, visibility="user")
+    append_s = time.perf_counter() - t0
+    ids = ds._store("life").batch.ids[-m:]
+    if ids[0] != str(life["issued"]) or ids[-1] != str(life["issued"] + m - 1):
+        raise AssertionError(f"persist: auto ids {ids[0]}..{ids[-1]} after "
+                             f"the reopen, {life['issued']} issued before")
+    after = run_life_queries(
+        ds, "life", lq[:2], (np.r_[x, xa], np.r_[y, ya], np.r_[t, ta]),
+        np.r_[visible, np.ones(m, bool)], "persist after the write")
+    report_rows = {"reopen_s": reopen_s,
+                   "first_query_ms": first[0]["ms"],
+                   "recover_s": reopen_s + first[0]["ms"] / 1e3,
+                   "queries": first + rest, "heatmap_ms": heat_ms,
+                   "heatmap_density_grid_launches": heat_launches,
+                   "device_launches": launches, "append_s": append_s,
+                   "queries_after_append": after}
+    # a rename moves every file of the schema (the next reopen must see
+    # the new name only)
+    t0 = time.perf_counter()
+    ds.update_schema("life", parse_spec("life_v2", LIFE_SPEC))
+    rename_ms = (time.perf_counter() - t0) * 1e3
+    del ds
+    log(f"persist: flush {life['flush_s']:.2f} s, {life['bytes']} bytes; "
+        f"reopen {reopen_s:.2f} s, first restricted query "
+        f"{first[0]['ms']:.1f} ms (time to recover "
+        f"{report_rows['recover_s']:.2f} s); {life_summary(first + rest)}; "
+        f"heatmap {heat_ms:.1f} ms (density_grid x{heat_launches}); 1M-row "
+        f"write {append_s:.2f} s with ids from {life['issued']}")
+
+    # the catalog on a mesh: stats pushed down through hist1d
+    t0 = time.perf_counter()
+    ms = TpuDataStore(device=dev, mesh=device_mesh(1), catalog_dir=cat)
+    mesh_reopen_s = time.perf_counter() - t0
+    if ms.type_names != ["life_v2"] or ms.get_count("life_v2") != n:
+        raise AssertionError(f"persist: after the rename {ms.type_names}")
+    stats = []
+    kind, _s, q, boxes, lo, hi = lq[28]   # a continent, a month
+    for name, ecql, rows in ((kind, q, oracle(x, y, t, boxes, lo, hi)),
+                             ("include", "INCLUDE", np.arange(n))):
+        h0 = hist1d.launches
+        t0 = time.perf_counter()
+        c, mm, h = ms.stats(
+            "life_v2", ecql,
+            f"Count();MinMax(dtg);Histogram(dtg,64,{MS_2018},{MS_2019})"
+        ).stats
+        stat_ms = (time.perf_counter() - t0) * 1e3
+        tr = t[rows]
+        want_h = np.bincount(np.clip(
+            (tr.astype(np.float64) - MS_2018) / ((MS_2019 - MS_2018) / 64),
+            0, 63).astype(np.int64), minlength=64)
+        if (c.count != len(rows) or (mm.min, mm.max) != (tr.min(), tr.max())
+                or not np.array_equal(h.counts, want_h)):
+            raise AssertionError(f"persist mesh stats {name} disagree with "
+                                 "numpy")
+        stats.append({"stats": name, "ms": stat_ms,
+                      "hist1d_launches": hist1d.launches - h0})
+    # a remove leaves no file of the schema
+    ms.remove_schema("life_v2")
+    left = sorted(f for f in os.listdir(cat) if f.startswith("life"))
+    if left or ms.type_names:
+        raise AssertionError(f"persist: remove_schema left {left}")
+    del ms
+    report_rows.update(
+        flush_s=life["flush_s"], bytes=life["bytes"],
+        flush_rows_per_s=n / life["flush_s"], mesh_reopen_s=mesh_reopen_s,
+        mesh_stats=stats, rename_ms=rename_ms,
+        memory_allocated_after_drop=alloc)
+    report["persist"] = report_rows
+    log(f"persist: mesh reopen {mesh_reopen_s:.2f} s, stats equal to numpy: "
+        + ", ".join(f"{s['stats']} {s['ms']:.1f} ms (hist1d "
+                    f"x{s['hist1d_launches']})" for s in stats)
+        + f"; the rename {rename_ms:.1f} ms, seen by the reopen; "
+          "remove_schema left no file")
+
+
+def lean_persist_phase(args, dev, report, lean) -> None:
+    """The lean phase's snapshot (flushed after its tombstoning age_off):
+    the store dropped (its device memory must fall), reopened, the lazy
+    streaming index rebuild timed inside the first query, the
+    estimator-costed queries against the oracle less the tombstones,
+    ``get_count`` and ``Count()``, and the accounted device bytes next
+    to ``torch.cuda.memory_allocated``."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore
+
+    cuda = dev.type == "cuda"
+    cat = lean["catalog"]
+    x, y, t = lean["cols"]
+    live = ~lean["tombstone"]
+    n = len(x)
+    persisted = lean["persisted"]
+    alloc = allocated_after_gc(cuda)
+    if cuda and alloc >= persisted["memory_allocated"]:
+        raise AssertionError(f"lean persist: dropping the store left {alloc} "
+                             f"bytes allocated (was "
+                             f"{persisted['memory_allocated']})")
+    t0 = time.perf_counter()
+    ds = TpuDataStore(device=dev, catalog_dir=cat)
+    reopen_s = time.perf_counter() - t0
+    store = ds._store("scale")
+    if (not store.lean or len(store.batch) != n or store._indexes
+            or int(store.tombstone.sum()) != int((~live).sum())):
+        raise AssertionError(f"lean persist: reopened {len(store.batch)} "
+                             f"rows, indexes {sorted(store._indexes)}")
+    rows = []
+    for i, (kind, ecql, boxes, lo, hi) in enumerate(lean["checks"]):
+        t0 = time.perf_counter()
+        res = ds.query_result("scale", ecql)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = (box_oracle(x, y, boxes) if lo is None
+                else oracle(x, y, t, boxes, lo, hi))
+        want = want[live[want]]
+        # the first plan precedes the index (its rebuild runs in the
+        # scan), so the estimator has no cell counts yet and it is costed
+        # from the persisted stats, as in the JAX package; the rest from
+        # the sketch
+        if (res.strategy.index != "z3"
+                or res.strategy.source != ("stats" if i == 0 else "sketch")
+                or not np.array_equal(res.positions, want)):
+            raise AssertionError(
+                f"lean persist {kind}: {res.strategy.index} "
+                f"({res.strategy.source}), {len(res.positions)} hits, "
+                f"oracle {len(want)}")
+        rows.append({"query": kind, "ms": ms, "hits": int(len(want)),
+                     "source": res.strategy.source})
+    idx = store._indexes["z3"]
+    launches = (device_launches(lambda: ds.query_result(
+        "scale", lean["checks"][0][1])) if cuda else None)
+    count = ds.get_count("scale")
+    t0 = time.perf_counter()
+    counted = ds.stats("scale", "INCLUDE", "Count()").count
+    count_ms = (time.perf_counter() - t0) * 1e3
+    if count != counted or count != int(live.sum()):
+        raise AssertionError(f"lean persist: get_count {count}, Count() "
+                             f"{counted}, oracle {int(live.sum())}")
+    dev_bytes = idx.device_bytes()
+    grown = (int(torch.cuda.memory_allocated()) - alloc) if cuda else None
+    if cuda and not 0.99 <= grown / dev_bytes <= 1.05:
+        raise AssertionError(f"lean persist: {grown} bytes allocated since "
+                             f"the reopen, {dev_bytes} accounted")
+    lat = np.array([r["ms"] for r in rows[1:]])
+    report["lean_persist"] = {
+        "rows": n, "flush_s": persisted["flush_s"],
+        "flush_rows_per_s": n / persisted["flush_s"],
+        "bytes": persisted["bytes"], "parts": persisted["parts"],
+        "reopen_s": reopen_s, "first_query_ms": rows[0]["ms"],
+        "recover_s": reopen_s + rows[0]["ms"] / 1e3, "queries": rows,
+        "query_ms_p50": float(np.median(lat)), "tiers": idx.tier_counts(),
+        "get_count": count, "count_ms": count_ms,
+        "device_bytes": dev_bytes, "allocated_since_reopen": grown,
+        "device_launches": launches}
+    log(f"lean persist: reopen {reopen_s:.2f} s; the first query (the lazy "
+        f"streaming rebuild of {n} rows) {rows[0]['ms']:.1f} ms, time to "
+        f"recover {reopen_s + rows[0]['ms'] / 1e3:.2f} s; tiers "
+        f"{idx.tier_counts()}; {len(rows)} queries equal to the oracle less "
+        f"the tombstones, the rest p50 {np.median(lat):.1f} ms; get_count "
+        f"and Count() {count} ({count_ms:.1f} ms); device bytes {dev_bytes} "
+        f"accounted, {grown} allocated since the reopen")
+    del ds, store, idx
+    allocated_after_gc(cuda)
+
+
+def fsds_phase(rng, args, centres, qs, dev, report) -> None:
+    """``FileSystemDataStore`` with the daily datetime scheme:
+    ``--fsds-rows`` GDELT-like rows over 2018 in 4 writes (365 partitions,
+    4 files each); a city-week BBOX+DURING query pruned on the host
+    against the oracle, reading only the week's days and the one-day
+    over-cover on each side; ``compact`` (one file a partition); the
+    store rediscovered from disk; then ``to_device_store`` on the card and
+    the query and a BBOX-only one through z3 and z2, equal to the oracle
+    and to ``fs.query``."""
+    import numpy as np
+    from geomesa_tpu_torch.filters import parse_ecql
+    from geomesa_tpu_torch.fs import FileSystemDataStore, to_device_store
+
+    n = args.fsds_rows
+    per = n // 4
+    root = tempfile.mkdtemp(prefix="chip_smoke_fsds_")
+    try:
+        catalog_room(root, n * 200)
+        fs = FileSystemDataStore(root)
+        fs.create_schema("gdelt", LIFE_SPEC, {"scheme": "datetime",
+                                              "datetime-step": "daily"})
+        actors = np.array(["USA", "GBR", "FRA", "CHN"], dtype=object)
+        cols, write_s = [], []
+        for _ in range(4):
+            x, y, t = gdelt_like(rng, per, centres)
+            cols.append((x, y, t))
+            t0 = time.perf_counter()
+            fs.write("gdelt", {"actor": actors[rng.integers(0, 4, per)],
+                               "dtg": t, "geom": (x, y)})
+            write_s.append(time.perf_counter() - t0)
+        x, y, t = (np.concatenate(c) for c in zip(*cols))
+        del cols
+        info = fs.partition_info("gdelt")
+        if (len(info) != 365 or fs.count("gdelt") != n
+                or {v["files"] for v in info.values()} != {4}):
+            raise AssertionError(f"fsds: {len(info)} partitions, "
+                                 f"{fs.count('gdelt')} rows")
+        city = next(q for q in qs if q[0] == "city")[1][0]
+        lo, hi = MS_2018 + 59 * DAY, MS_2018 + 66 * DAY   # Mar 1 to Mar 8
+        q = (f"BBOX(geom, {city[0]}, {city[1]}, {city[2]}, {city[3]}) "
+             f"AND dtg DURING {iso(lo)}/{iso(hi)}")
+        q2 = f"BBOX(geom, {city[0]}, {city[1]}, {city[2]}, {city[3]})"
+        want = oracle(x, y, t, [city], lo, hi)
+        want2 = box_oracle(x, y, [city])
+        read = fs._storage("gdelt")._select_partitions(parse_ecql(q))
+        # the scheme over-covers the window by a day on each side
+        days = (hi + DAY) // DAY - (lo - DAY) // DAY + 1
+
+        def host_query(label):
+            t0 = time.perf_counter()
+            got = fs.query("gdelt", q)
+            ms = (time.perf_counter() - t0) * 1e3
+            ids = np.sort(got.ids.astype(np.int64))
+            if not np.array_equal(ids, want):
+                raise AssertionError(f"fsds {label}: {len(ids)} hits, "
+                                     f"oracle {len(want)}")
+            return ms
+
+        query_ms = host_query("pruned query")
+        if len(read) != days:
+            raise AssertionError(f"fsds: the pruned query read {len(read)} "
+                                 f"partitions, not {days}")
+        t0 = time.perf_counter()
+        fs.compact("gdelt")
+        compact_s = time.perf_counter() - t0
+        if {v["files"] for v in fs.partition_info("gdelt").values()} != {1}:
+            raise AssertionError("fsds: compact left several files in a "
+                                 "partition")
+        compacted_ms = host_query("query after compact")
+        t0 = time.perf_counter()
+        fs = FileSystemDataStore(root)
+        rediscover_ms = (time.perf_counter() - t0) * 1e3
+        if fs.type_names != ["gdelt"] or fs.count("gdelt") != n:
+            raise AssertionError(f"fsds: rediscovered {fs.type_names}")
+        rediscovered_ms = host_query("query after rediscovery")
+        t0 = time.perf_counter()
+        ds = to_device_store(fs, "gdelt", device=dev)
+        lift_s = time.perf_counter() - t0
+        device = []
+        for label, ecql, index, w in (("bbox-during", q, "z3", want),
+                                      ("bbox", q2, "z2", want2)):
+            t0 = time.perf_counter()
+            res = ds.query_result("gdelt", ecql)
+            ms = (time.perf_counter() - t0) * 1e3
+            ids = np.sort(res.batch.ids.astype(np.int64))
+            host = np.sort(fs.query("gdelt", ecql).ids.astype(np.int64))
+            if (res.strategy.index != index or not np.array_equal(ids, w)
+                    or not np.array_equal(host, w)):
+                raise AssertionError(f"fsds device {label}: "
+                                     f"{res.strategy.index}, {len(ids)} hits, "
+                                     f"host {len(host)}, oracle {len(w)}")
+            device.append({"query": label, "ms": ms, "hits": int(len(w)),
+                           "strategy": index})
+        del ds
+        report["fsds"] = {
+            "rows": n, "write_s": write_s,
+            "write_rows_per_s": [per / s for s in write_s],
+            "partitions": len(info), "bytes": dir_bytes(root),
+            "partitions_read": len(read), "query_ms": query_ms,
+            "compact_s": compact_s, "query_after_compact_ms": compacted_ms,
+            "rediscover_ms": rediscover_ms,
+            "query_after_rediscovery_ms": rediscovered_ms,
+            "to_device_store_s": lift_s, "device_queries": device}
+        log(f"fsds: {n} rows in 4 writes "
+            f"({', '.join(f'{s:.2f}' for s in write_s)} s), {len(info)} "
+            f"partitions; the city-week query read {len(read)} partitions "
+            f"in {query_ms:.1f} ms, {len(want)} hits equal to the oracle; "
+            f"compact {compact_s:.2f} s, then {compacted_ms:.1f} ms; "
+            f"rediscovered in {rediscover_ms:.1f} ms; to_device_store "
+            f"{lift_s:.2f} s; on the card "
+            + ", ".join(f"{d['query']} {d['ms']:.1f} ms ({d['strategy']})"
+                        for d in device))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 #: the attribute phases' schema: GDELT's actor code and GoldsteinScale
@@ -3144,6 +3594,8 @@ def main(argv=None) -> int:
                     help="rows of the lifecycle and legacy phases")
     ap.add_argument("--life-mesh-rows", type=int, default=4_000_000,
                     help="rows of the mesh lifecycle phase")
+    ap.add_argument("--fsds-rows", type=int, default=4_000_000,
+                    help="rows of the FileSystemDataStore phase")
     ap.add_argument("--profile", action="store_true",
                     help="profile the z3 and z2 index queries, the mesh "
                          "phase's stats, query and heatmap, and the lean "
@@ -3230,21 +3682,37 @@ def main(argv=None) -> int:
                              f"on it: {mesh_launches}")
     report["mesh_path_launches"] = mesh_launches
 
-    # the lean path: every count set to 0 just before, read just after
-    for fn in counters.values():
-        fn.launches = 0
-    lean_phase(rng, args, centres, qs, dev, report)
-    lean_launches = {k: fn.launches for k, fn in counters.items()}
-    if lean_launches["density_grid"] <= 0:
-        raise AssertionError(f"density_grid was never launched on the lean "
-                             f"path: {lean_launches}")
-    report["lean_path_launches"] = lean_launches
+    # the lean path: every count set to 0 just before, read just after;
+    # the store keeps a catalog, flushed at the end, which the lean
+    # persist path reopens (its own counts)
+    phase_s = report.setdefault("phase_s", {})
+    persist_launches = {}
+    lean_cat = tempfile.mkdtemp(prefix="chip_smoke_lean_")
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        lean = lean_phase(rng, args, centres, qs, dev, report, cat=lean_cat)
+        lean_launches = {k: fn.launches for k, fn in counters.items()}
+        if lean_launches["density_grid"] <= 0:
+            raise AssertionError(f"density_grid was never launched on the "
+                                 f"lean path: {lean_launches}")
+        report["lean_path_launches"] = lean_launches
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        lean_persist_phase(args, dev, report, lean)
+        phase_s["lean_persist"] = time.perf_counter() - t0
+        persist_launches["lean_persist"] = {k: fn.launches
+                                            for k, fn in counters.items()}
+        del lean
+    finally:
+        shutil.rmtree(lean_cat, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     # the attribute paths (default profile and mesh, then lean): counts
     # set to 0 just before each, read just after
     for fn in counters.values():
         fn.launches = 0
-    phase_s = report.setdefault("phase_s", {})
     t0 = time.perf_counter()
     attr_phase(rng, args, centres, dev, report)
     phase_s["attr"] = time.perf_counter() - t0
@@ -3293,14 +3761,28 @@ def main(argv=None) -> int:
     need = {"lifecycle": ("z3_mask", "z2_mask", "density_grid"),
             "legacy": ("z3_mask", "z2_mask"),
             "mesh_lifecycle": ("z3_mask", "z2_mask", "hist1d")}
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    chunks, cols, cands = lifecycle_phase(rng, args, centres, qs, dev,
-                                          report)
-    phase_s["lifecycle"] = time.perf_counter() - t0
-    life_launches["lifecycle"] = {k: fn.launches
-                                  for k, fn in counters.items()}
+    life_cat = tempfile.mkdtemp(prefix="chip_smoke_life_")
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        chunks, cols, cands, life = lifecycle_phase(
+            rng, args, centres, qs, dev, report, cat=life_cat)
+        phase_s["lifecycle"] = time.perf_counter() - t0
+        life_launches["lifecycle"] = {k: fn.launches
+                                      for k, fn in counters.items()}
+        # the persist path: the lifecycle store's catalog reopened
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        persist_phase(args, qs, dev, report, life)
+        phase_s["persist"] = time.perf_counter() - t0
+        persist_launches["persist"] = {k: fn.launches
+                                       for k, fn in counters.items()}
+        del life
+    finally:
+        shutil.rmtree(life_cat, ignore_errors=True)
+    torch.cuda.empty_cache()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -3323,6 +3805,24 @@ def main(argv=None) -> int:
     report["life_path_launches"] = life_launches
     log(f"lifecycle paths: launches {life_launches}; "
         + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in life_launches))
+
+    # the FileSystemDataStore lifted onto the card: counts set to 0 just
+    # before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    fsds_phase(rng, args, centres, qs, dev, report)
+    phase_s["fsds"] = time.perf_counter() - t0
+    persist_launches["fsds"] = {k: fn.launches for k, fn in counters.items()}
+    need = {"persist": ("z3_mask", "z2_mask", "density_grid", "hist1d"),
+            "fsds": ("z3_mask", "z2_mask")}
+    for phase, names in need.items():
+        if min(persist_launches[phase][k] for k in names) <= 0:
+            raise AssertionError(f"a kernel of the {phase} path was never "
+                                 f"launched on it: {persist_launches[phase]}")
+    report["persist_path_launches"] = persist_launches
+    log(f"persistence paths: launches {persist_launches}; "
+        + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in persist_launches))
     z3s = report["z3_sweeps"]
     log(f"polygon paths: launches {xz_launches}; "
         + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in xz_launches)

@@ -60,14 +60,27 @@ caller's authorizations (``auth_provider``) on every query, filter, stat
 and bound.  Schemas pinned to the v1 key layouts
 (``geomesa.index.versions=z3:1,z2:1``) key and query with the legacy
 curves (``curve/legacy.py``) until ``migrate_schema``.
-Lean stores over a mesh, fused serving, persistence, multi-controller
-meshes, ``explain_analyze`` and ``storage_report`` are not ported and
-raise rather than degrade.
+With ``catalog_dir`` the store keeps a metadata catalog on disk in the
+JAX package's formats (a catalog either package writes, the other opens):
+``{name}.schema.json`` per schema with its index versions,
+``{name}.stats.json`` sketches with the auto-id counter, ``flush``'s
+``{name}.parquet`` and ``{name}.vis.json`` rows and labels on the default
+profile and a mesh, and a lean schema's chunked ``{name}.lean/`` parquet
+snapshot (tombstones and labels included); opening the catalog reloads
+every schema, and the indexes rebuild lazily on the first query.
+Lean stores over a mesh, fused serving, multi-controller meshes,
+``explain_analyze`` and ``storage_report`` are not ported and raise
+rather than degrade.
 """
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
+import json
+import os
 import re
+import shutil
 import time
 import weakref
 
@@ -103,11 +116,24 @@ from .planning.strategy import FilterStrategy
 from .security import parse_visibility, visibility_mask
 from .stats.stat import (
     BBoxStat, CountStat, EnumerationStat, Histogram, MinMax, Stat, TopK,
-    observe_shared,
+    observe_shared, stat_from_json,
 )
 from .utils.feature_id import z3_feature_ids
 
-__all__ = ["TpuDataStore", "CURRENT_INDEX_VERSIONS"]
+__all__ = ["TpuDataStore", "CatalogVersionError", "CURRENT_INDEX_VERSIONS"]
+
+#: on-disk catalog format version (the JAX package's): v2 added the
+#: per-index layout versions (v1 catalogs read as all-current), v3 changed
+#: the Frequency sketch's string hashing (pre-v3 frequency tables are
+#: dropped on load and rebuild on the next stats_analyze)
+CATALOG_VERSION = 3
+
+
+class CatalogVersionError(RuntimeError):
+    """Catalog written by a NEWER framework version (the client/server
+    version-mismatch handshake, GeoMesaDataStore.scala:433-500: refuse to
+    run rather than corrupt data written by a newer layout), or a lean
+    snapshot whose parts disagree with its manifest."""
 
 
 def _check_schema_name(name: str) -> None:
@@ -212,6 +238,9 @@ class _SchemaStore:
         self.next_fid: int = 0
         #: lazily-built id set for O(m) explicit-id collision checks
         self._id_set: set | None = None
+        #: monotonic stats-artifact generation (persisted in ``__meta__``;
+        #: decides which stats file is newest before mtime does)
+        self.stats_generation: int = 0
         #: lean profile (``geomesa.index.profile=lean`` user data, or
         #: switched on by a large first write, see TpuDataStore.write)
         self.lean = ((sft.user_data or {}).get(
@@ -943,10 +972,10 @@ class TpuDataStore:
         (``device`` still places the query path's heatmap grids).
         ``auth_provider``: an :class:`~geomesa_tpu_torch.security.
         AuthorizationsProvider`; queries, stats and bounds then see only
-        the rows (and attribute values) its authorizations satisfy."""
-        if catalog_dir is not None:
-            raise NotImplementedError(
-                "catalog persistence and lean snapshots are not ported")
+        the rows (and attribute values) its authorizations satisfy.
+        ``catalog_dir``: a metadata catalog directory (created if
+        missing); every schema in it is reloaded now, with its sketches,
+        the auto-id counter and any flushed rows."""
         if multihost:
             raise NotImplementedError(
                 "multi-controller (multihost) stores are not ported")
@@ -957,8 +986,70 @@ class TpuDataStore:
         #: per-schema query interceptors (``geomesa.query.interceptors``
         #: and ``geomesa.age.off`` user data), loaded at create_schema
         self._interceptors: dict[str, list] = {}
+        self._catalog_dir = catalog_dir
+        self._lock_depth = 0
+        if catalog_dir:
+            os.makedirs(catalog_dir, exist_ok=True)
+            with self._catalog_lock():
+                self._check_catalog_version()
+                self._load_catalog()
+
+    # -- catalog version handshake + mutation locking ---------------------
+    def _check_catalog_version(self) -> None:
+        path = os.path.join(self._catalog_dir, "catalog.version")
+        if os.path.exists(path):
+            with open(path) as f:
+                found = int(f.read().strip() or 0)
+            if found > CATALOG_VERSION:
+                raise CatalogVersionError(
+                    f"catalog {self._catalog_dir!r} has version {found}, "
+                    f"newer than this framework's {CATALOG_VERSION}; "
+                    "upgrade before opening it")
+            self._catalog_found_version = found
+        else:
+            with open(path, "w") as f:
+                f.write(str(CATALOG_VERSION))
+            self._catalog_found_version = CATALOG_VERSION
+
+    @contextlib.contextmanager
+    def _catalog_lock(self):
+        """File lock serializing catalog reads and mutations across
+        processes sharing a catalog directory (the DistributedLocking
+        role, index/utils/DistributedLocking.scala).  Reentrant within
+        this store (a flock on a second descriptor of the same file would
+        deadlock against ourselves)."""
+        if not self._catalog_dir:
+            yield
+            return
+        if self._lock_depth > 0:
+            self._lock_depth += 1
+            try:
+                yield
+            finally:
+                self._lock_depth -= 1
+            return
+        with open(os.path.join(self._catalog_dir, ".lock"), "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            self._lock_depth = 1
+            try:
+                yield
+            finally:
+                self._lock_depth = 0
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+    def _catalog_path(self, name: str, suffix: str) -> str:
+        return os.path.join(self._catalog_dir, f"{name}{suffix}")
 
     # -- schema lifecycle (MetadataBackedDataStore.createSchema etc.) ----
+    def _new_store(self, sft: FeatureType) -> _SchemaStore:
+        store = _SchemaStore(sft, self.device, mesh=self._mesh)
+        store.pyramid_trigger = self._pyramid_listener(store)
+        self._schemas[sft.name] = store
+        # interceptors resolve EAGERLY: a typoed class path fails
+        # create_schema (or the catalog's open), not the first query
+        self._interceptors[sft.name] = load_interceptors(sft)
+        return store
+
     def create_schema(self, sft_or_name, spec: str | None = None) -> FeatureType:
         if isinstance(sft_or_name, FeatureType):
             sft = sft_or_name
@@ -967,12 +1058,16 @@ class TpuDataStore:
         _check_schema_name(sft.name)
         if sft.name in self._schemas:
             raise ValueError(f"schema {sft.name!r} already exists")
-        store = _SchemaStore(sft, self.device, mesh=self._mesh)
-        store.pyramid_trigger = self._pyramid_listener(store)
-        self._schemas[sft.name] = store
-        # interceptors resolve EAGERLY: a typoed class path fails
-        # create_schema, not the first query
-        self._interceptors[sft.name] = load_interceptors(sft)
+        with self._catalog_lock():
+            # re-check ON DISK under the lock: another process sharing
+            # the catalog may have created it since we loaded
+            if self._catalog_dir and os.path.exists(
+                    self._catalog_path(sft.name, ".schema.json")):
+                raise ValueError(
+                    f"schema {sft.name!r} already exists in the catalog "
+                    "(created by another process)")
+            self._new_store(sft)
+            self._persist_schema(sft)
         return sft
 
     def get_schema(self, name: str) -> FeatureType:
@@ -992,38 +1087,116 @@ class TpuDataStore:
             raise ValueError("updateSchema cannot add/remove attributes")
         if sft.user_data.get("geomesa.index.versions") == "current":
             self.migrate_schema(name)
-        if sft.name != name:
-            _check_schema_name(sft.name)
-            if sft.name in self._schemas:
-                raise ValueError(f"cannot rename schema {name!r} to "
-                                 f"{sft.name!r}: that schema already exists")
-        store.sft = sft
-        self._interceptors.pop(name, None)
-        if sft.name != name:
-            self._schemas[sft.name] = self._schemas.pop(name)
-        self._interceptors[sft.name] = load_interceptors(sft)
+        with self._catalog_lock():
+            # validate BEFORE mutating: a raise below would leave the
+            # schema renamed in memory while the catalog says otherwise
+            if sft.name != name:
+                _check_schema_name(sft.name)
+                # on-disk re-check under the lock, like create_schema:
+                # the rename replaces target-name artifacts and must never
+                # hit a live schema another process created
+                if sft.name in self._schemas or (
+                        self._catalog_dir and os.path.exists(
+                            self._catalog_path(sft.name, ".schema.json"))):
+                    raise ValueError(
+                        f"cannot rename schema {name!r} to {sft.name!r}: "
+                        "that schema already exists")
+            store.sft = sft
+            self._interceptors.pop(name, None)
+            if sft.name != name:
+                self._schemas[sft.name] = self._schemas.pop(name)
+                if self._catalog_dir:
+                    self._move_artifacts(name, sft.name)
+            self._interceptors[sft.name] = load_interceptors(sft)
+            self._persist_schema(sft)
+
+    def _move_artifacts(self, name: str, target: str) -> None:
+        """Move a renamed schema's catalog files: stale old-name files
+        would resurrect a phantom schema on the next open, and stale
+        target-name leftovers (a crashed remove of an older schema) must
+        not fold into the renamed one."""
+        for suffix in (".schema.json", ".parquet", ".stats.json",
+                       ".vis.json"):
+            old = self._catalog_path(name, suffix)
+            new = self._catalog_path(target, suffix)
+            if os.path.exists(old):
+                os.replace(old, new)
+            elif os.path.exists(new):
+                # with no source to replace it, its recency in load_stats
+                # would shadow the renamed schema's artifacts
+                os.remove(new)
+        for p in self._proc_stats_files(target):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(p)
+        for d in self._lean_snapshot_dirs(target):
+            shutil.rmtree(d, ignore_errors=True)
+        for p in self._proc_stats_files(name):
+            with contextlib.suppress(FileNotFoundError):
+                # deleted externally between listdir and the rename
+                os.replace(p, self._catalog_path(
+                    target, os.path.basename(p)[len(name):]))
+        for d in self._lean_snapshot_dirs(name):
+            new = self._catalog_path(
+                target, os.path.basename(d)[len(name):])
+            # a stale non-empty target dir would fail rename(2)
+            shutil.rmtree(new, ignore_errors=True)
+            os.replace(d, new)
 
     def remove_schema(self, name: str) -> None:
         """Drop a schema with its rows, indexes and stats (no error when
-        it does not exist)."""
-        self._schemas.pop(name, None)
-        self._interceptors.pop(name, None)
+        it does not exist), and its catalog files: schema, rows, labels,
+        stats (per-process files too) and lean snapshots."""
+        with self._catalog_lock():
+            self._schemas.pop(name, None)
+            self._interceptors.pop(name, None)
+            if not self._catalog_dir:
+                return
+            for suffix in (".schema.json", ".parquet", ".stats.json",
+                           ".vis.json"):
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(self._catalog_path(name, suffix))
+            for p in self._proc_stats_files(name):
+                # a concurrent prune between listdir and remove must not
+                # stop the removal half-way
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(p)
+            # a stale snapshot would resurrect the removed rows into a
+            # later schema of the same name
+            for d in self._lean_snapshot_dirs(name):
+                shutil.rmtree(d, ignore_errors=True)
+
+    def _lean_snapshot_dirs(self, name: str) -> list[str]:
+        """Every lean snapshot dir of ``name`` in the catalog
+        (``{name}.lean`` and the per-process ``{name}.lean.pN`` a JAX
+        multi-controller store writes)."""
+        if not self._catalog_dir or not os.path.isdir(self._catalog_dir):
+            return []
+        out = []
+        for f in os.listdir(self._catalog_dir):
+            if f == f"{name}.lean" or f.startswith(f"{name}.lean."):
+                p = os.path.join(self._catalog_dir, f)
+                if os.path.isdir(p):
+                    out.append(p)
+        return out
 
     def migrate_schema(self, name: str) -> dict:
         """Upgrade a schema's index layouts to the CURRENT versions (the
         reference's index-format migration): indexes rebuild from the
         column store with current key math on next use (a lean scale
-        index at once, streamed).  Returns the versions before."""
+        index at once, streamed), and the catalog records the new
+        versions.  Returns the versions before."""
         store = self._store(name)
         old = dict(store.index_versions)
-        store.index_versions = dict(CURRENT_INDEX_VERSIONS)
-        # stale layouts must not serve another query
-        store.drop_indexes()
-        if "geomesa.index.versions" in store.sft.user_data:
-            ud = dict(store.sft.user_data)
-            del ud["geomesa.index.versions"]
-            store.sft = FeatureType(store.sft.name, store.sft.attributes,
-                                    store.sft.default_geom, ud)
+        with self._catalog_lock():
+            store.index_versions = dict(CURRENT_INDEX_VERSIONS)
+            # stale layouts must not serve another query
+            store.drop_indexes()
+            if "geomesa.index.versions" in store.sft.user_data:
+                ud = dict(store.sft.user_data)
+                del ud["geomesa.index.versions"]
+                store.sft = FeatureType(store.sft.name, store.sft.attributes,
+                                        store.sft.default_geom, ud)
+            self._persist_schema(store.sft)
         return old
 
     @property
@@ -1064,6 +1237,7 @@ class TpuDataStore:
             if n_first >= self.LEAN_AUTO_ROWS:
                 store._init_lean()
                 sft.user_data["geomesa.index.profile"] = "lean"
+                self._persist_schema(sft)
         if store.lean:
             if attribute_visibilities:
                 raise ValueError(
@@ -1276,11 +1450,12 @@ class TpuDataStore:
         return stats_process(self, name, query, spec)
 
     def stats_analyze(self, name: str) -> int:
-        """Recompute a schema's sketches from its stored rows (the
-        reference's stats-analyze / StatsRunner); returns the observed
-        feature count.  With no catalog there is nothing to persist."""
+        """Recompute a schema's sketches from its stored rows and persist
+        them to the catalog, if any (the reference's stats-analyze /
+        StatsRunner); returns the observed feature count."""
         store = self._store(name)
         store.recompute_stats()
+        self.persist_stats(name)
         return 0 if store.batch is None else len(store.batch)
 
     def _restricted_mask(self, store: _SchemaStore) -> np.ndarray | None:
@@ -1491,6 +1666,383 @@ class TpuDataStore:
         already have pyramids are skipped.  Returns the number built (0
         for default-profile schemas)."""
         return self._store(name).build_pyramids()
+
+    # -- metadata catalog persistence -------------------------------------
+    def _persist_schema(self, sft: FeatureType) -> None:
+        if not self._catalog_dir:
+            return
+        store = self._schemas.get(sft.name)
+        versions = (store.index_versions if store is not None
+                    else dict(CURRENT_INDEX_VERSIONS))
+        with open(self._catalog_path(sft.name, ".schema.json"), "w") as f:
+            json.dump({"name": sft.name, "spec": sft.spec_string(),
+                       "index_versions": versions,
+                       "updated": time.time()}, f)
+
+    def _proc_stats_files(self, name: str) -> list[str]:
+        """Per-process stats files (``{name}.pN.stats.json``, written by
+        a JAX multi-controller store) in the catalog — the one definition
+        of that naming, which rename, remove and the merge share."""
+        if not self._catalog_dir or not os.path.isdir(self._catalog_dir):
+            return []
+        pat = re.compile(re.escape(name) + r"\.p\d+\.stats\.json")
+        return sorted(os.path.join(self._catalog_dir, f)
+                      for f in os.listdir(self._catalog_dir)
+                      if pat.fullmatch(f))
+
+    def persist_stats(self, name: str) -> None:
+        """Write the schema's sketches and ``__meta__`` (the auto-id
+        counter and a stats generation) to ``{name}.stats.json``: to a tmp
+        file first, then swapped in, so a crash never leaves the counter
+        missing (ids would be reused); then the per-process files it
+        supersedes are pruned, except those whose ``.lean.pN`` row
+        snapshot still exists (their sketches were never merged)."""
+        if not self._catalog_dir:
+            return
+        store = self._store(name)
+        with self._catalog_lock():
+            path = self._catalog_path(name, ".stats.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                store.stats_generation += 1
+                f.write(json.dumps({"__meta__": {
+                                        "next_fid": store.next_fid,
+                                        "generation": store.stats_generation},
+                                    **{k: st.to_json()
+                                       for k, st in store._stats.items()}}))
+            os.replace(tmp, path)
+            for p in self._proc_stats_files(name):
+                tag = os.path.basename(p).rsplit(
+                    ".stats.json", 1)[0].rsplit(".p", 1)[1]
+                if os.path.isdir(self._catalog_path(name, f".lean.p{tag}")):
+                    continue
+                with contextlib.suppress(FileNotFoundError):
+                    os.remove(p)   # a concurrent persist pruned it
+
+    def load_stats(self, name: str) -> None:
+        """Reload persisted sketches and the auto-id counter.  The newest
+        artifact family wins, by the ``__meta__`` generation, then mtime
+        (a stale shared file must not shadow newer per-process files or
+        the reverse, or the counter would regress and reuse deleted ids);
+        per-process files merge; ``next_fid`` takes the max over every
+        artifact, whichever wins."""
+        if not self._catalog_dir:
+            return
+        store = self._store(name)
+        with self._catalog_lock():
+            self._load_stats_locked(name, store)
+
+    def _load_stats_locked(self, name: str, store: _SchemaStore) -> None:
+        shared = self._catalog_path(name, ".stats.json")
+        procs = self._proc_stats_files(name)
+
+        def mtime(p):
+            try:
+                return os.path.getmtime(p)
+            except OSError:
+                return -1.0
+
+        # every artifact parses once: the arbitration and the merge share
+        # these dicts
+        parsed: dict[str, dict] = {}
+        for p in {shared, *procs}:
+            try:
+                with open(p) as f:
+                    parsed[p] = json.load(f)
+            except (OSError, ValueError):
+                pass   # absent, or pruned by a concurrent persist
+
+        def recency(p):
+            """(generation, mtime): the ``__meta__`` counter decides when
+            present; mtime only orders artifacts written without it."""
+            gen = ((parsed.get(p) or {}).get("__meta__")
+                   or {}).get("generation", -1)
+            return (int(gen), mtime(p))
+
+        sources: list = []
+        live_procs = [p for p in procs if p in parsed]
+        if live_procs and max(map(recency, live_procs)) > recency(shared):
+            sources = [(p, True) for p in live_procs]
+        elif shared in parsed:
+            sources = [(shared, True)]
+        chosen = {p for p, _ in sources}
+        sources += [(p, False) for p in parsed if p not in chosen]
+        if not sources:
+            return
+        drop_freq = self._catalog_found_version < 3
+        merged: dict = {}
+        poisoned: set = set()
+        for path, with_sketches in sources:
+            raw = dict(parsed[path])
+            meta = raw.pop("__meta__", None)   # absent in older catalogs
+            if meta is not None:
+                store.next_fid = max(store.next_fid,
+                                     int(meta.get("next_fid", 0)))
+                store.stats_generation = max(
+                    store.stats_generation, int(meta.get("generation", 0)))
+            if not with_sketches:
+                continue
+            if drop_freq:
+                # pre-v3 Frequency tables hashed strings the old way:
+                # read with today's hash they answer from the wrong
+                # buckets (rebuilt by the next stats_analyze)
+                raw = {k: v for k, v in raw.items()
+                       if v.get("kind") != "frequency"}
+            for k, v in raw.items():
+                if k in poisoned:
+                    continue
+                st = stat_from_json(v)
+                if k not in merged:
+                    merged[k] = st
+                    continue
+                try:
+                    merged[k] = merged[k].merge(st)
+                except ValueError:
+                    # per-process sketches can be incompatible (histograms
+                    # binned over each process's own bounds): a dropped
+                    # sketch beats an unopenable catalog
+                    merged.pop(k, None)
+                    poisoned.add(k)
+        if merged:
+            # re-seed every default sketch the merge dropped or an older
+            # artifact never carried: code reads _stats["count"] directly
+            for k, st in store._stats.items():
+                merged.setdefault(k, st)
+            store._stats = merged
+
+    def flush(self, name: str) -> None:
+        """Persist the schema's rows under the catalog: ``{name}.parquet``
+        (the JAX package's export layout) with ``{name}.vis.json``, the
+        row and attribute labels dictionary-encoded, on the default
+        profile and a mesh; a chunked snapshot on the lean profile
+        (:meth:`_flush_lean`); then the stats.  No-op without a catalog
+        or rows."""
+        if not self._catalog_dir:
+            return
+        store = self._store(name)
+        if store.batch is None:
+            return
+        if store.lean:
+            self._flush_lean(name, store)
+            return
+        from .io.export import to_parquet
+        to_parquet(store.batch, self._catalog_path(name, ".parquet"))
+        if store.visibilities is not None or store.attr_visibilities:
+            # dictionary-encoded: labels are low-cardinality
+            payload: dict = {}
+            if store.visibilities is not None:
+                uniq, codes = np.unique(store.visibilities.astype(str),
+                                        return_inverse=True)
+                payload["labels"] = uniq.tolist()
+                payload["codes"] = codes.tolist()
+            if store.attr_visibilities:
+                attrs = {}
+                for attr, col in store.attr_visibilities.items():
+                    u, c = np.unique(col.astype(str), return_inverse=True)
+                    attrs[attr] = {"labels": u.tolist(),
+                                   "codes": c.tolist()}
+                payload["attributes"] = attrs
+            with open(self._catalog_path(name, ".vis.json"), "w") as f:
+                # json.dumps, not json.dump: the same text through the C
+                # encoder (json.dump encodes in Python, a row code at a
+                # time)
+                f.write(json.dumps(payload))
+        self.persist_stats(name)
+
+    #: rows per lean snapshot part — bounds the host working set of a
+    #: flush or reload to one part's columns, never the dataset
+    LEAN_PART_ROWS = 1 << 22
+
+    def _lean_dir(self, name: str) -> str:
+        """Snapshot directory of a lean schema (one process: no per-process
+        ``.pN`` suffix, which the JAX package's multi-controller stores
+        add)."""
+        return self._catalog_path(name, ".lean")
+
+    def _flush_lean(self, name: str, store: _SchemaStore) -> None:
+        """Chunked parquet snapshot of a lean schema: ``LEAN_PART_ROWS``
+        row parts (no ids: lean ids are implicit row numbers) plus a
+        manifest, so peak host memory is one part.  Per-row state rides
+        in the parts as reserved columns: ``__tombstone__``, ``__vis__``
+        (codes into the manifest's sorted labels) and, for non-point
+        schemas, ``__wkb__`` (the per-feature bbox column is derived and
+        left out).
+
+        Crash-safe: parts carry a per-flush stamp, the manifest is swapped
+        in (tmp + ``os.replace``) LAST, and only then are the prior
+        flush's parts deleted — a crash at any point leaves the previous
+        manifest with its parts intact."""
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        from .geometry.wkb import wkb_encode
+        d = self._lean_dir(name)
+        os.makedirs(d, exist_ok=True)
+        mpath = os.path.join(d, "manifest.json")
+        stamp = 0
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                stamp = int(json.load(f).get("stamp", 0)) + 1
+        n = len(store.batch)
+        step = self.LEAN_PART_ROWS
+        vis_labels = None
+        if store.visibilities is not None:
+            # the label set per slice: a str copy of the whole column
+            # would break the one-part memory bound
+            slice_labels = [
+                np.unique(store.visibilities[lo:min(lo + step, n)]
+                          .astype(str)) for lo in range(0, n, step)]
+            vis_labels = (np.unique(np.concatenate(slice_labels))
+                          if slice_labels else np.empty(0, dtype=str))
+        bbox_col = (f"{store.sft.geom_field}_bbox"
+                    if store.batch.geoms is not None else None)
+        parts = []
+        for i, lo in enumerate(range(0, n, step)):
+            hi = min(lo + step, n)
+            view = store.batch.slice_view(lo, hi)
+            cols = {k: pa.array(np.asarray(v))
+                    for k, v in view.columns.items() if k != bbox_col}
+            if bbox_col is not None:
+                gpart = store.batch.geoms.take(np.arange(lo, hi))
+                cols["__wkb__"] = pa.array(
+                    [wkb_encode(gpart.geometry(j)) for j in range(hi - lo)],
+                    type=pa.binary())
+            if store.tombstone is not None:
+                cols["__tombstone__"] = pa.array(store.tombstone[lo:hi])
+            if vis_labels is not None:
+                cols["__vis__"] = pa.array(np.searchsorted(
+                    vis_labels,
+                    store.visibilities[lo:hi].astype(str)).astype(np.int32))
+            fname = f"part-{stamp:06d}-{i:05d}.parquet"
+            pq.write_table(pa.table(cols), os.path.join(d, fname))
+            parts.append(fname)
+        manifest: dict = {
+            "n": n, "parts": parts, "stamp": stamp,
+            "envelope": (list(store.batch.envelope)
+                         if store.batch.envelope else None),
+            "id_prefix": "",
+            "has_tombstones": store.tombstone is not None,
+        }
+        if vis_labels is not None:
+            manifest["vis_labels"] = vis_labels.tolist()
+        tmp = mpath + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(manifest, f)
+        os.replace(tmp, mpath)        # the commit point
+        live = set(parts)
+        for f in os.listdir(d):       # the prior flush's parts, orphaned
+            if f.startswith("part-") and f not in live:
+                os.remove(os.path.join(d, f))
+        self.persist_stats(name)
+
+    def _load_lean(self, name: str) -> None:
+        """Restore a lean snapshot into the schema's fresh store: append
+        each part's columns by reference, restore the envelope, tombstones
+        and labels, and leave the indexes to the lazy streaming build of
+        ``_lean_index``, ``_lean_xz_index`` and ``_lean_attr_index`` (the
+        store has none yet; the first query or write streams the rows
+        through the live append path)."""
+        import pyarrow.parquet as pq
+        store = self._schemas[name]
+        d = self._lean_dir(name)
+        mpath = os.path.join(d, "manifest.json")
+        if not os.path.exists(mpath):
+            return
+        with open(mpath) as f:
+            manifest = json.load(f)
+        tomb_parts: list = []
+        vis_parts: list = []
+        vis_labels = (np.asarray(manifest["vis_labels"], dtype=object)
+                      if manifest.get("vis_labels") is not None else None)
+        for fname in manifest["parts"]:
+            table = pq.read_table(os.path.join(d, fname))
+            cols = {c: table.column(c).to_numpy(zero_copy_only=False)
+                    for c in table.column_names}
+            if manifest.get("has_tombstones"):
+                tomb_parts.append(cols.pop("__tombstone__").astype(bool))
+            if vis_labels is not None:
+                vis_parts.append(
+                    vis_labels[cols.pop("__vis__").astype(np.int64)])
+            geoms = None
+            if "__wkb__" in cols:
+                from .geometry.packed import pack_geometries
+                from .geometry.wkb import wkb_decode
+                geoms = pack_geometries(
+                    [wkb_decode(b) for b in cols.pop("__wkb__")])
+                # the derived per-feature bbox column (later writes carry
+                # it, and every chunk's column set must agree)
+                cols[f"{store.sft.geom_field}_bbox"] = geoms.bbox
+            if table.num_rows:
+                store.batch.append_batch(
+                    ChunkView(store.sft, cols, table.num_rows, geoms=geoms))
+        if len(store.batch) != manifest["n"]:
+            raise CatalogVersionError(
+                f"lean snapshot {d} is inconsistent: manifest says "
+                f"{manifest['n']} rows, parts hold {len(store.batch)}")
+        if manifest.get("envelope"):
+            store.batch.envelope = tuple(manifest["envelope"])
+        if tomb_parts:
+            store.tombstone = np.concatenate(tomb_parts)
+        if vis_parts:
+            store.visibilities = np.concatenate(vis_parts)
+
+    def _load_data(self, name: str) -> None:
+        store = self._schemas[name]
+        if store.lean:
+            # sketches and the id counter from the stats file; rows from
+            # the chunked snapshot when one was flushed
+            self.load_stats(name)
+            self._load_lean(name)
+            return
+        path = self._catalog_path(name, ".parquet")
+        if os.path.exists(path):
+            from .io.export import from_parquet
+            store.batch = from_parquet(path, store.sft)
+            store.next_fid = _max_numeric_id(store.batch.ids) + 1
+            vis_path = self._catalog_path(name, ".vis.json")
+            if os.path.exists(vis_path):
+                with open(vis_path) as f:
+                    enc = json.load(f)
+                if "labels" in enc:
+                    labels = np.asarray(enc["labels"], dtype=object)
+                    store.visibilities = labels[np.asarray(enc["codes"], int)]
+                else:
+                    store.visibilities = np.full(len(store.batch), "",
+                                                 dtype=object)
+                for attr, e in enc.get("attributes", {}).items():
+                    lbl = np.asarray(e["labels"], dtype=object)
+                    store.attr_visibilities[attr] = lbl[
+                        np.asarray(e["codes"], int)]
+            else:
+                store.visibilities = np.full(len(store.batch), "",
+                                             dtype=object)
+        # persisted sketches and the id counter load whether or not rows
+        # were flushed (ids are never reused)
+        self.load_stats(name)
+        # observe the rows when no stats were persisted
+        if (store.batch is not None and len(store.batch)
+                and store._stats["count"].count == 0):
+            for st in store._stats.values():
+                st.observe(store.batch)
+
+    def _load_catalog(self) -> None:
+        for fn in os.listdir(self._catalog_dir):
+            if not fn.endswith(".schema.json"):
+                continue
+            try:
+                with open(os.path.join(self._catalog_dir, fn)) as f:
+                    meta = json.load(f)
+            except FileNotFoundError:
+                continue   # removed by another process mid-listing
+            sft = parse_spec(meta["name"], meta["spec"])
+            store = self._new_store(sft)
+            # recorded layout versions win over the spec's; v1 catalogs
+            # (before versioning) were written with today's layouts
+            if "index_versions" in meta:
+                store.index_versions = {
+                    **CURRENT_INDEX_VERSIONS,
+                    **{k: int(v) for k, v in meta["index_versions"].items()}}
+            self._load_data(sft.name)
 
     # -- not ported ---------------------------------------------------------
     def query_windows(self, name: str, windows, **kw):

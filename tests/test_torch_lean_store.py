@@ -254,7 +254,7 @@ def test_lean_rejections(stores):
                                  "geomesa.index.profile=lean")
 
 
-def test_left_out_features_raise(stores):
+def test_left_out_features_raise(stores, tmp_path):
     jds, tds = stores
     lean = ";geomesa.index.profile=lean"
     with pytest.raises(NotImplementedError, match="mesh"):
@@ -291,8 +291,21 @@ def test_left_out_features_raise(stores):
         tds.query_windows("evt", [([BOX], None, None)])
     with pytest.raises(NotImplementedError, match="fused"):
         tds.query_fused("evt", "INCLUDE")
-    with pytest.raises(NotImplementedError, match="persistence"):
-        TpuDataStore(device="cpu", catalog_dir="catalog")
+    # catalogs are served since the persistence slice: the lean polygon
+    # schema flushes, and the JAX store reopens it with the same answers
+    cat = str(tmp_path / "catalog")
+    pds = TpuDataStore(device="cpu", catalog_dir=cat)
+    pds.create_schema("poly", poly_spec)
+    pds.write("poly", {"v": np.arange(3), "poly": [
+        Polygon([(x + i, y) for x, y in ring]) for i in range(3)]})
+    pds.flush("poly")
+    for q in ("BBOX(poly, 0.5, 0.5, 1.5, 0.7)", "v = 2", "IN ('1')"):
+        a = JaxStore(cat).query_result("poly", q)
+        b = TpuDataStore(device="cpu", catalog_dir=cat).query_result(
+            "poly", q)
+        assert b.strategy.index == a.strategy.index
+        assert list(b.positions) == list(a.positions) == list(
+            jds.query_result("poly", q).positions)
     # deletes and visibilities are served since the lifecycle slice
     # (tests/test_torch_delete.py, tests/test_torch_security.py); the
     # observability-backed reports still raise

@@ -6,7 +6,9 @@ attribute queries on a default, a 2-shard mesh and a lean store (with
 the lean attribute stat push-down), a polygon store's xz3 and xz2
 queries with the native range sweep loaded, and a restricted query on a
 v1-layout store with its deletes and a lean store's delete and age-off,
-loads neither ``jax`` nor
+a catalog's flush and reopen (a labelled default schema and a lean one
+with a tombstone), and a FileSystemDataStore's write, pruned query and
+``to_device_store``, loads neither ``jax`` nor
 any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
@@ -138,6 +140,41 @@ life = {"v1": [vs._store("v").index("z3").version,
                          age_off(ls, "l", older_than_ms=1515000000000),
                          ls.stats("l", "INCLUDE", "Count()").count,
                          ls.get_count("l")]}
+import shutil, tempfile
+from geomesa_tpu_torch.fs import FileSystemDataStore, to_device_store
+cat, fsroot = tempfile.mkdtemp(), tempfile.mkdtemp()
+pq_ = ("BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+       "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+ps = TpuDataStore(device="cpu", catalog_dir=cat)
+ps.create_schema("s", "actor:String,dtg:Date,*geom:Point")
+ps.create_schema("l", "dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+                      "geomesa.lean.generation.slots=128")
+prow = {"actor": np.array(["a"] * n, dtype=object),
+        "dtg": rng.integers(1514764800000, 1517443200000, n),
+        "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))}
+ps.write("s", prow, visibility="user")
+ps.write("l", {k: v for k, v in prow.items() if k != "actor"})
+ps.delete("l", ["3"])
+for name in ("s", "l"):
+    ps.flush(name)
+ro = TpuDataStore(device="cpu", catalog_dir=cat,
+                  auth_provider=StaticAuthorizationsProvider({"user"}))
+fs = FileSystemDataStore(fsroot)
+fs.create_schema("e", "actor:String,dtg:Date,*geom:Point")
+fs.write("e", prow)
+lifted = to_device_store(fs, "e", device="cpu")
+persist = {"reopen": [sorted(ro.type_names),
+                      ro.query_result("s", pq_).positions.tolist()
+                      == ps.query_result("s", pq_).positions.tolist(),
+                      ro.query_result("l", pq_).positions.tolist()
+                      == ps.query_result("l", pq_).positions.tolist(),
+                      ro.get_count("s"), ro.get_count("l")],
+           "fs": [fs.count("e"), len(fs.partitions("e")),
+                  len(fs.query("e", pq_)),
+                  int(len(lifted.query_result("e", pq_).positions)),
+                  lifted.query_result("e", pq_).strategy.index]}
+shutil.rmtree(cat)
+shutil.rmtree(fsroot)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -162,7 +199,8 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "replan_source": rq.strategy.source,
                   "replan_hits": rq.positions.tolist(),
                   "replans": str(rex).count("Replanning: z3 observed"),
-                  "attr": attr, "poly": poly, "life": life}))
+                  "attr": attr, "poly": poly, "life": life,
+                  "persist": persist}))
 """
 
 
@@ -216,6 +254,11 @@ def test_import_and_query_load_no_jax():
     assert life["lean_deleted"][0] == 2 and life["lean_deleted"][1] > 0
     assert (life["lean_deleted"][2] == life["lean_deleted"][3]
             == 4 * 500 - 2 - life["lean_deleted"][1])
+    persist = out["persist"]
+    assert persist["reopen"] == [["l", "s"], True, True, 500, 499]
+    assert persist["fs"][0] == 500 and persist["fs"][1] > 1
+    assert persist["fs"][2] == persist["fs"][3] > 0
+    assert persist["fs"][4] == "z3"
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
