@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py [--seed 0] [--points 100000000]
                           [--facade-rows 16000000] [--places-rows 4000000]
-                          [--mesh-rows 16000000] [--lean-rows 128000000]
-                          [--lean-slots 16777216] [--attr-rows 16000000]
+                          [--mesh-rows 16000000] [--lean-rows 80000000]
+                          [--lean-slots 8388608] [--attr-rows 12000000]
                           [--attr-mesh-rows 4000000]
-                          [--lean-attr-rows 128000000]
+                          [--lean-attr-rows 64000000]
+                          [--lean-attr-slots 8388608]
+                          [--mesh-lean-rows 64000000]
+                          [--mesh-lean-slots 8388608]
                           [--poly-rows 8000000] [--poly-mesh-rows 8000000]
-                          [--lean-poly-rows 64000000]
+                          [--lean-poly-rows 32000000]
                           [--lean-poly3-rows 16000000]
                           [--lean-poly3-slots 2097152]
-                          [--life-rows 16000000]
+                          [--mesh-lean-poly-rows 16000000]
+                          [--mesh-lean-poly3-rows 8000000]
+                          [--mesh-lean-poly-slots 2097152]
+                          [--life-rows 6000000]
                           [--life-mesh-rows 4000000]
-                          [--fsds-rows 4000000] [--profile] [--out FILE]
+                          [--fsds-rows 2000000] [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
 
@@ -64,13 +70,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    grows the shard to 2^25 slots, and the Histogram spec again, now on
    the int64 route.  Every result equals a numpy oracle over the rows,
    and ``hist1d`` launches once per kernel-route Histogram and ``depth``
-   times per Frequency, and never on the int64 route;
+   times per Frequency, and never on the int64 route.  Before the
+   append, the BBOX+DURING query with a max-ranges hint of 65,536, whose
+   plan holds more ranges than a device replicates (4096), takes the
+   ring-parallel scan (``ShardedZ3Index.query_ring``), equal to the
+   oracle and launching ``z3_mask``; ``range_counts_ring`` sums to
+   ``range_count``;
 8. lean: ``TpuDataStore(device="cuda")`` on schema ``scale``
    (``score:Double,dtg:Date,*geom:Point``, no profile set) with
    ``geomesa.lean.hbm.budget`` at 164 B a generation slot (one full and
    four keys generations beside the sentinel charges): ``--lean-rows``
-   GDELT-like rows in 4 writes, the first of which switches the schema
-   to the lean profile, ending with generations in all three tiers
+   GDELT-like rows at ``--lean-slots``-slot generations in 4 writes, the
+   first of which (``LEAN_AUTO_ROWS``, 32M rows) switches the schema to
+   the lean profile, the rest splitting the others three ways, ending
+   with generations in all three tiers
    (full, keys, host); 8 BBOX+DURING queries (3 city, 3 region, 2
    continent) and 2 BBOX-only ones, positions and implicit ids equal to
    the oracle, each plan costed by the cardinality estimator (source
@@ -113,10 +126,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``--attr-mesh-rows`` rows; an actor equality with a week (the sharded
    index's z3 tier) and a score range, each against the oracle;
 11. lean attr: the same schema on the lean profile, ``--lean-attr-rows``
-   rows in 4 writes at ``--lean-slots`` generations, with a budget of
+   rows in 4 writes at ``--lean-attr-slots`` generations, with a budget of
    208 B a slot: the z3 index (0.75 of it) keeps one full and three keys
-   generations, each attribute index one device generation and the rest
-   on the host; the attribute queries above plus an actor with a day
+   generations, each attribute index the device generations its budget
+   floor holds (two class-default generations) and the rest on the host; the attribute queries above plus an actor with a day
    (the date-tier seek) and the most frequent actor with a city BBOX and
    a day (``z3``), estimator-costed (source ``sketch``; the estimator's
    cold attribute folds timed first); Count, MinMax, a 64-bin Histogram
@@ -127,6 +140,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``compact``, which must merge a group of host runs in each attribute
    index (the LeanAttrIndex core the lean XZ indexes share), and two
    queries again;
+11b. mesh lean: the same schema on the lean profile over
+   ``device_mesh(1)`` (``ShardedLeanZ3Index``, two
+   ``ShardedLeanAttrIndex``), ``--mesh-lean-rows`` rows in 4 writes at
+   ``--mesh-lean-slots``-slot per-shard generations and 384 B a slot of
+   budget (z3: full and keys generations; each attribute index one
+   device generation, the rest on the host), the accounted device bytes
+   within 2% of ``torch.cuda.memory_allocated``; the lean phase's 10
+   queries estimator-costed and the city BBOX replanned once, the
+   rare-actor and score-band queries, ``Count()`` on INCLUDE (the count
+   push-down) and the whole-extent ``Z3Histogram`` (the sketch), the
+   world heatmap and the z = 1 and z = 3 tiles before and after
+   ``build_pyramids`` (the world grid then served from every sealed
+   generation's pyramid), a ``score``-weighted heatmap (the density
+   kernel); ``compact`` (fewer z3 generations, a group of host runs
+   merged in each attribute index, inherited pyramids); a
+   flush, a drop, a reopen over ``device_mesh(1)``, the first query
+   (time to recover) and the rest; then a point schema at a sixteenth of
+   the slots whose generations pass through the full, keys and host
+   tiers, its queries equal to the oracle;
 12. polys: ``TpuDataStore(device="cuda")`` on schema ``polys``
    (``kind:String:index=true,dtg:Date,*geom:Polygon``): ``--poly-rows``
    footprints in 4 writes, drawn as ``poly_scale_proof.py`` draws them
@@ -163,6 +195,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    12 and the spatial-only ones, which run on ``xz3`` with an open
    interval clamped to the data's extent; then ``compact``, which must
    merge a group of host runs, and a query again;
+15b. mesh lean polys: phases 14 and 15 over ``device_mesh(1)``
+   (``ShardedLeanXZ2Index``, ``ShardedLeanXZ3Index``),
+   ``--mesh-lean-poly-rows`` and ``--mesh-lean-poly3-rows`` footprints
+   at ``--mesh-lean-poly-slots``-slot per-shard generations under 100 B
+   a slot (device and host generations both), and ``compact``;
 16. lifecycle: ``TpuDataStore(device="cuda", auth_provider=...)`` on the
    facade's schema, ``--life-rows`` GDELT-like rows in 4 writes labelled
    "", ``user``, ``admin`` and ``user&admin``, ``actor`` guarded by
@@ -219,10 +256,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 7, phase 8,
-phases 9-10 and phase 11; a kernel of a path that was never launched on
-it fails the run (on the lean path, density_grid; on the attribute path,
-z3_mask, which the city query launches; the lean attribute path runs no
-kernel).  They are set to 0 and read around each of phases 12-15 as
+phases 9-10, phase 11 and phase 11b; a kernel of a path that was never
+launched on it fails the run (on the lean path, density_grid; on the
+attribute path, z3_mask, which the city query launches; the lean
+attribute path runs no kernel; on the mesh lean path, density_grid).
+They are set to 0 and read around each of phases 12-15b as
 well, and reported: the JAX package runs no Pallas kernel on its xz
 paths (host numpy and plain XLA), and the port none on them.  They are
 set to 0 and read around each of phases 16-18, which must launch
@@ -267,6 +305,10 @@ INT32_OPS_PER_S = 67e12 / 4
 #: outside the tensor cores counts a fused multiply-add as 2
 FP64_OPS_PER_S = 34e12 / 2
 WORLD = (-180.0, -90.0, 180.0, 90.0)
+#: the mesh phase's ring query: a max-ranges hint whose plan over the
+#: phase's 20-degree box and two weeks holds more than the 4096 ranges a
+#: device replicates (the phase checks it)
+RING_MAX_RANGES = 65536
 #: the lean phase's Z3Histogram resolution (top bits of the z3 key)
 Z3_BITS = 12
 #: the lean phase's mispredicted plan: whole-store fractions only, and a
@@ -325,6 +367,38 @@ def gdelt_like(rng, n: int, centres):
     return x, y, t
 
 
+#: brute-force answers already computed: a phase asks the same window of
+#: the same columns many times (the queries, their turns, after a
+#: compaction, after a reopen), and at the lean phase's size each
+#: answer costs most of a second of host time.  Keyed by the columns' identity and the window;
+#: an entry holds weak references to its columns, so it never answers
+#: for other arrays, and its positions are read-only
+_ORACLE_MEMO: dict = {}
+
+
+def _memo_oracle(fn):
+    import weakref
+
+    @functools.wraps(fn)
+    def memo(*args):
+        cols = [a for a in args if hasattr(a, "dtype")]
+        rest = tuple(tuple(map(tuple, a)) if isinstance(a, list) else a
+                     for a in args if not hasattr(a, "dtype"))
+        key = (fn.__name__, tuple(id(c) for c in cols), rest)
+        hit = _ORACLE_MEMO.get(key)
+        if hit is not None and all(r() is c for r, c in zip(hit[0], cols)):
+            return hit[1]
+        out = fn(*args)
+        out.setflags(write=False)
+        for k in [k for k, (refs, _) in _ORACLE_MEMO.items()
+                  if any(r() is None for r in refs)]:
+            del _ORACLE_MEMO[k]      # the answers of freed columns
+        _ORACLE_MEMO[key] = ([weakref.ref(c) for c in cols], out)
+        return out
+    return memo
+
+
+@_memo_oracle
 def oracle(x, y, t, boxes, lo, hi, chunk: int = 1 << 24):
     """Brute-force positions of rows inside any box and [lo, hi], in
     chunks of ``chunk`` rows."""
@@ -341,6 +415,7 @@ def oracle(x, y, t, boxes, lo, hi, chunk: int = 1 << 24):
     return np.concatenate(out)
 
 
+@_memo_oracle
 def box_oracle(x, y, boxes, chunk: int = 1 << 24):
     """Brute-force positions of points inside any box, in chunks."""
     import numpy as np
@@ -1086,6 +1161,7 @@ def mesh_phase(rng, args, centres, dev, report):
     from geomesa_tpu_torch.features.feature_type import parse_spec
     from geomesa_tpu_torch.index.pyramid import tile_env
     from geomesa_tpu_torch.ops.hist1d_kernel import hist1d
+    from geomesa_tpu_torch.ops.z3_mask import z3_mask
     from geomesa_tpu_torch.parallel import stats as pstats
     from geomesa_tpu_torch.stats.stat import Frequency
 
@@ -1226,6 +1302,32 @@ def mesh_phase(rng, args, centres, dev, report):
                                  f"{len(want)}")
         qrows.append({"query": name, "ms": ms, "hits": int(len(want))})
 
+    # the ring-parallel scan: a max-ranges hint above 4096 plans more
+    # ranges than one device replicates, so the sharded z3 query takes
+    # the ring (the plan split and rotated, the data stationary; one
+    # shard here), its hop through the z3 mask kernel
+    z3 = store.z3_index()
+    plan = z3._plan([box], *w, RING_MAX_RANGES)
+    if plan.num_ranges <= z3.RING_MIN_RANGES_PER_DEVICE * z3.mesh.size:
+        raise AssertionError(f"a {RING_MAX_RANGES}-range hint planned "
+                             f"{plan.num_ranges} ranges: no ring")
+    m0 = z3_mask.launches
+    t0 = time.perf_counter()
+    ring = z3.query([box], *w, max_ranges=RING_MAX_RANGES)
+    ring_ms = (time.perf_counter() - t0) * 1e3
+    ring_launches = z3_mask.launches - m0
+    counts = z3.range_counts_ring([box], *w, max_ranges=RING_MAX_RANGES)
+    total = z3.range_count([box], *w, max_ranges=RING_MAX_RANGES)
+    if (not np.array_equal(ring, hits) or ring_launches <= 0
+            or len(counts) != plan.num_ranges or int(counts.sum()) != total):
+        raise AssertionError(f"mesh ring: {len(ring)} hits (oracle "
+                             f"{len(hits)}), {ring_launches} z3_mask "
+                             f"launches, ring counts {int(counts.sum())} "
+                             f"against {total}")
+    qrows.append({"query": "bbox_during_ring", "ms": ring_ms,
+                  "hits": int(len(hits)), "ranges": int(plan.num_ranges),
+                  "candidates": total, "z3_mask_launches": ring_launches})
+
     tx = int((cx + 180.0) // 45.0)
     ty = 7 - int((cy + 90.0) // 22.5)
     tenv = tile_env(3, tx, ty)
@@ -1327,30 +1429,48 @@ def lean_density_oracle(cols, layout, boxes, lo, hi, env, width: int,
     c_lo = int(lean_norm(np.float64(o_lo), 0.0, t_max))
     c_hi = int(lean_norm(np.float64(o_hi), 0.0, t_max))
     counts = np.zeros(width * height, dtype=np.int64)
+    # a box covering the world passes every row's box test on both tiers
+    # (normalized, the world's bounds are the first and last cells)
+    world = any(b[0] <= -180.0 and b[1] <= -90.0 and b[2] >= 180.0
+                and b[3] >= 90.0 for b in boxes)
     for base, n, tier in layout:
         for s in range(base, base + n, chunk):
             e = min(s + chunk, base + n)
-            xc, yc, tc = x[s:e], y[s:e], t[s:e]
-            ix = lean_norm(xc, -180, 180)
-            iy = lean_norm(yc, -90, 90)
-            m = np.zeros(e - s, dtype=bool)
-            if tier == "full":
-                for b in boxes:
-                    m |= ((xc >= b[0]) & (xc <= b[2]) & (yc >= b[1])
-                          & (yc <= b[3]))
-                m &= (tc >= lo) & (tc <= hi)
+            tc = t[s:e]
+            if world and lo <= tc.min() and hi >= tc.max():
+                # every row of the chunk passes either tier's tests
+                sel = np.arange(s, e)
             else:
-                for b in nb:
-                    m |= ((ix >= b[0]) & (ix <= b[2]) & (iy >= b[1])
-                          & (iy <= b[3]))
-                sel = np.flatnonzero(m)
-                bins, offs = to_binned_time(tc[sel], TimePeriod.WEEK)
-                it = lean_norm(offs.astype(np.float64), 0.0, t_max)
-                ok = (((bins > b_lo) | ((bins == b_lo) & (it >= c_lo)))
-                      & ((bins < b_hi) | ((bins == b_hi) & (it <= c_hi))))
-                m[sel] = ok
-            xd = lean_denorm(ix[m], -180, 180)
-            yd = lean_denorm(iy[m], -90, 90)
+                # rows more than a cell outside every box or the window
+                # fail either tier's tests: only the rest are tested
+                near = np.zeros(e - s, dtype=bool)
+                for b in boxes:
+                    near |= ((x[s:e] >= b[0] - 1e-3) & (x[s:e] <= b[2] + 1e-3)
+                             & (y[s:e] >= b[1] - 1e-3)
+                             & (y[s:e] <= b[3] + 1e-3))
+                near &= (tc >= lo - 1000) & (tc <= hi + 1000)
+                sel = s + np.flatnonzero(near)
+                xc, yc, tc = x[sel], y[sel], t[sel]
+                m = np.zeros(len(sel), dtype=bool)
+                if tier == "full":
+                    for b in boxes:
+                        m |= ((xc >= b[0]) & (xc <= b[2]) & (yc >= b[1])
+                              & (yc <= b[3]))
+                    m &= (tc >= lo) & (tc <= hi)
+                else:
+                    ix = lean_norm(xc, -180, 180)
+                    iy = lean_norm(yc, -90, 90)
+                    for b in nb:
+                        m |= ((ix >= b[0]) & (ix <= b[2]) & (iy >= b[1])
+                              & (iy <= b[3]))
+                    bins, offs = to_binned_time(tc, TimePeriod.WEEK)
+                    it = lean_norm(offs.astype(np.float64), 0.0, t_max)
+                    m &= (((bins > b_lo) | ((bins == b_lo) & (it >= c_lo)))
+                          & ((bins < b_hi)
+                             | ((bins == b_hi) & (it <= c_hi))))
+                sel = sel[m]
+            xd = lean_denorm(lean_norm(x[sel], -180, 180), -180, 180)
+            yd = lean_denorm(lean_norm(y[sel], -90, 90), -90, 90)
             gx = np.clip(((xd - env[0]) / max(env[2] - env[0], 1e-12)
                           * width).astype(np.int64), 0, width - 1)
             gy = np.clip(((yd - env[1]) / max(env[3] - env[1], 1e-12)
@@ -1374,20 +1494,31 @@ def _split3(v):
 def z3_cells_oracle(x, y, t, bits: int, chunk: int = 1 << 24) -> dict:
     """numpy oracle of Z3Histogram(geom, dtg, week, bits): rows counted per
     (week bin, top ``bits`` of the z3 key), the key interleaving the
-    21-bit normalized lon (bit 0), lat (bit 1) and week offset (bit 2)."""
+    21-bit normalized lon (bit 0), lat (bit 1) and week offset (bit 2).
+    With ``bits`` a multiple of 3 the top bits are the top ``bits // 3``
+    bits of each dimension interleaved, spread through a lookup table."""
     import numpy as np
     from geomesa_tpu_torch.curve.binnedtime import (
         TimePeriod, max_offset, to_binned_time)
     t_max = float(max_offset(TimePeriod.WEEK))
     counts: dict = {}
+    per_dim, top = divmod(bits, 3)
+    lut = (_split3(np.arange(1 << per_dim, dtype=np.uint64))
+           if top == 0 else None)
     for s in range(0, len(x), chunk):
         bins, offs = to_binned_time(t[s:s + chunk], TimePeriod.WEEK)
-        z = (_split3(lean_norm(x[s:s + chunk], -180, 180).astype(np.uint64))
-             | (_split3(lean_norm(y[s:s + chunk], -90, 90)
-                        .astype(np.uint64)) << np.uint64(1))
-             | (_split3(lean_norm(offs.astype(np.float64), 0.0, t_max)
-                        .astype(np.uint64)) << np.uint64(2)))
-        cell = (z >> np.uint64(63 - bits)).astype(np.int64)
+        ix = lean_norm(x[s:s + chunk], -180, 180)
+        iy = lean_norm(y[s:s + chunk], -90, 90)
+        it = lean_norm(offs.astype(np.float64), 0.0, t_max)
+        if lut is not None:
+            sh = 21 - per_dim
+            cell = (lut[ix >> sh] | (lut[iy >> sh] << np.uint64(1))
+                    | (lut[it >> sh] << np.uint64(2))).astype(np.int64)
+        else:
+            z = (_split3(ix.astype(np.uint64))
+                 | (_split3(iy.astype(np.uint64)) << np.uint64(1))
+                 | (_split3(it.astype(np.uint64)) << np.uint64(2)))
+            cell = (z >> np.uint64(63 - bits)).astype(np.int64)
         b0 = int(bins.min())
         per = np.bincount((bins.astype(np.int64) - b0) * (1 << bits) + cell)
         for k in np.flatnonzero(per).tolist():
@@ -1491,6 +1622,28 @@ def allocated_after_gc(cuda: bool):
     return int(torch.cuda.memory_allocated())
 
 
+def lean_checks(qs) -> list:
+    """The lean phases' queries: 3 city, 3 region and 2 continent
+    BBOX+DURING queries of the index phase, then the first city and the
+    first region box alone — ``(kind, ecql, boxes, lo, hi)``, the bounds
+    as DURING parses them (``None`` for the BBOX-only ones)."""
+    def bbox(b):
+        return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+    picks = ([q for q in qs if q[0] == "city"][:3]
+             + [q for q in qs if q[0] == "region"][:3]
+             + [q for q in qs if q[0] == "continent"][:2])
+    checks = []
+    for kind, boxes, lo, hi in picks:
+        # DURING takes whole seconds: the oracle reads the bounds as parsed
+        lo_s, hi_s = lo - lo % 1000, hi - hi % 1000
+        checks.append((kind, f"{bbox(boxes[0])} AND dtg DURING {iso(lo)}/"
+                             f"{iso(hi)}", boxes, lo_s, hi_s))
+    for kind, boxes, _lo, _hi in (picks[0], picks[3]):
+        checks.append((f"{kind}-bbox", bbox(boxes[0]), boxes, None, None))
+    return checks
+
+
 def lean_phase(rng, args, centres, qs, dev, report, cat=None):
     """The lean profile: ``--lean-rows`` GDELT-like rows (with a ``score``)
     written in 4 batches to a schema with no profile set, whose first
@@ -1524,12 +1677,16 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None):
     ds.create_schema("scale", "score:Double,dtg:Date,*geom:Point;"
                      + ",".join(ud))
     store = ds._store("scale")
-    per = args.lean_rows // 4
-    if per < TpuDataStore.LEAN_AUTO_ROWS:
-        raise AssertionError(f"{per} rows a write do not reach the lean "
-                             f"switch ({TpuDataStore.LEAN_AUTO_ROWS})")
+    # the first write reaches the lean switch; the rest split the other
+    # rows three ways
+    first = max(args.lean_rows // 4, TpuDataStore.LEAN_AUTO_ROWS)
+    sizes = [first] + [(args.lean_rows - first) // 3] * 3
+    if sizes[1] <= 0:
+        raise AssertionError(f"{args.lean_rows} rows do not fill 4 writes "
+                             f"past the lean switch "
+                             f"({TpuDataStore.LEAN_AUTO_ROWS})")
     write_s = []
-    for i in range(4):
+    for i, per in enumerate(sizes):
         x, y, t = gdelt_like(rng, per, centres)
         score = rng.uniform(0.0, 100.0, per)
         t0 = time.perf_counter()
@@ -1542,7 +1699,7 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None):
                                  "schema to the lean profile")
     del x, y, t, score
     idx = store.z3_index()
-    n = 4 * per
+    n = sum(sizes)
     x, y = store.batch.geom_xy()
     t = store.batch.column("dtg")
     score = store.batch.column("score")
@@ -1552,7 +1709,8 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None):
     layout = [(g.base, g.n, g.tier) for g in idx.generations]
     t_min, t_max = int(t.min()), int(t.max())
     rep = {"rows": n, "slots": slots, "budget_bytes": budget,
-           "write_s": write_s, "write_rows_per_s": [per / s for s in write_s],
+           "write_s": write_s,
+           "write_rows_per_s": [m / w for m, w in zip(sizes, write_s)],
            "tiers": tiers, "generations": len(idx.generations),
            "device_bytes": idx.device_bytes(),
            "host_key_bytes": idx.host_key_bytes(),
@@ -1562,20 +1720,7 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None):
         f" s); tiers {tiers}; accounted device bytes {rep['device_bytes']}, "
         f"allocated {rep['memory_allocated']}")
 
-    def bbox(b):
-        return f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
-
-    picks = ([q for q in qs if q[0] == "city"][:3]
-             + [q for q in qs if q[0] == "region"][:3]
-             + [q for q in qs if q[0] == "continent"][:2])
-    checks = []
-    for kind, boxes, lo, hi in picks:
-        # DURING takes whole seconds: the oracle reads the bounds as parsed
-        lo_s, hi_s = lo - lo % 1000, hi - hi % 1000
-        checks.append((kind, f"{bbox(boxes[0])} AND dtg DURING {iso(lo)}/"
-                             f"{iso(hi)}", boxes, lo_s, hi_s))
-    for kind, boxes, _lo, _hi in (picks[0], picks[3]):
-        checks.append((f"{kind}-bbox", bbox(boxes[0]), boxes, None, None))
+    checks = lean_checks(qs)
 
     # the estimator: on at this size; its cold fold (every generation's
     # z3 cell counts) timed apart from the queries it then costs
@@ -1671,7 +1816,12 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None):
     @functools.lru_cache(maxsize=None)
     def world_oracle(res):
         # whole extent, whole time: every tier's test passes every row,
-        # so the grid does not depend on the tier layout
+        # so the grid does not depend on the tier layout; a power-of-two
+        # grid is the 2x2 block sum of the one twice as fine (floor
+        # binning halves exactly)
+        if res < 512:
+            f = 512 // res
+            return world_oracle(512).reshape(res, f, res, f).sum(axis=(1, 3))
         return lean_density_oracle((x, y, t), layout, [WORLD], t_min, t_max,
                                    WORLD, res, res)
 
@@ -2917,7 +3067,7 @@ def lean_attr_phase(rng, args, centres, dev, report):
     # collector runs (PERF.md §7): collect the lean phase's store, so that
     # memory_allocated below reads this phase's
     gc.collect()
-    slots = args.lean_slots
+    slots = args.lean_attr_slots
     budget = LEAN_ATTR_BUDGET_PER_SLOT * slots
     ud = ["geomesa.index.profile=lean", f"geomesa.lean.hbm.budget={budget}",
           f"geomesa.lean.generation.slots={slots}",
@@ -3064,6 +3214,390 @@ def lean_attr_phase(rng, args, centres, dev, report):
         torch.cuda.empty_cache()
 
 
+#: the mesh lean phase's budget, in bytes a per-shard generation slot.
+#: Each attribute index gets an eighth of it (a quarter split two ways):
+#: 48 B, its sentinel charge and live generation at 24 B a slot (an int64
+#: gid over a mesh), so every sealed attribute generation spills; the z3
+#: index the rest, 288 B: past the sentinel charges (20 + 44 B) room for
+#: payload-carrying and keys generations.  A z3 host tier would need the
+#: whole budget under 240 B a slot at 8 generations, which leaves the
+#: attribute indexes less than their live generation (the same accounting
+#: in both packages): the mesh lean z3 phase runs it
+MESH_LEAN_BUDGET_PER_SLOT = 384
+#: the mesh lean z3 phase: a point schema without attribute indexes at
+#: a sixteenth of the mesh lean phase's generation slots (2^19 at the
+#: defaults) and 168 B a slot (sentinels 64 B, a live full generation
+#: 44 B, three keys generations), so generations pass through the full,
+#: keys and host tiers as 8 generations of rows arrive
+MESH_LEAN_Z3_BUDGET_PER_SLOT = 168
+
+
+def mesh_lean_phase(rng, args, centres, qs, dev, report):
+    """Lean schemas over ``device_mesh(1)``: ``--mesh-lean-rows`` rows of
+    the attribute phases' generator in 4 writes on the lean attribute
+    schema at ``--mesh-lean-slots``-slot per-shard generations
+    (ShardedLeanZ3Index and two ShardedLeanAttrIndexes); the lean phase's
+    queries estimator-costed and one replanned, the attribute queries,
+    the Count and Z3Histogram push-downs, heatmaps and tiles before and
+    after pyramids, a weighted heatmap (the density kernel), compaction,
+    then a flush, a drop and a reopen over ``device_mesh(1)``; the
+    accounted device bytes against ``torch.cuda.memory_allocated``.  Then
+    a point schema whose z3 generations pass through all three tiers."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
+    from geomesa_tpu_torch.index.pyramid import pyramid_spec, tile_env
+    from geomesa_tpu_torch.parallel import (
+        ShardedLeanAttrIndex, ShardedLeanZ3Index,
+    )
+    from geomesa_tpu_torch.planning import ExplainString
+
+    cuda = dev.type == "cuda"
+    base_alloc = allocated_after_gc(cuda)
+    slots = args.mesh_lean_slots
+    budget = MESH_LEAN_BUDGET_PER_SLOT * slots
+    ud = ["geomesa.index.profile=lean", f"geomesa.lean.hbm.budget={budget}",
+          f"geomesa.lean.generation.slots={slots}",
+          "geomesa.lean.compaction.factor=0"]
+    codes, p = actor_codes(rng)
+    cat = tempfile.mkdtemp(prefix="chip_smoke_mesh_lean_")
+    rep: dict = {"slots": slots, "budget_bytes": budget}
+    try:
+        ds = TpuDataStore(device=dev, mesh=device_mesh(1), catalog_dir=cat)
+        ds.create_schema("mlean", f"{ATTR_SPEC};{','.join(ud)}")
+        store = ds._store("mlean")
+        per = args.mesh_lean_rows // 4
+        parts, write_s = [], []
+        for _ in range(4):
+            xp, yp, tp, ap, sp = attr_rows(rng, per, centres, p)
+            parts.append((xp, yp, tp, ap, sp))
+            t0 = time.perf_counter()
+            ds.write("mlean", {"actor": codes[ap], "score": sp, "dtg": tp,
+                               "geom": (xp, yp)})
+            for key in ("z3", "attr:actor", "attr:score"):
+                store._indexes[key].block()
+            write_s.append(time.perf_counter() - t0)
+        n = 4 * per
+        cols = tuple(np.concatenate(c) for c in zip(*parts))
+        del parts, xp, yp, tp, ap, sp
+        x, y, t, a, s = cols
+        idxs = {k: store._indexes[k] for k in ("z3", "attr:actor",
+                                               "attr:score")}
+        idx = idxs["z3"]
+        if not (isinstance(idx, ShardedLeanZ3Index) and all(
+                isinstance(idxs[k], ShardedLeanAttrIndex)
+                for k in ("attr:actor", "attr:score"))):
+            raise AssertionError(f"mesh lean indexes {idxs}")
+        tiers = {k: i.tier_counts() for k, i in idxs.items()}
+        if (tiers["z3"]["full"] == 0 or tiers["z3"]["keys"] == 0
+                or any(tiers[k]["device"] == 0 or tiers[k]["host"] == 0
+                       for k in ("attr:actor", "attr:score"))):
+            raise AssertionError(f"mesh lean tiers {tiers}")
+        # one shard: generation k holds rows [base_k, base_k + n_k)
+        layout, base = [], 0
+        for g in idx.generations:
+            layout.append((base, g.n, g.tier))
+            base += g.n
+        if base != n:
+            raise AssertionError(f"mesh lean generations hold {base} rows")
+        dev_bytes = {k: i.device_bytes() for k, i in idxs.items()}
+        alloc = (allocated_after_gc(cuda) - base_alloc) if cuda else None
+        total_bytes = sum(dev_bytes.values())
+        if cuda and abs(alloc / total_bytes - 1.0) > 0.02:
+            raise AssertionError(f"mesh lean: {alloc} bytes allocated, "
+                                 f"{total_bytes} accounted")
+        rep.update(rows=n, write_s=write_s,
+                   write_rows_per_s=[per / w for w in write_s], tiers=tiers,
+                   generations=len(idx.generations), device_bytes=dev_bytes,
+                   device_bytes_total=total_bytes, memory_allocated=alloc,
+                   z3_budget_bytes=idx.hbm_budget_bytes,
+                   attr_budget_bytes=idxs["attr:actor"].hbm_budget_bytes)
+        log(f"mesh lean: {n} rows in 4 writes "
+            f"({', '.join(f'{w:.2f}' for w in write_s)} s); tiers {tiers}; "
+            f"accounted device bytes {total_bytes}, allocated {alloc}")
+
+        checks = lean_checks(qs)
+        t_min, t_max = int(t.min()), int(t.max())
+        est = store.estimator()
+        if est is None:
+            raise AssertionError(f"no estimator on a mesh lean store of {n} "
+                                 "rows")
+        t0 = time.perf_counter()
+        est.z3_rows([WORLD], [(None, None)])
+        rep["estimator_cold_ms"] = (time.perf_counter() - t0) * 1e3
+        del est   # it holds the store, which the reopen below drops
+
+        def run_query(ds, kind, ecql, boxes, lo, hi, source="sketch"):
+            ex = ExplainString()
+            t0 = time.perf_counter()
+            res = ds.query_result("mlean", ecql, ex)
+            ms = (time.perf_counter() - t0) * 1e3
+            want = (box_oracle(x, y, boxes) if lo is None
+                    else oracle(x, y, t, boxes, lo, hi))
+            st = res.strategy
+            if (st.index != "z3" or (source and st.source != source)
+                    or not np.array_equal(res.positions, want)):
+                raise AssertionError(
+                    f"mesh lean {kind} {ecql}: strategy {st.index} "
+                    f"({st.source}), {len(res.positions)} hits, oracle "
+                    f"{len(want)}")
+            return {"query": kind, "ms": ms, "hits": int(len(want)),
+                    "source": st.source, "max_ranges": st.max_ranges,
+                    "replans": str(ex).count("Replanning:")}
+
+        rows = []
+        for c in checks:
+            d0 = idx.dispatch_count
+            row = run_query(ds, *c)
+            row["dispatches"] = idx.dispatch_count - d0
+            rows.append(row)
+        lat = np.array([r["ms"] for r in rows])
+        rep.update(queries=rows, query_ms_p50=float(np.median(lat)),
+                   query_ms_max=float(lat.max()))
+        kind, _q, boxes, _lo, _hi = checks[8]
+        with env_set(REPLAN_ENV):
+            row = run_query(ds, kind, checks[8][1], boxes, None, None,
+                            source="observed")
+        if row["replans"] != 1:
+            raise AssertionError(f"mesh lean mispredicted {kind}: "
+                                 f"{row['replans']} replans, not 1")
+        rep["replan"] = row
+        aq = attr_queries(codes, centres, lean=True)
+        arows = [run_attr_query(ds, "mlean", q, cols, source="sketch")
+                 for q in (aq[0], aq[2])]
+        rep["attr_queries"] = arows
+        log(f"mesh lean: estimator cold fold {rep['estimator_cold_ms']:.1f} "
+            f"ms; {len(rows)} queries equal to the oracle, sketch-costed, "
+            f"p50 {np.median(lat):.1f} ms, max {lat.max():.1f} ms; "
+            f"mispredicted {kind} replanned once ({row['ms']:.1f} ms); "
+            + ", ".join(f"{r['query']} {r['strategy']} {r['ms']:.1f} ms"
+                        for r in arows))
+
+        # Count and the whole-extent Z3Histogram pushed down
+        routes = StatRoute()
+        crow = []
+        try:
+            t0 = time.perf_counter()
+            got, how = routes.run(lambda: ds.stats("mlean", "INCLUDE",
+                                                   "Count()").count)
+            ms = (time.perf_counter() - t0) * 1e3
+            if got != n or how != "count":
+                raise AssertionError(f"mesh lean Count(): {got} by {how}")
+            crow.append({"query": "include", "ms": ms, "route": how})
+            t0 = time.perf_counter()
+            hist, how = routes.run(lambda: ds.stats(
+                "mlean", "INCLUDE", f"Z3Histogram(geom,dtg,week,{Z3_BITS})"))
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            routes.close()
+        want = z3_cells_oracle(x, y, t, Z3_BITS)
+        if hist.counts != want or how != "sketch":
+            raise AssertionError(f"mesh lean Z3Histogram by {how}: "
+                                 f"{sum(hist.counts.values())} rows")
+        crow.append({"query": f"z3histogram-{Z3_BITS}", "ms": ms,
+                     "route": how})
+        rep["count"] = crow
+
+        @functools.lru_cache(maxsize=None)
+        def world_oracle(res):
+            # as in the lean phase: the coarser grid from the 512 one
+            if res < 512:
+                f = 512 // res
+                return world_oracle(512).reshape(res, f, res, f).sum(
+                    axis=(1, 3))
+            return lean_density_oracle((x, y, t), layout, [WORLD], t_min,
+                                       t_max, WORLD, res, res)
+
+        @functools.lru_cache(maxsize=None)
+        def tile3_oracle():
+            return lean_density_oracle((x, y, t), layout, [env3], t_min,
+                                       t_max, env3, 256, 256)
+
+        def check_grid(name, run, want_fn, size=256):
+            h0 = idx.pyramid_serve_hits
+            t0 = time.perf_counter()
+            grid = run()
+            ms = (time.perf_counter() - t0) * 1e3
+            want = want_fn()
+            if grid.shape != (size, size) or not np.array_equal(grid, want):
+                raise AssertionError(f"mesh lean density {name}: "
+                                     f"{float(grid.sum())} points, oracle "
+                                     f"{float(want.sum())}")
+            return {"query": name, "ms": ms, "points": float(want.sum()),
+                    "pyramid_served": idx.pyramid_serve_hits - h0}
+
+        box = checks[3][2][0]
+        tx = int((box[0] + box[2]) / 2 + 180.0) // 180
+        ty = 1 - int((box[1] + box[3]) / 2 + 90.0) // 90
+        t3x = int(((box[0] + box[2]) / 2 + 180.0) // 45.0)
+        t3y = 7 - int(((box[1] + box[3]) / 2 + 90.0) // 22.5)
+        env3 = tile_env(3, t3x, t3y)
+
+        def tiles():
+            g = world_oracle(512)
+            return [
+                (f"tile_1_{tx}_{ty}",
+                 lambda: ds.density_tile("mlean", 1, tx, ty),
+                 lambda: g[(1 - ty) * 256:(2 - ty) * 256,
+                           tx * 256:(tx + 1) * 256]),
+                (f"tile_3_{t3x}_{t3y}",
+                 lambda: ds.density_tile("mlean", 3, t3x, t3y),
+                 tile3_oracle)]
+
+        world = ("world", lambda: density_process(ds, "mlean", "INCLUDE",
+                                                  WORLD),
+                 lambda: world_oracle(256))
+        drows = [check_grid(*world)] + [check_grid(*d) for d in tiles()]
+        sealed = len(idx.generations) - 1
+        t0 = time.perf_counter()
+        built = ds.build_pyramids("mlean")
+        build_s = time.perf_counter() - t0
+        if built != sealed:
+            raise AssertionError(f"mesh lean: built {built} pyramids for "
+                                 f"{sealed} sealed generations")
+        after = [check_grid(*world)] + [check_grid(*d) for d in tiles()]
+        if after[0]["pyramid_served"] != sealed:
+            raise AssertionError(f"mesh lean world heatmap: "
+                                 f"{after[0]['pyramid_served']} of {sealed} "
+                                 "sealed generations from pyramids")
+        # the weighted heatmap runs the query path and the density kernel
+        kind, q_and, boxes, lo, hi = checks[3]
+        hits = oracle(x, y, t, boxes, lo, hi)
+        t0 = time.perf_counter()
+        grid = density_process(ds, "mlean", q_and, box, weight_attr="score")
+        ms = (time.perf_counter() - t0) * 1e3
+        want = snap_weighted(x[hits], y[hits], s[hits], box, 256, 256)
+        if not np.allclose(grid, want, rtol=1e-5, atol=0.0):
+            raise AssertionError("mesh lean weighted density disagrees with "
+                                 "the oracle")
+        rep["density"] = {"before_pyramids": drows, "pyramids_built": built,
+                          "pyramids_s": build_s, "after_pyramids": after,
+                          "weighted": {"query": kind, "ms": ms,
+                                       "points": int(len(hits))}}
+        log("mesh lean: Count and Z3Histogram equal to the oracle ("
+            + ", ".join(f"{r['query']} {r['ms']:.1f} ms ({r['route']})"
+                        for r in crow)
+            + f"); {built} pyramids in {build_s:.2f} s; heatmaps before "
+            + ", ".join(f"{r['query']} {r['ms']:.1f} ms" for r in drows)
+            + ", after " + ", ".join(
+                f"{r['query']} {r['ms']:.1f} ms ({r['pyramid_served']} from "
+                "pyramids)" for r in after)
+            + f"; weighted {ms:.1f} ms")
+
+        # compaction: fewer generations, inherited pyramids, same answers
+        gens_before = len(idx.generations)
+        t0 = time.perf_counter()
+        res = ds.compact("mlean")
+        for i in idxs.values():
+            i.block()
+        compact_s = time.perf_counter() - t0
+        # z3 merges keys runs; each attribute index a group of host runs
+        if res["z3"]["generations"] >= gens_before or any(
+                res[k]["merged_groups"] == 0
+                for k in ("attr:actor", "attr:score")):
+            raise AssertionError(f"mesh lean compaction left {res}")
+        pyr = idx._pyramid_cache.spec_cache(pyramid_spec(512))
+        if not all(g.gen_id in pyr for g in idx.generations[:-1]):
+            raise AssertionError("mesh lean: a merged generation did not "
+                                 "inherit its parents' pyramids")
+        wrow = check_grid(*world)
+        again = [run_query(ds, *checks[0]), run_query(ds, *checks[6])]
+        rep["compact"] = {"s": compact_s, "generations_before": gens_before,
+                          "result": res, "world": wrow, "queries": again}
+        log(f"mesh lean: compact in {compact_s:.2f} s, {gens_before} → "
+            f"{ {k: r['generations'] for k, r in res.items()} } "
+            "generations; world heatmap "
+            f"{wrow['ms']:.1f} ms ({wrow['pyramid_served']} from pyramids)")
+
+        # flush, drop, reopen over device_mesh(1): the first query rebuilds
+        # the sharded index by streaming the snapshot
+        catalog_room(cat, n * 48)
+        t0 = time.perf_counter()
+        ds.flush("mlean")
+        flush_s = time.perf_counter() - t0
+        on_disk = dir_bytes(cat)
+        del ds, store, idx, idxs
+        dropped = allocated_after_gc(cuda)
+        t0 = time.perf_counter()
+        ds = TpuDataStore(device=dev, mesh=device_mesh(1), catalog_dir=cat)
+        reopen_s = time.perf_counter() - t0
+        store = ds._store("mlean")
+        if len(store.batch) != n or store._indexes:
+            raise AssertionError(f"mesh lean reopen: {len(store.batch)} rows,"
+                                 f" indexes {sorted(store._indexes)}")
+        first = run_query(ds, *checks[0], source=None)
+        rest = [run_query(ds, *c) for c in checks[1:]]
+        idx = store._indexes["z3"]
+        grown = (allocated_after_gc(cuda) - dropped) if cuda else None
+        if not isinstance(idx, ShardedLeanZ3Index):
+            raise AssertionError(f"mesh lean reopen: {type(idx).__name__}")
+        lat = np.array([r["ms"] for r in rest])
+        rep["persist"] = {
+            "flush_s": flush_s, "flush_rows_per_s": n / flush_s,
+            "bytes": on_disk, "reopen_s": reopen_s,
+            "first_query_ms": first["ms"],
+            "recover_s": reopen_s + first["ms"] / 1e3,
+            "queries_ms_p50": float(np.median(lat)),
+            "tiers": idx.tier_counts(), "device_bytes": idx.device_bytes(),
+            "allocated_since_reopen": grown}
+        log(f"mesh lean: flushed {n} rows in {flush_s:.2f} s ({on_disk} "
+            f"bytes); reopen {reopen_s:.2f} s, first query (the streaming "
+            f"rebuild) {first['ms']:.1f} ms, time to recover "
+            f"{rep['persist']['recover_s']:.2f} s; the rest p50 "
+            f"{np.median(lat):.1f} ms; tiers {idx.tier_counts()}; z3 device "
+            f"bytes {idx.device_bytes()} accounted, {grown} allocated since "
+            "the reopen")
+        del ds, store, idx
+    finally:
+        shutil.rmtree(cat, ignore_errors=True)
+    allocated_after_gc(cuda)
+
+    # a point schema whose z3 generations pass through every tier
+    slots = args.mesh_lean_slots >> 4
+    budget = MESH_LEAN_Z3_BUDGET_PER_SLOT * slots
+    ds = TpuDataStore(device=dev, mesh=device_mesh(1))
+    ds.create_schema("mz3", "dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+                     f"geomesa.lean.hbm.budget={budget},"
+                     f"geomesa.lean.generation.slots={slots},"
+                     "geomesa.lean.compaction.factor=0")
+    per = 2 * slots
+    parts, seen = [], set()
+    for _ in range(4):
+        xp, yp, tp = gdelt_like(rng, per, centres)
+        parts.append((xp, yp, tp))
+        ds.write("mz3", {"dtg": tp, "geom": (xp, yp)})
+        seen |= {k for k, v in ds._store("mz3").index("z3")
+                 .tier_counts().items() if v}
+    x, y, t = (np.concatenate(c) for c in zip(*parts))
+    idx = ds._store("mz3").index("z3")
+    if seen != {"full", "keys", "host"}:
+        raise AssertionError(f"mesh lean z3 tiers seen {seen}")
+    zrows = []
+    for c in checks:
+        kind, ecql, boxes, lo, hi = c
+        t0 = time.perf_counter()
+        res = ds.query_result("mz3", ecql)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = (box_oracle(x, y, boxes) if lo is None
+                else oracle(x, y, t, boxes, lo, hi))
+        if not np.array_equal(res.positions, want):
+            raise AssertionError(f"mesh lean z3 {kind}: "
+                                 f"{len(res.positions)} hits, oracle "
+                                 f"{len(want)}")
+        zrows.append({"query": kind, "ms": ms, "hits": int(len(want))})
+    grid = density_process(ds, "mz3", "INCLUDE", WORLD)
+    if grid.sum() != len(x):
+        raise AssertionError("mesh lean z3 world heatmap lost rows")
+    rep["z3_tiers"] = {"rows": len(x), "slots": slots, "budget": budget,
+                       "tiers_seen": sorted(seen),
+                       "tiers": idx.tier_counts(), "queries": zrows}
+    log(f"mesh lean z3: {len(x)} rows; tiers seen {sorted(seen)}, at the "
+        f"end {idx.tier_counts()}; {len(zrows)} queries equal to the oracle")
+    report["mesh_lean"] = rep
+    del ds, idx
+    allocated_after_gc(cuda)
+
+
 #: poly_scale_proof.py's OSM-building-shaped stream (``_slice_data``):
 #: footprint centres drawn from four hotspots (New York, Paris, Beijing,
 #: Johannesburg) with σ = 15° in x and 10° in y, half-sides U(0.0005,
@@ -3078,6 +3612,11 @@ LEAN_POLY_SPEC = "kind:String:index=true,*geom:Polygon"
 #: generations of 20 B slots, the rest on the host); the kind index its
 #: floor of two class-default generations
 LEAN_POLY_BUDGET_PER_SLOT = 60
+#: the mesh lean polygon phases' budget a per-shard slot: the xz index
+#: gets 75 B (its sentinel charge and two device generations at 24 B a
+#: slot — the live one and one sealed — the rest on the host), the kind
+#: index its floor of two class-default generations
+MESH_LEAN_POLY_BUDGET_PER_SLOT = 100
 #: the continent window of the polygon phases: South America, away from
 #: the hotspots (the widest range plan, a sparse tail of rows)
 CONTINENT = (-85.0, -56.0, -34.0, 12.0)
@@ -3449,26 +3988,27 @@ def mesh_polys_phase(rng, args, dev, report):
 
 
 def _lean_poly_phase(rng, args, dev, report, key: str, n: int, dtg: bool,
-                     slots: int):
+                     slots: int, mesh: bool = False):
     """A lean polygon store: ``n`` footprints in 4 writes at ``slots``-slot
     generations under the lean polygon budget; its tiers (device and host
     generations both), accounted and allocated device bytes, the queries
-    against the oracles, then ``compact`` and the first query again."""
+    against the oracles, then ``compact`` and the first query again.
+    With ``mesh`` the store is on ``device_mesh(1)`` (the sharded lean XZ
+    and attribute indexes) under the mesh budget a slot."""
     import numpy as np
     import torch
-    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch import TpuDataStore, device_mesh
 
     cuda = dev.type == "cuda"
     # a dropped store frees its device memory at the cyclic collector
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
-    budget = LEAN_POLY_BUDGET_PER_SLOT * slots
+    base_alloc = allocated_after_gc(cuda)
+    budget = (MESH_LEAN_POLY_BUDGET_PER_SLOT if mesh
+              else LEAN_POLY_BUDGET_PER_SLOT) * slots
     ud = ["geomesa.index.profile=lean", f"geomesa.lean.hbm.budget={budget}",
           f"geomesa.lean.generation.slots={slots}",
           "geomesa.lean.compaction.factor=0"]
     spec = POLY_SPEC if dtg else LEAN_POLY_SPEC
-    ds = TpuDataStore(device=dev)
+    ds = TpuDataStore(device=dev, mesh=device_mesh(1) if mesh else None)
     ds.create_schema(key, f"{spec};{','.join(ud)}")
     store = ds._store(key)
     kind_key = "xz3" if dtg else "xz2"
@@ -3494,15 +4034,20 @@ def _lean_poly_phase(rng, args, dev, report, key: str, n: int, dtg: bool,
            "tiers": tiers, "device_bytes": dev_bytes,
            "device_bytes_total": sum(dev_bytes.values()),
            "memory_allocated": (int(torch.cuda.memory_allocated())
-                                if cuda else None)}
+                                if cuda else None),
+           "allocated_in_phase": ((allocated_after_gc(cuda) - base_alloc)
+                                  if cuda else None)}
     if tiers[kind_key]["device"] == 0 or tiers[kind_key]["host"] == 0:
         raise AssertionError(f"{key}: tiers {tiers}")
+    if mesh and type(idxs[kind_key]).__name__ != (
+            "ShardedLeanXZ3Index" if dtg else "ShardedLeanXZ2Index"):
+        raise AssertionError(f"{key}: {type(idxs[kind_key]).__name__}")
     log(f"{key}: {4 * per} rows in 4 writes "
         f"({', '.join(f'{w:.2f}' for w in write_s)} s); tiers {tiers}; "
         f"accounted device bytes {rep['device_bytes_total']}, allocated "
         f"{rep['memory_allocated']}")
     qs = poly_queries(rng, 4 * per, dtg=dtg, lean=True)
-    rows = [run_poly_query(ds, key, q, cols, sweeps=True) for q in qs]
+    rows = [run_poly_query(ds, key, q, cols, sweeps=not mesh) for q in qs]
     lat = np.array([r["ms"] for r in rows])
     rep.update(queries=rows, query_ms_p50=float(np.median(lat)),
                query_ms_max=float(lat.max()))
@@ -3519,8 +4064,10 @@ def _lean_poly_phase(rng, args, dev, report, key: str, n: int, dtg: bool,
     compact_s = time.perf_counter() - t0
     if set(res) != set(idxs):
         raise AssertionError(f"{key}: compact covered {sorted(res)}")
-    # the lean tracks' generations leave a group of four host runs
-    if dtg and res[kind_key]["merged_groups"] == 0:
+    # the lean tracks' generations leave a group of four host runs (the
+    # mesh stores' generations, sized by rows a step at 4M-row writes,
+    # fall in two size classes of at most three host runs each)
+    if dtg and not mesh and res[kind_key]["merged_groups"] == 0:
         raise AssertionError(f"{key}: compact merged nothing: {res}")
     after = run_poly_query(ds, key, qs[0], cols, sweeps=False)
     rep["compact"] = {"s": compact_s, "result": res, "query": after}
@@ -3537,6 +4084,20 @@ def lean_polys_phase(rng, args, dev, report):
     rows at ``--lean-slots`` generations, device and host ones."""
     _lean_poly_phase(rng, args, dev, report, "lean_polys",
                      args.lean_poly_rows, dtg=False, slots=args.lean_slots)
+
+
+def mesh_lean_polys_phase(rng, args, dev, report):
+    """The lean polygon and tracks stores over ``device_mesh(1)``
+    (ShardedLeanXZ2Index, ShardedLeanXZ3Index): ``--mesh-lean-poly-rows``
+    footprints without a dtg and ``--mesh-lean-poly3-rows`` with one, at
+    ``--mesh-lean-poly-slots``-slot per-shard generations, device and host
+    generations both."""
+    _lean_poly_phase(rng, args, dev, report, "mesh_lean_polys",
+                     args.mesh_lean_poly_rows, dtg=False,
+                     slots=args.mesh_lean_poly_slots, mesh=True)
+    _lean_poly_phase(rng, args, dev, report, "mesh_lean_tracks",
+                     args.mesh_lean_poly3_rows, dtg=True,
+                     slots=args.mesh_lean_poly_slots, mesh=True)
 
 
 def lean_tracks_phase(rng, args, dev, report):
@@ -3569,20 +4130,31 @@ def main(argv=None) -> int:
     ap.add_argument("--facade-rows", type=int, default=16_000_000)
     ap.add_argument("--places-rows", type=int, default=4_000_000)
     ap.add_argument("--mesh-rows", type=int, default=16_000_000)
-    ap.add_argument("--lean-rows", type=int, default=128_000_000)
-    ap.add_argument("--lean-slots", type=int, default=1 << 24,
-                    help="slots per lean generation (the index's default)")
-    ap.add_argument("--attr-rows", type=int, default=16_000_000,
+    ap.add_argument("--lean-rows", type=int, default=80_000_000,
+                    help="rows of the lean phase: a first write of the "
+                         "lean switch's 32M rows, then the rest in 3")
+    ap.add_argument("--lean-slots", type=int, default=1 << 23,
+                    help="slots per generation of the lean and lean "
+                         "polygon phases")
+    ap.add_argument("--attr-rows", type=int, default=12_000_000,
                     help="rows of the default-profile attribute phase")
     ap.add_argument("--attr-mesh-rows", type=int, default=4_000_000,
                     help="rows of the mesh attribute phase")
-    ap.add_argument("--lean-attr-rows", type=int, default=128_000_000,
+    ap.add_argument("--lean-attr-rows", type=int, default=64_000_000,
                     help="rows of the lean attribute phase")
+    ap.add_argument("--lean-attr-slots", type=int, default=1 << 23,
+                    help="slots per generation of the lean attribute phase "
+                         "(8 generations at the default rows)")
+    ap.add_argument("--mesh-lean-rows", type=int, default=64_000_000,
+                    help="rows of the mesh lean phase")
+    ap.add_argument("--mesh-lean-slots", type=int, default=1 << 23,
+                    help="per-shard slots per generation of the mesh lean "
+                         "phase")
     ap.add_argument("--poly-rows", type=int, default=8_000_000,
                     help="rows of the default-profile polygon phase")
     ap.add_argument("--poly-mesh-rows", type=int, default=8_000_000,
                     help="rows of the mesh polygon phase")
-    ap.add_argument("--lean-poly-rows", type=int, default=64_000_000,
+    ap.add_argument("--lean-poly-rows", type=int, default=32_000_000,
                     help="rows of the lean XZ2 polygon phase")
     ap.add_argument("--lean-poly3-rows", type=int, default=16_000_000,
                     help="rows of the lean XZ3 polygon phase")
@@ -3590,11 +4162,18 @@ def main(argv=None) -> int:
                     help="slots per generation of the lean XZ3 phase (8 "
                          "generations at 16M rows: device and host tiers, "
                          "and a compaction that merges host runs)")
-    ap.add_argument("--life-rows", type=int, default=16_000_000,
+    ap.add_argument("--mesh-lean-poly-rows", type=int, default=16_000_000,
+                    help="rows of the mesh lean XZ2 polygon phase")
+    ap.add_argument("--mesh-lean-poly3-rows", type=int, default=8_000_000,
+                    help="rows of the mesh lean XZ3 polygon phase")
+    ap.add_argument("--mesh-lean-poly-slots", type=int, default=1 << 21,
+                    help="per-shard slots per generation of the mesh lean "
+                         "polygon phases")
+    ap.add_argument("--life-rows", type=int, default=6_000_000,
                     help="rows of the lifecycle and legacy phases")
     ap.add_argument("--life-mesh-rows", type=int, default=4_000_000,
                     help="rows of the mesh lifecycle phase")
-    ap.add_argument("--fsds-rows", type=int, default=4_000_000,
+    ap.add_argument("--fsds-rows", type=int, default=2_000_000,
                     help="rows of the FileSystemDataStore phase")
     ap.add_argument("--profile", action="store_true",
                     help="profile the z3 and z2 index queries, the mesh "
@@ -3658,11 +4237,18 @@ def main(argv=None) -> int:
                 "density_grid": density_grid_kernel}
     for fn in counters.values():
         fn.launches = 0
+    phase_s = report.setdefault("phase_s", {})
+    t0 = time.perf_counter()
     x, y, m, qs = index_phase(rng, args, centres, dev, report)
+    phase_s["index"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     z2_index_phase(args, x, y, m, qs, dev, report)
+    phase_s["z2_index"] = time.perf_counter() - t0
     del x, y
+    t0 = time.perf_counter()
     ds = facade_phase(rng, args, centres, dev, report)
     places_phase(rng, args, centres, ds, report)
+    phase_s["facade_places"] = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path was never launched on "
@@ -3675,7 +4261,9 @@ def main(argv=None) -> int:
     counters["hist1d"] = hist1d
     for fn in counters.values():
         fn.launches = 0
+    t0 = time.perf_counter()
     mesh_phase(rng, args, centres, dev, report)
+    phase_s["mesh"] = time.perf_counter() - t0
     mesh_launches = {k: fn.launches for k, fn in counters.items()}
     if min(mesh_launches.values()) <= 0:
         raise AssertionError(f"a kernel of the mesh path was never launched "
@@ -3685,13 +4273,14 @@ def main(argv=None) -> int:
     # the lean path: every count set to 0 just before, read just after;
     # the store keeps a catalog, flushed at the end, which the lean
     # persist path reopens (its own counts)
-    phase_s = report.setdefault("phase_s", {})
     persist_launches = {}
     lean_cat = tempfile.mkdtemp(prefix="chip_smoke_lean_")
     try:
         for fn in counters.values():
             fn.launches = 0
+        t0 = time.perf_counter()
         lean = lean_phase(rng, args, centres, qs, dev, report, cat=lean_cat)
+        phase_s["lean"] = time.perf_counter() - t0
         lean_launches = {k: fn.launches for k, fn in counters.items()}
         if lean_launches["density_grid"] <= 0:
             raise AssertionError(f"density_grid was never launched on the "
@@ -3731,6 +4320,24 @@ def main(argv=None) -> int:
     phase_s["lean_attr"] = time.perf_counter() - t0
     report["lean_attr_path_launches"] = {k: fn.launches
                                          for k, fn in counters.items()}
+
+    # the lean schemas over a mesh (ShardedLeanZ3Index and the sharded
+    # attribute indexes): counts set to 0 just before, read just after.
+    # Their scans run no kernel (the JAX package's sharded lean programs
+    # reach no Pallas kernel); the weighted heatmap's query path launches
+    # density_grid
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mesh_lean_phase(rng, args, centres, qs, dev, report)
+    phase_s["mesh_lean"] = time.perf_counter() - t0
+    mesh_lean_launches = {k: fn.launches for k, fn in counters.items()}
+    if mesh_lean_launches["density_grid"] <= 0:
+        raise AssertionError(f"density_grid was never launched on the mesh "
+                             f"lean path: {mesh_lean_launches}")
+    report["mesh_lean_path_launches"] = mesh_lean_launches
+    log(f"mesh lean path: launches {mesh_lean_launches}, "
+        f"{phase_s['mesh_lean']:.1f} s")
     log(f"attribute paths: launches {attr_launches}, lean "
         f"{report['lean_attr_path_launches']}; "
         + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
@@ -3745,7 +4352,8 @@ def main(argv=None) -> int:
     for name, phase in (("polys", polys_phase),
                         ("mesh_polys", mesh_polys_phase),
                         ("lean_polys", lean_polys_phase),
-                        ("lean_tracks", lean_tracks_phase)):
+                        ("lean_tracks", lean_tracks_phase),
+                        ("mesh_lean_polys", mesh_lean_polys_phase)):
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()

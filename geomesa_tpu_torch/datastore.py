@@ -39,7 +39,9 @@ line schemas with and without a dtg: ``lean_kind``), one
 numeric, date or string attribute (which together take
 ``LEAN_ATTR_BUDGET_FRACTION`` of the lean device budget), plus
 implicit-id lookups; heatmaps, tiles, ``Count()`` and the attribute
-stats push down next to their keys.
+stats push down next to their keys.  Over a mesh the lean indexes are
+their sharded variants (:mod:`~geomesa_tpu_torch.parallel.lean`,
+:mod:`~geomesa_tpu_torch.parallel.attr_lean`), under a per-shard budget.
 Sealed lean generations carry density pyramids (``build_pyramids``,
 or built behind every seal with ``geomesa.density.pyramid.build=seal``);
 lean stores of ``geomesa.planning.estimator.min.rows`` rows or more cost
@@ -68,7 +70,7 @@ JAX package's formats (a catalog either package writes, the other opens):
 profile and a mesh, and a lean schema's chunked ``{name}.lean/`` parquet
 snapshot (tombstones and labels included); opening the catalog reloads
 every schema, and the indexes rebuild lazily on the first query.
-Lean stores over a mesh, fused serving, multi-controller meshes,
+Fused serving, multi-controller meshes,
 ``explain_analyze`` and ``storage_report`` are not ported and raise
 rather than degrade.
 """
@@ -104,7 +106,11 @@ from .index.z2 import Z2_INDEX_VERSION, Z2PointIndex
 from .index.z3 import Z3_INDEX_VERSION, Z3PointIndex
 from .index.z3_lean import LeanZ3Index
 from .jobs import run_pyramid_build
+from .parallel.attr_lean import (
+    ShardedLeanAttrIndex, ShardedLeanXZ2Index, ShardedLeanXZ3Index,
+)
 from .parallel.attribute import ShardedAttributeIndex
+from .parallel.lean import ShardedLeanZ3Index
 from .parallel.scan import ShardedZ3Index
 from .parallel.xz import ShardedXZ2Index, ShardedXZ3Index
 from .parallel.z2 import ShardedZ2Index
@@ -284,10 +290,6 @@ class _SchemaStore:
     # -- lean profile ------------------------------------------------------
     def _init_lean(self) -> None:
         sft = self.sft
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "lean-profile schemas over a device mesh are not ported "
-                "(ROADMAP A7)")
         if sft.is_points and sft.geom_field and sft.dtg_field:
             self.lean_kind = "z3"
         elif sft.geom_field and not sft.is_points:
@@ -311,14 +313,15 @@ class _SchemaStore:
 
     def _lean_index(self):
         """The live lean scale index (``lean_kind``: LeanZ3Index,
-        LeanXZ3Index or LeanXZ2Index), created by the first write (before
-        the batch grows) and maintained incrementally by every write."""
+        LeanXZ3Index or LeanXZ2Index, their sharded variants over a
+        mesh), created by the first write (before the batch grows) and
+        maintained incrementally by every write."""
         kind = self.lean_kind
         if kind != "z3":
             return self._lean_xz_index(kind)
         idx = self._indexes.get("z3")
         if idx is None:
-            idx = LeanZ3Index(
+            settings = dict(
                 period=self.sft.z3_interval,
                 version=self.index_versions["z3"],
                 generation_slots=self._lean_user_int(
@@ -326,8 +329,11 @@ class _SchemaStore:
                 hbm_budget_bytes=self._lean_z3_budget(),
                 compaction_factor=self._lean_user_int(
                     "geomesa.lean.compaction.factor",
-                    self.LEAN_COMPACTION_FACTOR),
-                device=self.device)
+                    self.LEAN_COMPACTION_FACTOR))
+            if self.mesh is not None:
+                idx = ShardedLeanZ3Index(mesh=self.mesh, **settings)
+            else:
+                idx = LeanZ3Index(device=self.device, **settings)
             idx.payload_provider = self._lean_payload
             # a rebuild (after migrate_schema) streams the column store
             # in 2^22-row steps; the seal hook registers only after it,
@@ -360,19 +366,24 @@ class _SchemaStore:
             hbm_budget_bytes=self._lean_z3_budget(),
             compaction_factor=self._lean_user_int(
                 "geomesa.lean.compaction.factor",
-                self.LEAN_COMPACTION_FACTOR),
-            device=self.device)
+                self.LEAN_COMPACTION_FACTOR))
+        if self.mesh is not None:
+            xz2_cls, xz3_cls = ShardedLeanXZ2Index, ShardedLeanXZ3Index
+            settings["mesh"] = self.mesh
+        else:
+            xz2_cls, xz3_cls = LeanXZ2Index, LeanXZ3Index
+            settings["device"] = self.device
         n = len(self.batch)
         step = 1 << 22
         if kind == "xz2":
-            idx = LeanXZ2Index(g=self.sft.xz_precision, **settings)
+            idx = xz2_cls(g=self.sft.xz_precision, **settings)
             if n:
                 bb = self.batch.geom_bbox()
                 for lo in range(0, n, step):
                     idx.append_bboxes(bb[lo:lo + step], base_gid=lo)
         else:
-            idx = LeanXZ3Index(period=self.sft.z3_interval,
-                               g=self.sft.xz_precision, **settings)
+            idx = xz3_cls(period=self.sft.z3_interval,
+                          g=self.sft.xz_precision, **settings)
             if n:
                 bb = self.batch.geom_bbox()
                 t = self.batch.column(self.sft.dtg_field)
@@ -414,20 +425,27 @@ class _SchemaStore:
         if idx is None:
             # each attribute index gets an even share of the carve-out,
             # and never less than two generations of the CLASS default
-            # size (the JAX store's floor)
-            budget = max(LeanAttrIndex.GENERATION_SLOTS * 20 * 2,
-                         int(self._lean_budget()
-                             * self.LEAN_ATTR_BUDGET_FRACTION
-                             // max(1, len(names))))
-            idx = LeanAttrIndex(
+            # size (the JAX store's floor: 24 B a slot over a mesh, whose
+            # gids are int64, 20 B on one device)
+            if self.mesh is not None:
+                cls = ShardedLeanAttrIndex
+                floor = cls.GENERATION_SLOTS * 24 * 2
+                where = {"mesh": self.mesh}
+            else:
+                cls = LeanAttrIndex
+                floor = cls.GENERATION_SLOTS * 20 * 2
+                where = {"device": self.device}
+            budget = max(floor, int(self._lean_budget()
+                                    * self.LEAN_ATTR_BUDGET_FRACTION
+                                    // max(1, len(names))))
+            idx = cls(
                 attr, self.sft.attribute(attr).type,
                 generation_slots=self._lean_user_int(
                     "geomesa.lean.generation.slots", None),
                 hbm_budget_bytes=budget,
                 compaction_factor=self._lean_user_int(
                     "geomesa.lean.compaction.factor",
-                    self.LEAN_COMPACTION_FACTOR),
-                device=self.device)
+                    self.LEAN_COMPACTION_FACTOR), **where)
             n = len(self.batch)
             step = 1 << 22
             if n:

@@ -152,8 +152,13 @@ class LeanXZ3Index(LeanCoreFacade):
     def __init__(self, period="week", g: int = 12,
                  generation_slots: int | None = None,
                  hbm_budget_bytes: int | None = None,
-                 compaction_factor: int | None = None, device=None):
-        super().__init__(LeanAttrIndex(
+                 compaction_factor: int | None = None, device=None,
+                 core=None):
+        """``core``: the generational ``(key, sec, gid)`` core to ride — a
+        single-device :class:`LeanAttrIndex` by default (built from the
+        other arguments), or a sharded one over a mesh
+        (parallel/attr_lean.ShardedLeanXZ3Index)."""
+        super().__init__(core if core is not None else LeanAttrIndex(
             "__xz3__", "long", generation_slots=generation_slots,
             hbm_budget_bytes=hbm_budget_bytes,
             compaction_factor=compaction_factor, device=device))

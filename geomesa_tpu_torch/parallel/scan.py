@@ -26,8 +26,13 @@ depend on block-layout arithmetic (shards hold unequal row counts after
 appends).  Gids are the input row order (int32), process 0 of the JAX
 package's ``process << GID_PROC_SHIFT | row`` coding.
 
+* ``ShardedZ3Index.query_ring`` / ``range_counts_ring``: the
+  ring-parallel scan — the plan split over the shards and rotated while
+  the data stays put — which ``query`` takes for plans above
+  ``RING_MIN_RANGES_PER_DEVICE`` ranges per device.
+
 One process drives the whole mesh.  The JAX package's multi-controller
-builds and appends and its ring-parallel scans are not ported and raise.
+builds and appends are not ported and raise.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..ops.z3_mask import z3_mask
 from .mesh import DeviceMesh, device_mesh, shard_batch
 
 __all__ = ["ShardedZ3Index", "sharded_range_count", "sharded_density",
+           "ring_range_counts",
            "GID_PROC_SHIFT", "encode_gids", "decode_gids",
            "segments_shard_of", "gid_weight_lookup",
            "SHARDED_TWO_PHASE_MIN_CAPACITY"]
@@ -210,8 +216,8 @@ class ShardedZ3Index:
     """
 
     DEFAULT_CAPACITY = 1 << 15
-    #: plans with more ranges than this per device go to the JAX
-    #: package's ring scan, which is not ported
+    #: plans with more ranges than this PER DEVICE route through the ring
+    #: scan (:meth:`query_ring`)
     RING_MIN_RANGES_PER_DEVICE = 4096
 
     def __init__(self, mesh: DeviceMesh, period: TimePeriod,
@@ -395,11 +401,104 @@ class ShardedZ3Index:
         return sharded_range_count(self.bins, self.z, plan.rbin, plan.rzlo,
                                    plan.rzhi)
 
-    def range_counts_ring(self, *args, **kwargs):
-        raise NotImplementedError("the ring-parallel scan is not ported")
+    def range_counts_ring(self, boxes, t_lo_ms: int, t_hi_ms: int,
+                          max_ranges: int = DEFAULT_MAX_RANGES) -> np.ndarray:
+        """Per-range candidate counts through the ring-parallel scan
+        (ranges split over the shards and rotated, data stationary) — see
+        :func:`ring_range_counts`.  Aligned with the plan's range
+        order."""
+        plan = self._plan(boxes, t_lo_ms, t_hi_ms, max_ranges)
+        if plan.num_ranges == 0:
+            return np.empty(0, dtype=np.int64)
+        r = _ring_ranges(plan, 0, plan.num_ranges, self.mesh.size)
+        return ring_range_counts(self.mesh, self.bins, self.z, r["rbin"],
+                                 r["rzlo"], r["rzhi"])[:plan.num_ranges]
 
-    def query_ring(self, *args, **kwargs):
-        raise NotImplementedError("the ring-parallel scan is not ported")
+    def query_ring(self, boxes, t_lo_ms: int, t_hi_ms: int,
+                   max_ranges: int = DEFAULT_MAX_RANGES,
+                   capacity: int | None = None) -> np.ndarray:
+        """Exact query through the RING-PARALLEL scan: the plan is split
+        over the shards and rotates while each shard's sorted data stays
+        put, so no device ever holds more than 1/N of the ranges — the
+        path for plans too large to replicate (see :func:`_ring_hop`).
+        Returns sorted global gids, identical to :meth:`query`."""
+        plan = self._plan(boxes, t_lo_ms, t_hi_ms, max_ranges)
+        if plan.num_ranges == 0 or self._n_total == 0:
+            return np.empty(0, dtype=np.int64)
+        return self._query_ring_plan(plan, capacity)
+
+    #: per-hop ring buffer ceiling: plans with more candidates than this
+    #: split into several ring passes instead of growing the travelling
+    #: buffers without bound
+    RING_MAX_CAPACITY = 1 << 15
+
+    def _ring_pass(self, r: dict, ixy, bxs, t_lo: int, t_hi: int,
+                   cap: int) -> np.ndarray:
+        """One full ring over a range chunk: N hops, regrowing the
+        capacity (and rerunning) until no hop's candidates overflow it.
+        Returns the pass's hit gids (unsorted, with repeats)."""
+        n = self.mesh.size
+        per = len(r["rbin"]) // n
+        cols = self._columns()
+        while True:
+            # block d starts on device d with its travelling buffers
+            blocks = []
+            for d, dev in enumerate(self.mesh):
+                blk = {k: torch.from_numpy(np.ascontiguousarray(
+                    v[d * per:(d + 1) * per])).to(dev) for k, v in r.items()}
+                blk["ixy"] = torch.from_numpy(ixy).to(dev)
+                blk["boxes"] = torch.from_numpy(bxs).to(dev)
+                blk["out"] = torch.full((n, cap), -1, dtype=cols[d][2].dtype,
+                                        device=dev)
+                blk["tot"] = torch.zeros(n, dtype=torch.int64, device=dev)
+                blocks.append(blk)
+            for i in range(n):
+                blocks = [_ring_hop(cols[d], blocks[d], i, t_lo, t_hi, cap)
+                          for d in range(n)]
+                # the ppermute: block d moves to device d + 1
+                blocks = [{k: v.to(self.mesh[d]) for k, v in
+                           blocks[(d - 1) % n].items()} for d in range(n)]
+            tot = np.concatenate(_to_host(b["tot"] for b in blocks))
+            if int(tot.max(initial=0)) <= cap:
+                flat = np.concatenate(
+                    [o.ravel() for o in _to_host(b["out"] for b in blocks)])
+                return flat[flat >= 0]
+            cap = gather_capacity(int(tot.max()))
+
+    def _query_ring_plan(self, plan,
+                         capacity: int | None = None) -> np.ndarray:
+        n = self.mesh.size
+        ixy, bxs = pad_boxes(plan.ixy, plan.boxes,
+                             pad_pow2(len(plan.boxes), minimum=1))
+        ixy, bxs = np.ascontiguousarray(ixy), np.ascontiguousarray(bxs)
+        t_lo, t_hi = plan.t_lo_ms, plan.t_hi_ms
+        if capacity is not None:   # explicit capacity: one pass, retries
+            return np.unique(self._ring_pass(
+                _ring_ranges(plan, 0, plan.num_ranges, n), ixy, bxs, t_lo,
+                t_hi, capacity)).astype(np.int64)
+        # totals-first probe: per-range candidate counts size each pass's
+        # buffer BEFORE the full ring runs (no capacity regrowth), and
+        # chunk the plan so every pass's buffer stays bounded
+        r_all = _ring_ranges(plan, 0, plan.num_ranges, n)
+        counts = ring_range_counts(self.mesh, self.bins, self.z,
+                                   r_all["rbin"], r_all["rzlo"],
+                                   r_all["rzhi"])[:plan.num_ranges]
+        bounds = [0]
+        acc = 0
+        for i, c in enumerate(counts):
+            if acc + int(c) > self.RING_MAX_CAPACITY and i > bounds[-1]:
+                bounds.append(i)
+                acc = 0
+            acc += int(c)
+        bounds.append(plan.num_ranges)
+        parts = []
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            cap = gather_capacity(max(int(counts[lo:hi].sum()), 1),
+                                  minimum=1 << 12)
+            parts.append(self._ring_pass(_ring_ranges(plan, lo, hi, n), ixy,
+                                         bxs, t_lo, t_hi, cap))
+        return (np.unique(np.concatenate(parts)).astype(np.int64)
+                if parts else np.empty(0, dtype=np.int64))
 
     def query(self, boxes, t_lo_ms: int, t_hi_ms: int,
               max_ranges: int = DEFAULT_MAX_RANGES,
@@ -417,9 +516,9 @@ class ShardedZ3Index:
         if plan.num_ranges == 0 or self._n_total == 0:
             return np.empty(0, dtype=np.int64)
         if plan.num_ranges > self.RING_MIN_RANGES_PER_DEVICE * self.mesh.size:
-            raise NotImplementedError(
-                f"a plan of {plan.num_ranges} ranges needs the ring-parallel "
-                "scan, which is not ported")
+            # replicating a plan this large to every shard is what the
+            # ring path exists to avoid
+            return self._query_ring_plan(plan)
         capacity = capacity or self._capacity
         r = pad_ranges({"rbin": plan.rbin, "rzlo": plan.rzlo,
                         "rzhi": plan.rzhi, "rtlo": plan.rtlo,
@@ -546,6 +645,72 @@ class ShardedZ3Index:
             self.x, self.y, self.dtg, self.gid, w_tab, boxes,
             int(t_lo_ms), int(t_hi_ms), tuple(float(v) for v in env),
             width, height, bases=bases)
+
+
+def _ring_ranges(plan, lo: int, hi: int, n: int) -> dict:
+    """Plan ranges ``[lo, hi)`` padded to a multiple of the mesh size
+    with empty ranges (lo > hi: they count and match nothing)."""
+    pad = (-(hi - lo)) % n
+    fill = {"rbin": -2, "rzlo": 1, "rzhi": 0, "rtlo": 1, "rthi": 0}
+    out = {}
+    for k, f in fill.items():
+        v = getattr(plan, k)
+        out[k] = np.concatenate([v[lo:hi], np.full(pad, f, v.dtype)])
+    return out
+
+
+def ring_range_counts(mesh: DeviceMesh, bins, z, rbin, rzlo,
+                      rzhi) -> np.ndarray:
+    """Per-range candidate counts with BOTH data and ranges sharded — the
+    ring-parallel scan.
+
+    The replicated-plan path (:func:`sharded_range_count`) sends every
+    range to every shard; for huge multi-window plans that replication
+    can exceed a device's memory.  Here each shard keeps its sorted data
+    stationary and holds 1/N of the ranges: each of N steps seeks the
+    resident block against the local run, adds into an accumulator that
+    travels WITH the block, and moves block and accumulator to the next
+    device (the JAX package's ``ppermute`` over the ring is a rotation of
+    the per-device list here).  After N hops every block is home with
+    its global counts.
+
+    ``bins``/``z``: per-shard lists of sorted key columns; ``rbin``/
+    ``rzlo``/``rzhi``: host range arrays whose length is a multiple of
+    the mesh size.  Returns the counts aligned with the input ranges."""
+    n = mesh.size
+    per = len(rbin) // n
+    blocks = []
+    for d, dev in enumerate(mesh):
+        sl = slice(d * per, (d + 1) * per)
+        blk = {k: torch.from_numpy(np.ascontiguousarray(v[sl])).to(dev)
+               for k, v in (("rbin", rbin), ("rzlo", rzlo), ("rzhi", rzhi))}
+        blk["acc"] = torch.zeros(per, dtype=torch.int64, device=dev)
+        blocks.append(blk)
+    for _ in range(n):
+        for d in range(n):
+            b = blocks[d]
+            starts = searchsorted2(bins[d], z[d], b["rbin"], b["rzlo"],
+                                   side="left")
+            ends = searchsorted2(bins[d], z[d], b["rbin"], b["rzhi"],
+                                 side="right")
+            b["acc"] = b["acc"] + torch.clamp(ends - starts, min=0)
+        blocks = [{k: v.to(mesh[d]) for k, v in blocks[(d - 1) % n].items()}
+                  for d in range(n)]
+    return np.concatenate(_to_host(b["acc"] for b in blocks))
+
+
+def _ring_hop(cols, blk: dict, i: int, t_lo: int, t_hi: int,
+              capacity: int) -> dict:
+    """ONE hop of the ring-parallel query on one shard: seek the resident
+    range block against the shard's sorted run, gather, mask with the z3
+    mask kernel (Z3Filter.inBounds; on a CUDA shard the kernel or a
+    raise, never the plain version) and the exact double-precision
+    re-check, and write the hop's hit gids into row ``i`` of the block's
+    travelling buffer (its candidate total into ``tot[i]``)."""
+    gc, mask, total = _scan_shard(*cols, blk, t_lo, t_hi, capacity)
+    blk["out"][i] = torch.where(mask, gc, torch.full_like(gc, -1))
+    blk["tot"][i] = total
+    return blk
 
 
 def sharded_range_count(bins, z, rbin, rzlo, rzhi) -> int:

@@ -864,3 +864,69 @@ def test_tombstoned_lean_heatmap_on_card_matches_plain(cuda_device):
         g, c = (ds.query_result("s", ecql).positions for ds in stores)
         np.testing.assert_array_equal(g, c)
     assert stores[0].get_count("s") == 81_000
+
+
+def test_mesh_lean_store_on_card_matches_cpu(cuda_device):
+    """A lean store over ``device_mesh(1)`` on the card against the same
+    store over a one-CPU mesh: every generation's columns live on the
+    card, the accounted device bytes equal what was allocated for them,
+    and positions, heatmaps, Count, the cell fold, the attribute
+    candidates and a ring query on a mesh z3 store (through the z3 mask
+    kernel) equal the CPU's."""
+    from geomesa_tpu_torch.parallel import device_mesh
+    slots = 1 << 12
+    spec = ("actor:String:index=true,dtg:Date,*geom:Point;"
+            "geomesa.index.profile=lean,"
+            f"geomesa.lean.generation.slots={slots},"
+            f"geomesa.lean.hbm.budget={slots * (44 + 20 + 44 + 20 * 3)}")
+    rng = np.random.default_rng(47)
+    chunks = [{"actor": rng.choice(["a", "b", "rare"], 20_000,
+                                   p=[.6, .39, .01]).astype(object),
+               "dtg": rng.integers(MS_2018, MS_2018 + 30 * DAY, 20_000),
+               "geom": (rng.uniform(-20, 20, 20_000),
+                        rng.uniform(-10, 10, 20_000))} for _ in range(4)]
+    stores = []
+    for mesh in (device_mesh(1), device_mesh(devices=["cpu"])):
+        ds = TpuDataStore(device=mesh[0], mesh=mesh)
+        ds.create_schema("s", spec)
+        for c in chunks:
+            ds.write("s", c)
+        stores.append(ds)
+    idx, cidx = (ds._store("s").index("z3") for ds in stores)
+    assert idx.tier_counts() == cidx.tier_counts()
+    assert idx.tier_counts()["host"] > 0
+    for g in idx.generations:
+        cols = [] if g.tier == "host" else g.bins + g.z + g.pos
+        if g.tier == "full":
+            cols += g.x + g.y + g.t
+        assert all(c.device.type == "cuda" for c in cols)
+    torch.cuda.synchronize()
+    assert idx.device_bytes() == sum(
+        c.numel() * c.element_size() for g in idx.generations
+        if g.tier != "host"
+        for c in g.bins + g.z + g.pos + (g.x + g.y + g.t
+                                         if g.tier == "full" else []))
+    q = ("BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+         "2018-01-03T00:00:00Z/2018-01-19T00:00:00Z")
+    for ecql in (q, "INCLUDE", "actor = 'rare'"):
+        g, c = (ds.query_result("s", ecql) for ds in stores)
+        assert g.strategy.index == c.strategy.index
+        np.testing.assert_array_equal(g.positions, c.positions)
+    for query, env in ((q, (-5, -5, 5, 5)), ("INCLUDE", (-20, -10, 20, 10))):
+        g, c = (density_process(ds, "s", query, env, 64, 32)
+                for ds in stores)
+        np.testing.assert_array_equal(g, c)
+    for stat in ("Count()", "Z3Histogram(geom,dtg,week,8)"):
+        g, c = (ds.stats("s", "INCLUDE", stat) for ds in stores)
+        assert g.to_json() == c.to_json()
+    assert stores[0].compact("s") == stores[1].compact("s")
+    # the ring query over a mesh z3 store launches the z3 mask kernel
+    ms = TpuDataStore(device=cuda_device, mesh=device_mesh(1))
+    ms.create_schema("p", "dtg:Date,*geom:Point")
+    ms.write("p", {k: v for k, v in chunks[0].items() if k != "actor"})
+    z3 = ms._store("p").index("z3")
+    before = z3_mask.launches
+    got = z3.query_ring([(-5, -5, 5, 5)], MS_2018, MS_2018 + 20 * DAY)
+    assert z3_mask.launches > before
+    np.testing.assert_array_equal(
+        got, z3.query([(-5, -5, 5, 5)], MS_2018, MS_2018 + 20 * DAY))

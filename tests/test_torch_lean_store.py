@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from geomesa_tpu.datastore import TpuDataStore as JaxStore
+from geomesa_tpu.parallel import device_mesh as jax_mesh
 from geomesa_tpu.geometry.types import Polygon as JaxPolygon
 from geomesa_tpu.process.density import density_process as jax_density
 from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
@@ -257,15 +258,27 @@ def test_lean_rejections(stores):
 def test_left_out_features_raise(stores, tmp_path):
     jds, tds = stores
     lean = ";geomesa.index.profile=lean"
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"])
-                     ).create_schema("m", "dtg:Date,*geom:Point" + lean)
-    # lean attribute indexes are ported on one device; over a mesh (the
-    # JAX package's parallel/attr_lean.py) they still raise
+    # lean schemas over a mesh are served since the sharded lean slice
+    # (tests/test_torch_lean_sharded.py, test_torch_attr_lean_sharded.py):
+    # a one-shard mesh store answers as the JAX one does
     attr_spec = "name:String:index=true,dtg:Date,*geom:Point" + lean
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"])
-                     ).create_schema("attr", attr_spec)
+    rows = {"name": np.array(["x", "y", "x"], object),
+            "dtg": np.array([MS_2018, MS_2018 + DAY, MS_2018 + 2 * DAY]),
+            "geom": (np.array([-74.0, -74.2, 10.0]),
+                     np.array([41.0, 41.1, 10.0]))}
+    mds = TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"]))
+    jms = JaxStore(mesh=jax_mesh(1))
+    for ds in (mds, jms):
+        ds.create_schema("m", "dtg:Date,*geom:Point" + lean)
+        ds.create_schema("attr", attr_spec)
+        ds.write("m", {k: v for k, v in rows.items() if k != "name"})
+        ds.write("attr", rows)
+    for name, q in (("m", "BBOX(geom,-75,40,-73,42)"),
+                    ("attr", "name = 'x'"),
+                    ("attr", "name = 'x' AND BBOX(geom,-75,40,-73,42)")):
+        a, b = mds.query_result(name, q), jms.query_result(name, q)
+        assert b.strategy.index == a.strategy.index
+        assert list(b.positions) == list(a.positions)
     tds.create_schema("attr", attr_spec)
     assert tds._store("attr").query_indices == {"z3", "id", "attr"}
     # non-point lean schemas ride the lean XZ indexes: both stores answer
@@ -313,3 +326,147 @@ def test_left_out_features_raise(stores, tmp_path):
         tds.explain_analyze("evt", "INCLUDE")
     with pytest.raises(NotImplementedError, match="storage_report"):
         tds.storage_report()
+
+
+# -- lean schemas over a mesh (the JAX package's tests/test_lean_store.py
+# mesh tests) ---------------------------------------------------------------
+def _mesh_rows(seed, n):
+    rng = np.random.default_rng(seed)
+    return {"name": rng.choice(["a", "b", "c"], n).astype(object),
+            "score": rng.uniform(0, 100, n),
+            "dtg": rng.integers(MS_2018, MS_2018 + 14 * DAY, n),
+            "geom": (rng.uniform(-75, -73, n), rng.uniform(40, 42, n))}
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_lean_store_over_mesh(n_shards, monkeypatch):
+    """The sharded lean z3 index serves the store facade: the same answers
+    as the JAX mesh store and the single-device lean store, before and
+    after a delete."""
+    from geomesa_tpu.parallel.attr_lean import ShardedLeanAttrIndex as JA
+    from geomesa_tpu_torch.parallel import (
+        ShardedLeanAttrIndex, ShardedLeanZ3Index,
+    )
+    monkeypatch.setattr(ShardedLeanAttrIndex, "GENERATION_SLOTS",
+                        JA.GENERATION_SLOTS)
+    data = _mesh_rows(29, 20_000)
+    spec = ("name:String:index=true,score:Double,dtg:Date,*geom:Point;"
+            "geomesa.index.profile=lean")
+    ds = TpuDataStore(device="cpu",
+                      mesh=device_mesh(devices=["cpu"] * n_shards))
+    jds = JaxStore(mesh=jax_mesh(n_shards))
+    plain = TpuDataStore(device="cpu")
+    for s in (ds, jds, plain):
+        s.create_schema("evt", spec)
+        s.write("evt", data)
+    idx = ds._store("evt").index("z3")
+    assert isinstance(idx, ShardedLeanZ3Index)
+    jidx = jds._store("evt").index("z3")
+    assert idx.tier_counts() == jidx.tier_counts()
+    assert idx.dispatch_count == jidx.dispatch_count
+    ecqls = ("BBOX(geom,-74.5,40.5,-73.5,41.5) AND dtg DURING "
+             "2018-01-03T00:00:00Z/2018-01-10T00:00:00Z",
+             "BBOX(geom,-74.5,40.5,-73.5,41.5) AND name = 'a'",
+             "BBOX(geom,-75,40,-73,42)")
+    for ecql in ecqls:
+        a = ds.query_result("evt", ecql)
+        b = jds.query_result("evt", ecql)
+        assert a.strategy.index == b.strategy.index
+        np.testing.assert_array_equal(a.positions, b.positions)
+        np.testing.assert_array_equal(
+            np.sort(a.positions),
+            np.sort(plain.query_result("evt", ecql).positions))
+    # batched windows (the JAX store's query_windows rides the same
+    # index call)
+    wins = [([BOX], MS_2018 + 2 * DAY, MS_2018 + 9 * DAY),
+            ([(-74.2, 40.1, -73.1, 41.2)], None, None)]
+    for hm, hj in zip(idx.query_many(wins), jds.query_windows("evt", wins)):
+        np.testing.assert_array_equal(hm, np.sort(hj))
+    assert ds.delete("evt", ["7", "9"]) == jds.delete("evt", ["7", "9"]) == 2
+    a = ds.query_result("evt", "BBOX(geom,-75,40,-73,42)")
+    b = jds.query_result("evt", "BBOX(geom,-75,40,-73,42)")
+    np.testing.assert_array_equal(a.positions, b.positions)
+    assert 7 not in a.positions and 9 not in a.positions
+
+
+def test_tight_budget_never_allocates_doomed_payload():
+    """Under a budget too small for any full-tier generation, rollovers
+    create keys-tier generations directly — the same tiers the JAX index
+    picks."""
+    from geomesa_tpu.parallel.lean import ShardedLeanZ3Index as JaxSharded
+    from geomesa_tpu_torch.parallel import lean as plean
+    requested = []
+    orig = plean._ShardedGen.__init__
+
+    def spy(self, mesh, slots, tier="keys"):
+        requested.append(tier)
+        orig(self, mesh, slots, tier=tier)
+
+    rng = np.random.default_rng(3)
+    m = 40_000
+    rows = (rng.uniform(-75, -73, m), rng.uniform(40, 42, m),
+            rng.integers(MS_2018, MS_2018 + 14 * DAY, m))
+    kw = dict(period="week", generation_slots=1 << 10,
+              hbm_budget_bytes=(1 << 10) * 20 * 3)
+    plean._ShardedGen.__init__ = spy
+    try:
+        idx = plean.ShardedLeanZ3Index(
+            mesh=device_mesh(devices=["cpu"] * 8), **kw)
+        idx.append(*rows)
+    finally:
+        plean._ShardedGen.__init__ = orig
+    assert len(requested) >= 3
+    assert "full" not in requested
+    ref = JaxSharded(mesh=jax_mesh(8), **kw)
+    ref.append(*rows)
+    assert [g.tier for g in idx.generations] == [
+        g.tier for g in ref.generations]
+
+
+def test_mesh_lean_snapshot_roundtrip(tmp_path, monkeypatch):
+    """A mesh lean store flushes the same chunked snapshot as one device;
+    the reopened store (either package's) rebuilds its sharded index by
+    streaming the restored parts and answers alike, tombstones
+    included."""
+    from geomesa_tpu.parallel.lean import ShardedLeanZ3Index as JaxSharded
+    from geomesa_tpu_torch.parallel import ShardedLeanZ3Index
+    monkeypatch.setattr(ShardedLeanZ3Index, "GENERATION_SLOTS", 1 << 13)
+    monkeypatch.setattr(JaxSharded, "GENERATION_SLOTS", 1 << 13)
+    rng = np.random.default_rng(31)
+    n = 30_000
+    x = rng.uniform(-75, -73, n)
+    y = rng.uniform(40, 42, n)
+    t = rng.integers(MS_2018, MS_2018 + 14 * DAY, n)
+    spec = "score:Double,dtg:Date,*geom:Point;geomesa.index.profile=lean"
+    q = "BBOX(geom,-74.5,40.5,-73.5,41.5)"
+    inside = int(np.flatnonzero((x >= -74.5) & (x <= -73.5)
+                                & (y >= 40.5) & (y <= 41.5))[0])
+    cats = {}
+    for pkg in ("port", "jax"):
+        cat = str(tmp_path / pkg)
+        ds = (TpuDataStore(device="cpu", catalog_dir=cat,
+                           mesh=device_mesh(devices=["cpu"] * 2))
+              if pkg == "port" else JaxStore(cat, mesh=jax_mesh(2)))
+        ds.create_schema("evt", spec)
+        ds.write("evt", {"score": rng.uniform(0, 100, n) * 0 + 1.0,
+                         "dtg": t, "geom": (x, y)})
+        ds.delete("evt", ["3"])
+        ds.flush("evt")
+        ds.delete("evt", [str(inside)])
+        ds.flush("evt")
+        cats[pkg] = cat
+    want = np.flatnonzero((x >= -74.5) & (x <= -73.5)
+                          & (y >= 40.5) & (y <= 41.5))
+    want = want[(want != 3) & (want != inside)]
+    for writer, cat in cats.items():
+        for reader in ("port", "jax"):
+            ds2 = (TpuDataStore(device="cpu", catalog_dir=cat,
+                                mesh=device_mesh(devices=["cpu"] * 2))
+                   if reader == "port" else JaxStore(cat, mesh=jax_mesh(2)))
+            st2 = ds2._store("evt")
+            assert len(st2.batch) == n
+            assert st2.tombstone[3] and st2.tombstone[inside]
+            got = ds2.query_result("evt", q)
+            assert type(st2.index("z3")).__name__ == "ShardedLeanZ3Index"
+            np.testing.assert_array_equal(np.sort(got.positions), want,
+                                          err_msg=f"{writer}->{reader}")

@@ -285,9 +285,26 @@ def test_lean_xz_stats_and_density_answer_alike(xz3_stores):
 
 
 def test_lean_xz_over_mesh_still_raises():
-    mesh = device_mesh(devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        TpuDataStore(device="cpu", mesh=mesh).create_schema("m", SPEC2)
+    """Lean XZ schemas over a mesh used to raise; since the sharded lean
+    slice they ride ShardedLeanXZ2Index and answer as the JAX mesh store
+    does (tests/test_torch_attr_lean_sharded.py holds more)."""
+    from geomesa_tpu.parallel import device_mesh as jax_mesh
+    from geomesa_tpu_torch.parallel import ShardedLeanXZ2Index
+    rng = np.random.default_rng(4)
+    cx, cy = rng.uniform(-170, 170, 500), rng.uniform(-80, 80, 500)
+    bb = np.stack([cx - 0.5, cy - 0.5, cx + 0.5, cy + 0.5], axis=1)
+    kind = rng.choice(np.array(["a", "b"], object), 500)
+    ds = TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"]))
+    jds = JaxStore(mesh=jax_mesh(1))
+    ds.create_schema("m", SPEC2)
+    jds.create_schema("m", SPEC2)
+    ds.write("m", {"kind": kind, "geom": packed_from_boxes(bb)})
+    jds.write("m", {"kind": kind, "geom": j_packed(bb)})
+    assert isinstance(ds._store("m").index("xz2"), ShardedLeanXZ2Index)
+    for q in (Q_BOX, "kind = 'a'"):
+        a, b = ds.query_result("m", q), jds.query_result("m", q)
+        assert a.strategy.index == b.strategy.index
+        np.testing.assert_array_equal(a.positions, b.positions)
 
 
 @pytest.mark.parametrize("q", [

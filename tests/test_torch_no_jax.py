@@ -7,8 +7,10 @@ the lean attribute stat push-down), a polygon store's xz3 and xz2
 queries with the native range sweep loaded, and a restricted query on a
 v1-layout store with its deletes and a lean store's delete and age-off,
 a catalog's flush and reopen (a labelled default schema and a lean one
-with a tombstone), and a FileSystemDataStore's write, pruned query and
-``to_device_store``, loads neither ``jax`` nor
+with a tombstone), a FileSystemDataStore's write, pruned query and
+``to_device_store``, and a 2-shard mesh lean store's z3 and attribute
+queries, count, heatmap, pyramids and compaction with a ring query on the
+mesh store, loads neither ``jax`` nor
 any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
@@ -140,6 +142,32 @@ life = {"v1": [vs._store("v").index("z3").version,
                          age_off(ls, "l", older_than_ms=1515000000000),
                          ls.stats("l", "INCLUDE", "Count()").count,
                          ls.get_count("l")]}
+mls = TpuDataStore(device="cpu", mesh=device_mesh(devices=["cpu"] * 2))
+mls.create_schema("ml", aspec + ";geomesa.index.profile=lean,"
+                               "geomesa.lean.generation.slots=64,"
+                               "geomesa.lean.hbm.budget=12032,"
+                               "geomesa.lean.compaction.factor=0")
+for _ in range(4):
+    mls.write("ml", {k: (v[0].copy(), v[1].copy()) if k == "geom"
+                     else v.copy() for k, v in arows.items()})
+mlq = mls.query_result("ml", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+                             "2018-01-05T00:00:00Z/2018-01-20T00:00:00Z")
+mla = mls.query_result("ml", aecql)
+mlidx = mls._store("ml").index("z3")
+mlbuilt = mls.build_pyramids("ml")
+mesh_lean = {"kind": type(mlidx).__name__,
+             "z3": [mlq.strategy.index, int(len(mlq.positions))],
+             "attr": [mla.strategy.index, int(len(mla.positions))],
+             "tiers": mlidx.tier_counts(),
+             "count": mls.stats("ml", "INCLUDE", "Count()").count,
+             "density": float(geomesa_tpu_torch.density_process(
+                 mls, "ml", "INCLUDE", (-180, -90, 180, 90), 32, 32).sum()),
+             "built": mlbuilt,
+             "compact": mls.compact("ml")["z3"]["merged_groups"],
+             "ring": ms._store("s").index("z3").query_ring(
+                 [(-5, -5, 5, 5)], None, None).tolist()
+             == ms._store("s").index("z3").query(
+                 [(-5, -5, 5, 5)], None, None).tolist()}
 import shutil, tempfile
 from geomesa_tpu_torch.fs import FileSystemDataStore, to_device_store
 cat, fsroot = tempfile.mkdtemp(), tempfile.mkdtemp()
@@ -200,7 +228,7 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "replan_hits": rq.positions.tolist(),
                   "replans": str(rex).count("Replanning: z3 observed"),
                   "attr": attr, "poly": poly, "life": life,
-                  "persist": persist}))
+                  "persist": persist, "mesh_lean": mesh_lean}))
 """
 
 
@@ -254,6 +282,13 @@ def test_import_and_query_load_no_jax():
     assert life["lean_deleted"][0] == 2 and life["lean_deleted"][1] > 0
     assert (life["lean_deleted"][2] == life["lean_deleted"][3]
             == 4 * 500 - 2 - life["lean_deleted"][1])
+    ml = out["mesh_lean"]
+    assert ml["kind"] == "ShardedLeanZ3Index"
+    assert ml["z3"][0] == "z3" and ml["z3"][1] > 0
+    assert ml["attr"] == ["attr:actor", 4 * attr["default"][1]]
+    assert ml["tiers"]["keys"] > 0 and ml["tiers"]["host"] > 0
+    assert ml["count"] == ml["density"] == 4 * 500
+    assert ml["built"] > 0 and ml["compact"] > 0 and ml["ring"] is True
     persist = out["persist"]
     assert persist["reopen"] == [["l", "s"], True, True, 500, 499]
     assert persist["fs"][0] == 500 and persist["fs"][1] > 1

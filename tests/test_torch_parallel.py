@@ -209,17 +209,103 @@ def test_convert_carries_jax_state(z3_pair, z2_pair, mesh):
 
 
 def test_unported_mesh_paths_raise(z3_pair):
+    """The multi-controller builds still raise; the ring scan, which used
+    to, answers as the replicated scan does (the ring tests below)."""
     port = z3_pair[0]
     for call in (lambda: ShardedZ3Index.build_multihost([], [], []),
-                 lambda: ShardedZ2Index.build_multihost([], []),
-                 lambda: port.range_counts_ring([BOX], None, None),
-                 lambda: port.query_ring([BOX], None, None)):
+                 lambda: ShardedZ2Index.build_multihost([], [])):
         with pytest.raises(NotImplementedError):
             call()
-    port_small = ShardedZ3Index.build(*_rows(9, 100), mesh=port.mesh)
+    rows = _rows(9, 100)
+    port_small = ShardedZ3Index.build(*rows, mesh=port.mesh)
     port_small.RING_MIN_RANGES_PER_DEVICE = 0
-    with pytest.raises(NotImplementedError, match="ring"):
-        port_small.query([BOX], None, None)
+    np.testing.assert_array_equal(port_small.query([BOX], None, None),
+                                  _oracle(*rows, [BOX], None, None))
+
+
+# -- the ring-parallel scan (the JAX package's tests/test_parallel.py ring
+# tests, held against its ShardedZ3Index on the same rows) ---------------
+RING_Q = ([BOX], MS + DAY, MS + 6 * DAY)
+
+
+def test_ring_range_counts_match_replicated(z3_pair):
+    """Ring-rotated per-range counts sum to the replicated count and equal
+    the JAX package's ring counts."""
+    port, ref, _ = z3_pair
+    boxes, lo, hi = [BOX], MS + 2 * DAY, MS + 9 * DAY
+    per_range = port.range_counts_ring(boxes, lo, hi)
+    assert per_range.sum() == port.range_count(boxes, lo, hi)
+    assert (per_range >= 0).all() and len(per_range) >= 1
+    np.testing.assert_array_equal(per_range,
+                                  ref.range_counts_ring(boxes, lo, hi))
+
+
+def test_ring_range_counts_oracle(z3_pair):
+    """Per-range counts vs a host brute-force count over the same plan
+    (512 ranges: not a multiple of the mesh size after planning)."""
+    from geomesa_tpu_torch.curve.binnedtime import to_binned_time
+    from geomesa_tpu_torch.index.z3 import plan_z3_query
+    port, ref, (x, y, t) = z3_pair
+    box = (-74.3, 40.2, -73.6, 41.7)
+    lo, hi = MS + DAY, MS + 12 * DAY
+    plan = plan_z3_query([box], lo, hi, "week", 512, sfc=port.sfc)
+    per_range = port.range_counts_ring([box], lo, hi, max_ranges=512)
+    assert len(per_range) == plan.num_ranges
+    bins, offs = to_binned_time(np.asarray(t, np.int64), port.period)
+    import torch
+    z = port.sfc.index(torch.from_numpy(x), torch.from_numpy(y),
+                       torch.from_numpy(offs.astype(np.float64))).numpy()
+    want = np.array([np.count_nonzero((bins == plan.rbin[i])
+                                      & (z >= plan.rzlo[i])
+                                      & (z <= plan.rzhi[i]))
+                     for i in range(plan.num_ranges)])
+    np.testing.assert_array_equal(per_range, want)
+    np.testing.assert_array_equal(
+        per_range, ref.range_counts_ring([box], lo, hi, max_ranges=512))
+
+
+def test_ring_query_matches_replicated(z3_pair):
+    """The ring query (plan split and rotated, data stationary) returns
+    the replicated scan's hit set, with a tiny capacity too (regrowth)
+    and a plan whose range count the mesh size does not divide."""
+    port, ref, rows = z3_pair
+    rep = port.query(*RING_Q)
+    np.testing.assert_array_equal(rep, _oracle(*rows, *RING_Q))
+    for kw in ({}, {"capacity": 64}, {"max_ranges": 509}):
+        ring = port.query_ring(*RING_Q, **kw)
+        assert ring.dtype == np.int64
+        np.testing.assert_array_equal(ring, rep)
+        np.testing.assert_array_equal(ring, ref.query_ring(*RING_Q, **kw))
+
+
+def test_huge_plan_routes_through_ring(z3_pair, monkeypatch):
+    """Plans above RING_MIN_RANGES_PER_DEVICE ranges per device take the
+    ring path from ``query``, exactly; the totals-first probe sizes each
+    pass so no pass regrows its capacity."""
+    port, _, rows = z3_pair
+    calls = {"ring": 0, "passes": []}
+    orig_plan = ShardedZ3Index._query_ring_plan
+    orig_pass = ShardedZ3Index._ring_pass
+
+    def spy_plan(self, plan, capacity=None):
+        calls["ring"] += 1
+        return orig_plan(self, plan, capacity)
+
+    def spy_pass(self, r, ixy, bxs, t_lo, t_hi, cap):
+        calls["passes"].append(cap)
+        return orig_pass(self, r, ixy, bxs, t_lo, t_hi, cap)
+
+    monkeypatch.setattr(ShardedZ3Index, "_query_ring_plan", spy_plan)
+    monkeypatch.setattr(ShardedZ3Index, "_ring_pass", spy_pass)
+    monkeypatch.setattr(ShardedZ3Index, "RING_MIN_RANGES_PER_DEVICE", 8)
+    hits = port.query(*RING_Q, max_ranges=2000)
+    assert calls["ring"] == 1 and len(calls["passes"]) == 1
+    np.testing.assert_array_equal(hits, _oracle(*rows, *RING_Q))
+    # a chunk budget below the candidates splits the plan into passes
+    monkeypatch.setattr(ShardedZ3Index, "RING_MAX_CAPACITY", 1 << 10)
+    np.testing.assert_array_equal(port.query(*RING_Q),
+                                  _oracle(*rows, *RING_Q))
+    assert len(calls["passes"]) > 2
 
 
 def test_gid_coding_matches_jax():
