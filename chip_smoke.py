@@ -22,6 +22,7 @@
                           [--fsds-rows 2000000] [--mh-rows 8000000]
                           [--mh-lean-rows 16000000]
                           [--mh-lean-slots 4194304] [--mh-timeout 400]
+                          [--res-rows 8000000] [--res-slots 1048576]
                           [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
@@ -101,6 +102,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    must come back flagged ``timed_out`` with a subset of the oracle's
    hits; no admission token left in flight.  It prints the batches' p50
    beside the solo queries' sum and p50;
+6c. trace, on the facade's ``gdelt`` store: the index phase's 20
+   queries as BBOX+DURING ECQL in turns under ``sampler=never`` and
+   ``sampler=always`` (each query's p50 of 3 of each), the spans a
+   traced query records and the sum of its ``device_ms`` against its
+   wall time, the audit's ``trace_id`` equal to the traced query's (""
+   when unsampled), and one ``explain_analyze`` whose matched rows equal
+   the query's hits;
 7. mesh: ``TpuDataStore(mesh=device_mesh(1))`` on schema ``events``
    (``actor:String,score:Double,dtg:Date,*geom:Point``): ``--mesh-rows``
    rows in 4 writes with no query between (the sharded z3 index builds
@@ -300,11 +308,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the store rediscovered from disk and the query again; then
    ``to_device_store(fs, name, device="cuda")``: the query (z3) and a
    BBOX-only one (z2) on the card, equal to the oracle and to
-   ``fs.query``.
+   ``fs.query``;
+22. resilience (run right after phase 3b, on an allocator holding little
+   else, so that its cap bites): a lean store of its own,
+   ``--res-rows`` GDELT-like rows at ``--res-slots``-slot generations
+   under a budget that leaves one full, three keys and the rest host
+   generations: its ``storage_report`` (accounted device bytes equal to
+   the actual tensor bytes, host within the tolerance,
+   ``memory_allocated`` beside them) and the admission gate shedding with
+   ``Backpressure`` at a headroom below the published gauge;
+   ``device.dispatch:1=oom`` armed through ``set_property`` (the query
+   equal to its oracle, ``resilience.degraded`` and
+   ``resilience.retries`` counted, a flagged ``query.scan.degraded``
+   span); ``device.dispatch=error`` (``FaultInjected`` reaches the
+   caller); a breaker at threshold 1 (the generation answered from the
+   host tier, ``resilience.breaker.open`` counted); one real
+   ``torch.OutOfMemoryError`` (the caching allocator capped 4 MiB above
+   what it reserves; the keys tier's gather degrades and the answer
+   stays exact); then ``ingest.append``, ``host.spill``,
+   ``pyramid.build`` and ``compaction.merge_step`` armed once each, the
+   store equal to its oracle after each.  At the end every kernel gate
+   must read ``ok`` with no failure.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 6b (which must
-launch z3_mask, z2_mask and density_grid), phase 7, phase 8 (whose
+launch z3_mask, z2_mask and density_grid), phase 6c (z3_mask), phase 7, phase 8 (whose
 serving part 8b counts apart, set to 0 and read around it, and
 reported: the lean fused scan runs no kernel, as the JAX lean programs
 reach none),
@@ -319,7 +347,7 @@ set to 0 and read around each of phases 16-18, which must launch
 z3_mask, z2_mask and density_grid (16), z3_mask and z2_mask (17), and
 z3_mask, z2_mask and hist1d (18), and around each of phases 19-21,
 which must launch every kernel (19) and z3_mask and z2_mask (21); phase
-20's are reported.  Each multihost worker (phase 3b) sets its own
+20's and 22's are reported.  Each multihost worker (phase 3b) sets its own
 counts to 0 just before its run and reads them just after; the parent
 reports them as ``multihost_path_launches``.  The
 z3 index phase's range plans are timed again there with the native and
@@ -1405,6 +1433,391 @@ def serving_fused_part(args, centres, ds, name: str, cols, report):
         f"{_p50(ms):.1f} ms, all done in {wall_ms:.1f} ms; the 32 solo "
         f"one after another {sum(solo_ms):.1f} ms (p50 "
         f"{_p50(solo_ms):.1f} ms)")
+
+
+
+def _ecql(boxes, lo, hi) -> str:
+    """The ECQL of a ``(boxes, lo, hi)`` window: an OR of BBOXes AND the
+    inclusive DURING."""
+    parts = [f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})" for b in boxes]
+    f = parts[0] if len(parts) == 1 else "(" + " OR ".join(parts) + ")"
+    return f"{f} AND dtg DURING {iso(lo)}/{iso(hi)}"
+
+
+def trace_reading(qs, ds, report, reps: int = 3):
+    """The trace layer on the facade's ``gdelt`` store: the index phase's
+    20 queries as BBOX+DURING ECQL, run in turns under
+    ``sampler=always`` and ``sampler=never`` (never, always, always,
+    never, ...), each query's p50 over ``reps`` turns of each; the spans
+    a traced query records and the sum of its ``device_ms`` against its
+    wall time; the audit's ``trace_id``; and one ``explain_analyze``
+    whose actual rows equal the query's hits."""
+    import numpy as np
+    from geomesa_tpu_torch.audit import InMemoryAuditWriter
+    from geomesa_tpu_torch.config import clear_property, set_property
+    from geomesa_tpu_torch.obs import tracer
+
+    qsql = [_ecql(boxes, lo, hi) for _, boxes, lo, hi in qs]
+    audit = InMemoryAuditWriter()
+    ds._audit_writer = audit
+    wall = {"always": [[] for _ in qsql], "never": [[] for _ in qsql]}
+    spans, dev_ms, root_ms, hits = [], [], [], []
+    try:
+        for turn in range(2 * reps):
+            kind = ("never", "always")[(turn + turn // 2) % 2]
+            set_property("geomesa.obs.sampler", kind)
+            for i, q in enumerate(qsql):
+                t0 = time.perf_counter()
+                if kind == "always":
+                    with tracer.capture() as cap:
+                        res = ds.query_result("gdelt", q)
+                else:
+                    res = ds.query_result("gdelt", q)
+                wall[kind][i].append((time.perf_counter() - t0) * 1e3)
+                if kind == "always" and turn == 1:
+                    tr = cap.traces()[-1]
+                    spans.append(len(tr.spans))
+                    dev_ms.append(tr.root_span.attributes.get("device_ms",
+                                                              0.0))
+                    root_ms.append(tr.duration_ms)
+                    hits.append(int(len(res.positions)))
+                    ev = audit.query_events("gdelt")[-1]
+                    if not ev.trace_id or ev.trace_id != tr.trace_id:
+                        raise AssertionError(
+                            f"audit trace id {ev.trace_id!r} against the "
+                            f"query's trace {tr.trace_id!r}")
+                if kind == "never" and audit.query_events(
+                        "gdelt")[-1].trace_id:
+                    raise AssertionError("an unsampled query stamped a "
+                                         "trace id")
+        set_property("geomesa.obs.sampler", "never")
+        # EXPLAIN ANALYZE records whatever the sampler says
+        k = int(np.argmax(hits))
+        ea = ds.explain_analyze("gdelt", qsql[k])
+        s = ea.summary
+        if not (s["actual_matched"] == s["hits"] == hits[k]):
+            raise AssertionError(f"explain_analyze: {s['actual_matched']} "
+                                 f"matched, {s['hits']} hits, the query "
+                                 f"{hits[k]}")
+    finally:
+        clear_property("geomesa.obs.sampler")
+        ds._audit_writer = None
+    p50 = {kind: float(np.median([np.median(v) for v in w]))
+           for kind, w in wall.items()}
+    sums = {kind: float(sum(np.median(v) for v in w))
+            for kind, w in wall.items()}
+    rep = {"queries": len(qsql), "reps": reps, "p50_ms": p50,
+           "sum_of_p50_ms": sums, "spans_per_query": spans,
+           "device_ms": dev_ms, "root_ms": root_ms, "hits": hits,
+           "device_share": float(sum(dev_ms) / max(sum(root_ms), 1e-9)),
+           "explain_analyze": {"query": k, "strategy": s.get("strategy"),
+                               "estimate_rows": s.get("estimate_rows"),
+                               "actual_scanned": s.get("actual_scanned"),
+                               "actual_matched": s.get("actual_matched"),
+                               "device_ms": s.get("device_ms"),
+                               "wall_ms": ea.wall_ms,
+                               "tree_spans": len(ea.trace.spans)}}
+    report["trace"] = rep
+    log(f"trace: {len(qsql)} queries, p50 {p50['always']:.2f} ms traced "
+        f"against {p50['never']:.2f} ms untraced (sums of the per-query "
+        f"p50s {sums['always']:.1f} / {sums['never']:.1f} ms); "
+        f"{min(spans)}-{max(spans)} spans a query; device_ms "
+        f"{sum(dev_ms):.1f} of {sum(root_ms):.1f} ms of traced wall "
+        f"({rep['device_share']:.1%}); audit trace ids set; "
+        f"explain_analyze {s['actual_matched']} rows matched = hits, "
+        f"{len(ea.trace.spans)} spans, {ea.wall_ms:.1f} ms")
+
+
+def resilience_phase(rng, args, centres, dev, report):
+    """Degraded execution, the fault catalog and storage accounting on a
+    lean store of its own: ``--res-rows`` GDELT-like rows at
+    ``--res-slots``-slot generations under a budget that leaves one full,
+    three keys and the rest host generations.  In order, each answer
+    against its numpy oracle: the storage report (accounted device bytes
+    reconciled with the actual tensor bytes, ``memory_allocated`` beside
+    them) and the admission gate shedding on the published gauge; an
+    injected ``device.dispatch:1=oom`` (the full generation demoted and
+    answered from the host tier, counted and flagged on its span); an
+    injected ``device.dispatch=error`` raising ``FaultInjected``; a
+    breaker at threshold 1 routing a generation to the host tier; one
+    real ``torch.OutOfMemoryError`` (the caching allocator capped just
+    above what it holds) classified transient and answered from the host
+    tier (the western hemisphere over the year, pinned to z3); then
+    ``ingest.append``, ``host.spill``, ``pyramid.build`` and
+    ``compaction.merge_step`` armed once each, the store queryable and
+    equal to its oracle after each."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch import metrics as tmetrics
+    from geomesa_tpu_torch.config import clear_property, set_property
+    from geomesa_tpu_torch.obs import publish_storage_gauges, tracer
+    from geomesa_tpu_torch.planning import Query
+    from geomesa_tpu_torch.resilience import (
+        Backpressure, FaultInjected, admission_gate, breaker,
+    )
+
+    cuda = dev.type == "cuda"
+    slots, n = args.res_slots, args.res_rows
+    # one full generation (40 B a slot), three keys ones (16 B) and the
+    # sentinel charges (16 + 40 B): 144 B a slot; a fourth keys one: 160
+    budget = 148 * slots
+    ds = TpuDataStore(device=dev)
+    ds.create_schema("res", "dtg:Date,*geom:Point;geomesa.index.profile=lean,"
+                     f"geomesa.lean.generation.slots={slots},"
+                     f"geomesa.lean.hbm.budget={budget},"
+                     "geomesa.lean.compaction.factor=0")
+    store = ds._store("res")
+    xs, ys, ts = [], [], []
+    t0 = time.perf_counter()
+    for lo in range(0, n, 1 << 21):
+        x, y, t = gdelt_like(rng, min(1 << 21, n - lo), centres)
+        ds.write("res", {"dtg": t, "geom": (x, y)})
+        xs.append(x), ys.append(y), ts.append(t)
+    idx = store.z3_index()
+    idx.block()
+    write_s = time.perf_counter() - t0
+    x, y, t = (np.concatenate(p) for p in (xs, ys, ts))
+    del xs, ys, ts
+    tiers0 = idx.tier_counts()
+    if tiers0.get("full") != 1 or tiers0.get("keys") != 3 \
+            or not tiers0.get("host"):
+        raise AssertionError(f"resilience store tiers {tiers0}")
+    # a city box over two months (every generation holds every month)
+    cx, cy = centres[5]
+    box = (cx - 3.0, cy - 3.0, cx + 3.0, cy + 3.0)
+    # whole seconds: the ECQL's DURING bounds carry no milliseconds
+    lo_t, hi_t = MS_2018 + 60 * DAY, MS_2018 + 120 * DAY - 1000
+    q = _ecql([box], lo_t, hi_t)
+    want = oracle(x, y, t, [box], lo_t, hi_t)
+    # the real OOM's query: the western hemisphere over the year, so each
+    # keys generation's gather needs allocations of several MiB (a new
+    # large segment of the caching allocator); pinned to the z3 index
+    # (the estimator would cost a full scan cheaper)
+    big = (-180.0, -90.0, 0.0, 90.0)
+    big_lo, big_hi = MS_2018, MS_2019 - 1000
+    q_big = Query.of(_ecql([big], big_lo, big_hi),
+                     hints={"QUERY_INDEX": "z3"})
+    want_big = oracle(x, y, t, [big], big_lo, big_hi)
+    reg = tmetrics.registry
+    names = ("resilience.degraded", "resilience.retries",
+             "resilience.breaker.open", "resilience.faults.injected")
+
+    def counts():
+        return {k: reg.counter(k).count for k in names}
+
+    def check(label, query=None, expect=None):
+        if query is None:   # the city query, against its current oracle
+            query, expect = q, want
+        t0 = time.perf_counter()
+        res = ds.query_result("res", query)
+        ms = (time.perf_counter() - t0) * 1e3
+        if res.strategy.index != "z3":
+            raise AssertionError(f"resilience {label}: strategy "
+                                 f"{res.strategy.index}, not z3")
+        if not np.array_equal(res.positions, expect):
+            raise AssertionError(f"resilience {label}: {len(res.positions)} "
+                                 f"hits, oracle {len(expect)}")
+        return ms
+
+    rep = {"rows": n, "slots": slots, "budget_bytes": budget,
+           "write_s": write_s, "tiers": tiers0, "hits": int(len(want)),
+           "big_hits": int(len(want_big))}
+    normal = [check("baseline") for _ in range(3)]
+    rep["normal_ms"] = normal
+
+    # the storage reading, and the admission gate shedding on its gauge
+    sr = ds.storage_report()
+    rec = sr["reconciliation"]
+    if not rec["within_tolerance"]:
+        raise AssertionError(f"storage report out of tolerance: {rec}")
+    allocated = int(torch.cuda.memory_allocated(dev)) if cuda else None
+    rep["storage"] = {"accounted_device_bytes": sr["totals"]["device_bytes"],
+                      "actual_device_bytes":
+                          sr["actual_totals"]["device_bytes"],
+                      "accounted_host_bytes": sr["totals"]["host_bytes"],
+                      "actual_host_bytes": sr["actual_totals"]["host_bytes"],
+                      "batch_bytes": sr["totals"]["batch_bytes"],
+                      "memory_allocated": allocated,
+                      "device_delta_pct": rec["device"]["delta_pct"],
+                      "host_delta_pct": rec["host"]["delta_pct"]}
+    gauge = publish_storage_gauges(ds)["totals"]["device_bytes"]
+    admission_gate.reset()
+    set_property("geomesa.resilience.hbm.headroom", int(gauge) - 1)
+    set_property("geomesa.resilience.admission.queue.ms", 1.0)
+    try:
+        ds.query_result("res", q)
+        raise AssertionError("the admission gate admitted a query over "
+                             "its device-bytes headroom")
+    except Backpressure:
+        pass
+    finally:
+        clear_property("geomesa.resilience.hbm.headroom")
+        clear_property("geomesa.resilience.admission.queue.ms")
+        admission_gate.reset()
+    log(f"resilience: {n} rows at {slots}-slot generations in "
+        f"{write_s:.2f} s, tiers {tiers0}; query {len(want)} hits p50 "
+        f"{np.median(normal):.1f} ms; storage accounted device "
+        f"{rep['storage']['accounted_device_bytes']} B, actual tensors "
+        f"{rep['storage']['actual_device_bytes']} B, memory_allocated "
+        f"{allocated} B (host {rep['storage']['accounted_host_bytes']} "
+        f"accounted, {rep['storage']['actual_host_bytes']} actual); the "
+        f"gate shed at a headroom below the {int(gauge)} B gauge")
+
+    try:
+        # an injected transient failure: the first device group (the
+        # full generation) degrades to the host tier
+        c0 = counts()
+        set_property("geomesa.resilience.fault.points",
+                     "device.dispatch:1=oom")
+        with tracer.capture() as cap:
+            rep["degraded_ms"] = check("injected oom")
+        clear_property("geomesa.resilience.fault.points")
+        d = {k: v - c0[k] for k, v in counts().items()}
+        # flagged True, then counted: the JAX package's obs_count mirrors
+        # the degraded-generation count onto the same attribute
+        flagged = [s for tr in cap.traces() for s in tr.spans
+                   if s.name == "query.scan.degraded"
+                   and s.attributes.get("resilience.degraded")]
+        if (d["resilience.degraded"] < 1 or d["resilience.retries"] < 1
+                or not flagged):
+            raise AssertionError(f"injected oom: counters {d}, "
+                                 f"{len(flagged)} flagged spans")
+        rep["degraded"] = {"counters": d, "tiers": idx.tier_counts(),
+                           "span_ms": flagged[0].duration_ms}
+
+        # poison propagates
+        set_property("geomesa.resilience.fault.points",
+                     "device.dispatch=error")
+        try:
+            ds.query_result("res", q)
+            raise AssertionError("an injected poison fault did not reach "
+                                 "the caller")
+        except FaultInjected:
+            pass
+        clear_property("geomesa.resilience.fault.points")
+
+        # the breaker at threshold 1: a generation with a recorded
+        # failure goes to the host tier without a device attempt
+        set_property("geomesa.resilience.breaker.threshold", 1)
+        gen = next(g for g in idx.generations if g.tier == "keys")
+        breaker.record_failure((id(idx), gen.gen_id))
+        c0 = counts()
+        rep["breaker_ms"] = check("breaker")
+        d = {k: v - c0[k] for k, v in counts().items()}
+        if d["resilience.breaker.open"] < 1 or gen.tier != "host":
+            raise AssertionError(f"breaker: counters {d}, tier {gen.tier}")
+        clear_property("geomesa.resilience.breaker.threshold")
+        breaker.reset()
+        rep["breaker"] = {"counters": d, "tiers": idx.tier_counts()}
+
+        # one real device-memory failure: the caching allocator capped
+        # just above what it holds, so the keys tier's gather cannot
+        # reserve a new segment
+        real = None
+        if cuda:
+            rep["big_ms"] = check("before the cap", q_big, want_big)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            total = torch.cuda.get_device_properties(dev).total_memory
+            reserved = torch.cuda.memory_reserved(dev)
+            torch.cuda.set_per_process_memory_fraction(
+                (reserved + (4 << 20)) / total, dev)
+            c0 = counts()
+            keys_before = sum(1 for g in idx.generations
+                              if g.tier == "keys")
+            try:
+                with tracer.capture() as cap:
+                    real_ms = check("real oom", q_big, want_big)
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0, dev)
+            d = {k: v - c0[k] for k, v in counts().items()}
+            flagged = [s for tr in cap.traces() for s in tr.spans
+                       if s.name == "query.scan.degraded"]
+            if d["resilience.degraded"] < 1 or not flagged:
+                raise AssertionError(
+                    f"real oom: no degraded generation (counters {d}); the "
+                    f"cap at {reserved + (4 << 20)} B did not bite")
+            real = {"ms": real_ms, "counters": d,
+                    "keys_generations_demoted": keys_before - sum(
+                        1 for g in idx.generations if g.tier == "keys"),
+                    "reserved_bytes": int(reserved),
+                    "reason": flagged[0].attributes.get("reason"),
+                    "span_ms": flagged[0].duration_ms,
+                    "tiers": idx.tier_counts()}
+        rep["real_oom"] = real
+
+        # the chaos arms, each once; the store equal to its oracle after
+        chaos = {}
+        m = 1 << 20
+        ax, ay, at = gdelt_like(rng, m, centres)
+        set_property("geomesa.resilience.fault.points", "ingest.append:1")
+        try:
+            ds.write("res", {"dtg": at, "geom": (ax, ay)})
+            raise AssertionError("ingest.append did not fire")
+        except FaultInjected:
+            pass
+        clear_property("geomesa.resilience.fault.points")
+        check("after ingest.append")
+        ds.write("res", {"dtg": at, "geom": (ax, ay)})
+        x, y, t = (np.concatenate(p) for p in ((x, ax), (y, ay), (t, at)))
+        want = oracle(x, y, t, [box], lo_t, hi_t)
+        chaos["ingest.append"] = check("after the clean write")
+        live = idx.generations[-1]
+        set_property("geomesa.resilience.fault.points", "host.spill:1")
+        try:
+            idx._spill(live)
+            raise AssertionError("host.spill did not fire")
+        except FaultInjected:
+            pass
+        clear_property("geomesa.resilience.fault.points")
+        if live.tier == "host":
+            raise AssertionError("a faulted spill moved the generation")
+        chaos["host.spill"] = check("after host.spill")
+        set_property("geomesa.resilience.fault.points", "pyramid.build:1")
+        try:
+            ds.build_pyramids("res")
+            raise AssertionError("pyramid.build did not fire")
+        except FaultInjected:
+            pass
+        clear_property("geomesa.resilience.fault.points")
+        chaos["pyramid.build"] = check("after pyramid.build")
+        rep["pyramids_built"] = ds.build_pyramids("res")
+        set_property("geomesa.resilience.fault.points",
+                     "compaction.merge_step:1")
+        n_gens = len(idx.generations)
+        try:
+            ds.compact("res")
+            raise AssertionError("compaction.merge_step did not fire")
+        except FaultInjected:
+            pass
+        clear_property("geomesa.resilience.fault.points")
+        if len(idx.generations) != n_gens:
+            raise AssertionError("a faulted merge step changed the runs")
+        chaos["compaction.merge_step"] = check("after compaction.merge_step")
+        merged = ds.compact("res")
+        chaos["compacted"] = check("after compact")
+        rep["chaos_ms"] = chaos
+        rep["compacted"] = {"merged": merged, "tiers": idx.tier_counts()}
+    finally:
+        for k in ("geomesa.resilience.fault.points",
+                  "geomesa.resilience.breaker.threshold"):
+            clear_property(k)
+        breaker.reset()
+    report["resilience"] = rep
+    log(f"resilience: injected oom answered exactly in "
+        f"{rep['degraded_ms']:.1f} ms (the query {np.median(normal):.1f} ms; "
+        f"counters {rep['degraded']['counters']}); poison raised; the "
+        f"breaker's generation went to the host tier "
+        f"({rep['breaker_ms']:.1f} ms); "
+        + (f"real OOM answered exactly in {real['ms']:.1f} ms (uncapped "
+           f"{rep['big_ms']:.1f} ms, {rep['big_hits']} hits), "
+           f"{real['keys_generations_demoted']} keys generations demoted "
+           f"(counters {real['counters']}); " if real else "")
+        + "chaos arms: " + ", ".join(f"{k} {v:.1f} ms"
+                                     for k, v in chaos.items())
+        + f"; tiers now {idx.tier_counts()}")
+    del ds
 
 
 def mesh_phase(rng, args, centres, dev, report):
@@ -4881,9 +5294,9 @@ def main(argv=None) -> int:
                     help="rows of the default-profile attribute phase")
     ap.add_argument("--attr-mesh-rows", type=int, default=4_000_000,
                     help="rows of the mesh attribute phase")
-    ap.add_argument("--lean-attr-rows", type=int, default=64_000_000,
+    ap.add_argument("--lean-attr-rows", type=int, default=32_000_000,
                     help="rows of the lean attribute phase")
-    ap.add_argument("--lean-attr-slots", type=int, default=1 << 23,
+    ap.add_argument("--lean-attr-slots", type=int, default=1 << 22,
                     help="slots per generation of the lean attribute phase "
                          "(8 generations at the default rows)")
     ap.add_argument("--mesh-lean-rows", type=int, default=32_000_000,
@@ -4897,11 +5310,11 @@ def main(argv=None) -> int:
                     help="rows of the mesh polygon phase")
     ap.add_argument("--lean-poly-rows", type=int, default=32_000_000,
                     help="rows of the lean XZ2 polygon phase")
-    ap.add_argument("--lean-poly3-rows", type=int, default=16_000_000,
+    ap.add_argument("--lean-poly3-rows", type=int, default=8_000_000,
                     help="rows of the lean XZ3 polygon phase")
-    ap.add_argument("--lean-poly3-slots", type=int, default=1 << 21,
+    ap.add_argument("--lean-poly3-slots", type=int, default=1 << 20,
                     help="slots per generation of the lean XZ3 phase (8 "
-                         "generations at 16M rows: device and host tiers, "
+                         "generations at 8M rows: device and host tiers, "
                          "and a compaction that merges host runs)")
     ap.add_argument("--mesh-lean-poly-rows", type=int, default=16_000_000,
                     help="rows of the mesh lean XZ2 polygon phase")
@@ -4910,11 +5323,15 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-lean-poly-slots", type=int, default=1 << 21,
                     help="per-shard slots per generation of the mesh lean "
                          "polygon phases")
+    ap.add_argument("--res-rows", type=int, default=8_000_000,
+                    help="rows of the resilience phase's lean store")
+    ap.add_argument("--res-slots", type=int, default=1 << 20,
+                    help="slots per generation of the resilience phase")
     ap.add_argument("--life-rows", type=int, default=6_000_000,
                     help="rows of the lifecycle and legacy phases")
     ap.add_argument("--life-mesh-rows", type=int, default=4_000_000,
                     help="rows of the mesh lifecycle phase")
-    ap.add_argument("--fsds-rows", type=int, default=2_000_000,
+    ap.add_argument("--fsds-rows", type=int, default=1_000_000,
                     help="rows of the FileSystemDataStore phase")
     ap.add_argument("--mh-rows", type=int, default=8_000_000,
                     help="rows per worker of the multihost phase's default "
@@ -5004,6 +5421,25 @@ def main(argv=None) -> int:
     multihost_phase(args, report)
     report.setdefault("phase_s", {})["multihost"] = time.perf_counter() - t0
 
+    # degraded execution, the fault catalog and the storage reading on a
+    # lean store of its own, first on the card after the kernel phase: a
+    # caching allocator holding little else is what lets its cap bite.
+    # Counts set to 0 just before, read just after (the JAX package's
+    # lean programs reach no Pallas kernel, so none is required)
+    res_counters = {"z3_mask": z3_mask, "z2_mask": z2_mask,
+                    "density_grid": density_grid_kernel, "hist1d": hist1d}
+    for fn in res_counters.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    resilience_phase(rng, args, centres, dev, report)
+    report["phase_s"]["resilience"] = time.perf_counter() - t0
+    report["resilience_path_launches"] = {k: fn.launches
+                                          for k, fn in res_counters.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the main path: counts set to 0 just before, read just after
     counters = {"z3_mask": z3_mask, "z2_mask": z2_mask,
                 "density_grid": density_grid_kernel}
@@ -5026,6 +5462,19 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the path was never launched on "
                              f"the main path: {launches}")
     report["main_path_launches"] = launches
+
+    # the trace reading on the facade's store: counts set to 0 just
+    # before, read just after
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trace_reading(qs, ds, report)
+    phase_s["trace"] = time.perf_counter() - t0
+    report["trace_path_launches"] = {k: fn.launches
+                                     for k, fn in counters.items()}
+    if report["trace_path_launches"]["z3_mask"] <= 0:
+        raise AssertionError(f"z3_mask was never launched on the traced "
+                             f"queries: {report['trace_path_launches']}")
 
     # the serving plane on the facade's store: counts set to 0 just
     # before, read just after; batched windows launch z3_mask (timed) and
@@ -5245,6 +5694,16 @@ def main(argv=None) -> int:
         f"{sum(r['plan_native_ms'] for r in z3s):.1f} ms, numpy "
         f"{sum(r['plan_numpy_ms'] for r in z3s):.1f} ms over "
         f"{len(z3s)} queries")
+    # every kernel launched through its gate, and none failed
+    from geomesa_tpu_torch.ops.gate import kernel_health
+    health = kernel_health()
+    report["kernel_health"] = health
+    bad = {k: v for k, v in health.items()
+           if (k.endswith("_ok") and v is not True)
+           or (k.endswith("_failures") and v)}
+    if bad:
+        raise AssertionError(f"kernel gates after the run: {bad}")
+    log(f"kernel gates: {health}")
     report["total_s"] = time.perf_counter() - t_start
 
     def pick(rows, **kw):

@@ -1,8 +1,9 @@
 """Typed system properties: the port's config/flag system.
 
-Values resolve, in order: environment variable (dots become underscores,
-upper-cased) → default.  Per-schema user data
-(features/feature_type.py) and per-query hints are the other two tiers.
+Values resolve, in order: programmatic override (:func:`set_property`)
+→ environment variable (dots become underscores, upper-cased) → default.
+Per-schema user data (features/feature_type.py) and per-query hints are
+the other two tiers.
 
 This holds only the knobs the ported main path reads; the names and
 defaults are those of ``geomesa_tpu.config``, so one environment
@@ -12,17 +13,44 @@ configures both packages alike.
 from __future__ import annotations
 
 import os
+import threading
 from dataclasses import dataclass
 from typing import Any
 
 __all__ = ["SystemProperty", "QueryProperties", "DensityProperties",
            "PlanningProperties", "ResilienceProperties", "ServingProperties",
-           "DEFAULT_MAX_RANGES"]
+           "ObsProperties", "DEFAULT_MAX_RANGES", "set_property",
+           "clear_property", "config_generation"]
+
+_overrides: dict[str, Any] = {}
+_lock = threading.Lock()
+#: bumped on every override change: hot paths (the fault registry, the
+#: tracer) cache resolved values keyed on it, paying one int read a call
+_generation = 0
+
+
+def config_generation() -> int:
+    return _generation
+
+
+def set_property(name: str, value) -> None:
+    """Override a property for this process (wins over the environment)."""
+    global _generation
+    with _lock:
+        _overrides[name] = value
+        _generation += 1
+
+
+def clear_property(name: str) -> None:
+    global _generation
+    with _lock:
+        _overrides.pop(name, None)
+        _generation += 1
 
 
 @dataclass(frozen=True)
 class SystemProperty:
-    """A named, typed knob with an env-var override."""
+    """A named, typed knob with programmatic and env-var overrides."""
 
     name: str
     default: Any
@@ -32,6 +60,9 @@ class SystemProperty:
         return self.name.replace(".", "_").upper()
 
     def get(self):
+        with _lock:
+            if self.name in _overrides:
+                return _overrides[self.name]
         raw = os.environ.get(self.env_var)
         if raw is None:
             return self.default
@@ -119,8 +150,10 @@ class PlanningProperties:
 
 
 class ResilienceProperties:
-    """Admission knobs of the query plane (resilience/admission.py).
-    Everything defaults OFF: an unconfigured store admits every query."""
+    """Resilience knobs: admission (resilience/admission.py), degraded
+    execution (resilience/degrade.py) and fault injection
+    (resilience/faults.py).  Everything defaults OFF: an unconfigured
+    store admits every query and injects nothing."""
 
     #: device-memory admission ceiling in bytes: new queries shed
     #: (Backpressure) while the ``storage.total.device_bytes`` gauge
@@ -132,6 +165,22 @@ class ResilienceProperties:
     #: how long an over-budget request may queue (ms) before shedding
     ADMISSION_QUEUE_MS = SystemProperty(
         "geomesa.resilience.admission.queue.ms", 50.0)
+    #: bounded retries after a transient device failure (device memory
+    #: pressure) demotes the offending generations to the host tier
+    RETRY_MAX = SystemProperty("geomesa.resilience.retry.max", 1)
+    #: consecutive transient failures before a generation's device
+    #: dispatch circuit opens (host-tier routing until cooldown)
+    BREAKER_THRESHOLD = SystemProperty(
+        "geomesa.resilience.breaker.threshold", 3)
+    #: seconds an open breaker refuses device dispatch before half-open
+    BREAKER_COOLDOWN_S = SystemProperty(
+        "geomesa.resilience.breaker.cooldown.s", 30.0)
+    #: armed fault points: comma-separated ``point[:trigger][=kind]``
+    #: (resilience/faults.py); empty disables injection
+    FAULT_POINTS = SystemProperty("geomesa.resilience.fault.points", "")
+    #: seed of the probabilistic triggers: same seed and hit order, same
+    #: injected failures
+    FAULT_SEED = SystemProperty("geomesa.resilience.fault.seed", 0)
 
 
 class ServingProperties:
@@ -154,6 +203,32 @@ class ServingProperties:
     #: deficit-round-robin quantum (requests) each tenant earns per
     #: batch-assembly pass
     TENANT_QUANTUM = SystemProperty("geomesa.serving.tenant.quantum", 4)
+
+
+class ObsProperties:
+    """Trace knobs (obs/trace.py).  The sampler and the slow threshold
+    re-resolve whenever :func:`set_property` bumps the config generation;
+    the capacities are read when a tracer is built."""
+
+    #: master switch: off makes every span a shared no-op
+    ENABLED = SystemProperty("geomesa.obs.enabled", True)
+    #: root-span sampling: 'always', 'ratio', 'slow' or 'never'
+    SAMPLER = SystemProperty("geomesa.obs.sampler", "always")
+    #: fraction of root spans recorded under the 'ratio' sampler
+    SAMPLE_RATIO = SystemProperty("geomesa.obs.sample.ratio", 0.1)
+    #: slow-query threshold in ms (the slow log); <= 0 disables
+    SLOW_MS = SystemProperty("geomesa.obs.slow.ms", 500.0)
+    #: ring exporter capacity (traces)
+    TRACE_CAPACITY = SystemProperty("geomesa.obs.trace.capacity", 256)
+    #: JSONL sink cap in bytes (live file plus one rotated predecessor);
+    #: <= 0 disables rotation
+    TRACE_MAX_BYTES = SystemProperty("geomesa.obs.trace.max_bytes",
+                                     128 * 2 ** 20)
+    #: slow-query log capacity (traces)
+    SLOW_CAPACITY = SystemProperty("geomesa.obs.slow.capacity", 64)
+    #: spans a trace may record before children become no-ops (the root
+    #: counts ``spans.dropped``); <= 0 disables the cap
+    TRACE_MAX_SPANS = SystemProperty("geomesa.obs.trace.max.spans", 4096)
 
 
 #: default scan-ranges budget (import-time snapshot users can override per

@@ -126,6 +126,8 @@ from .index.z3_lean import LeanZ3Index
 from .jobs import run_pyramid_build
 from .metrics import SERVING_BYPASS, TILE_REQUEST_MS, TILE_REQUESTS
 from .metrics import registry as _metrics
+from .obs.trace import current_trace_id
+from .obs.trace import span as obs_span
 from .parallel.attr_lean import (
     ShardedLeanAttrIndex, ShardedLeanXZ2Index, ShardedLeanXZ3Index,
 )
@@ -524,13 +526,29 @@ class _SchemaStore:
         return int(raw) if raw not in (None, "") else default
 
     def _lean_write(self, chunk: ChunkView, visibility: str = "") -> None:
-        """Streaming ingest: observe stats on the chunk, append its
-        columns by reference, and push its keys into the live index —
+        """Streaming ingest: push the chunk's keys into the live index,
+        observe stats on the chunk and append its columns by reference —
         O(chunk) per write.  Visibility labels materialize only once a
         write carries one (an object per row is real memory at lean
         scale); the tombstone grows with every write once it exists."""
         n_new = len(chunk)
         prior = len(self.batch)
+        # index BEFORE the batch grows (a new or rebuilt index streams
+        # the batch's current rows)
+        idx = self._lean_index()
+        attr_idx = [(a, self._lean_attr_index(a))
+                    for a in self._lean_attr_names()]
+        dtg = (np.asarray(chunk.column(self.sft.dtg_field), np.int64)
+               if self.sft.dtg_field else np.zeros(n_new, np.int64))
+        if self.lean_kind == "z3":
+            # the z3 keys go in FIRST: a failed append (the
+            # ``ingest.append`` fault point) leaves the write wholly
+            # absent — batch, labels, stats and indexes (the JAX store
+            # grows its batch and stats first; ROADMAP C)
+            with obs_span("write.index", index="z3", rows=n_new):
+                x, y = chunk.geom_xy(self.sft.geom_field)
+                idx.append(np.asarray(x, np.float64),
+                           np.asarray(y, np.float64), dtg)
         if visibility or self.visibilities is not None:
             if self.visibilities is None:
                 self.visibilities = np.full(prior, "", dtype=object)
@@ -538,32 +556,23 @@ class _SchemaStore:
                 [self.visibilities, np.full(n_new, visibility, dtype=object)])
         self._vis_masks = {}
         # TopK and Enumeration of one attribute share one unique pass
-        observe_shared(self._stats, chunk)
+        with obs_span("write.observe", rows=n_new):
+            observe_shared(self._stats, chunk)
         self._stats_version += 1
-        # index BEFORE the batch grows (a new or rebuilt index streams
-        # the batch's current rows)
-        idx = self._lean_index()
-        attr_idx = [(a, self._lean_attr_index(a))
-                    for a in self._lean_attr_names()]
         self.batch.append_batch(chunk)
         if self.tombstone is not None:
             self.tombstone = np.concatenate(
                 [self.tombstone, np.zeros(n_new, dtype=bool)])
-        if self.lean_kind == "z3":
-            x, y = chunk.geom_xy(self.sft.geom_field)
-            dtg = np.asarray(chunk.column(self.sft.dtg_field), np.int64)
-            idx.append(np.asarray(x, np.float64), np.asarray(y, np.float64),
-                       dtg)
-        else:
-            dtg = (np.asarray(chunk.column(self.sft.dtg_field), np.int64)
-                   if self.sft.dtg_field else np.zeros(len(chunk), np.int64))
-            if self.lean_kind == "xz3":
-                idx.append_bboxes(chunk.geoms.bbox, dtg, base_gid=prior)
-            else:
-                idx.append_bboxes(chunk.geoms.bbox, base_gid=prior)
-            self._index_coverage[self.lean_kind] = len(self.batch)
+        if self.lean_kind != "z3":
+            with obs_span("write.index", index=self.lean_kind, rows=n_new):
+                if self.lean_kind == "xz3":
+                    idx.append_bboxes(chunk.geoms.bbox, dtg, base_gid=prior)
+                else:
+                    idx.append_bboxes(chunk.geoms.bbox, base_gid=prior)
+                self._index_coverage[self.lean_kind] = len(self.batch)
         for a, ai in attr_idx:
-            ai.append(chunk.column(a), dtg, base_gid=prior)
+            with obs_span("write.index", index=f"attr:{a}", rows=n_new):
+                ai.append(chunk.column(a), dtg, base_gid=prior)
             self._index_coverage[f"attr:{a}"] = len(self.batch)
 
     def compact_lean(self, budget_ms: float | None = None) -> dict:
@@ -799,10 +808,12 @@ class _SchemaStore:
         z3 = self._indexes.get("z3")
         if z3 is not None:
             x, y = batch.geom_xy(self.sft.geom_field)
-            z3.append(x, y, batch.column(self.sft.dtg_field))
+            with obs_span("write.index", index="z3", rows=len(batch)):
+                z3.append(x, y, batch.column(self.sft.dtg_field))
         z2 = self._indexes.get("z2")
         if z2 is not None:
-            z2.append(*batch.geom_xy(self.sft.geom_field))
+            with obs_span("write.index", index="z2", rows=len(batch)):
+                z2.append(*batch.geom_xy(self.sft.geom_field))
 
     def _maybe_compact(self, key: str) -> None:
         """Drop a kept index whose appended tail outgrew the lazy-scan
@@ -1398,7 +1409,22 @@ class TpuDataStore:
         satisfy.  ``attribute_visibilities`` maps attribute names to
         expressions guarding just that attribute: unauthorized callers
         see the row with the guarded values nulled (default profile and
-        mesh only)."""
+        mesh only).
+
+        Every write is one trace: a root ``write`` span over
+        ``write.encode``, the per-index ``write.index`` appends,
+        ``write.observe`` (the stats).  The JAX package's ``write.device``
+        (a wait for the card at the end of a lean write) has no
+        counterpart: the untraced write ends without a copy, so a span
+        there would add a synchronization."""
+        with obs_span("write", schema=name) as wsp:
+            n = self._write_inner(name, data, ids, visibility,
+                                  attribute_visibilities)
+            wsp.set_attr("rows", int(n))
+            return n
+
+    def _write_inner(self, name: str, data, ids, visibility: str,
+                     attribute_visibilities: dict | None) -> int:
         if visibility:
             parse_visibility(visibility)  # validate eagerly
         store = self._store(name)
@@ -1427,15 +1453,16 @@ class TpuDataStore:
                 raise ValueError(
                     "lean-profile schemas use implicit feature ids "
                     "(row number); explicit ids are not supported")
-            if isinstance(data, FeatureBatch):
-                chunk = ChunkView(sft, dict(data.columns), len(data),
-                                  geoms=data.geoms)
-            else:
-                cols, geoms = build_columns(sft, data,
-                                            keep_fixed_strings=True)
-                n_chunk = (len(next(iter(cols.values()))) if cols
-                           else len(geoms) if geoms is not None else 0)
-                chunk = ChunkView(sft, cols, n_chunk, geoms=geoms)
+            with obs_span("write.encode", lean=True):
+                if isinstance(data, FeatureBatch):
+                    chunk = ChunkView(sft, dict(data.columns), len(data),
+                                      geoms=data.geoms)
+                else:
+                    cols, geoms = build_columns(sft, data,
+                                                keep_fixed_strings=True)
+                    n_chunk = (len(next(iter(cols.values()))) if cols
+                               else len(geoms) if geoms is not None else 0)
+                    chunk = ChunkView(sft, cols, n_chunk, geoms=geoms)
             store._lean_write(chunk, visibility)
             store.next_fid = len(store.batch)
             _metrics.counter(f"write.{name}.features").inc(len(chunk))
@@ -1448,8 +1475,9 @@ class TpuDataStore:
                     f"dtg field ({attr!r}): indexes scan them unmasked")
             if expr:
                 parse_visibility(expr)
-        batch = (data if isinstance(data, FeatureBatch)
-                 else FeatureBatch.from_dict(store.sft, data, ids=ids))
+        with obs_span("write.encode", lean=False):
+            batch = (data if isinstance(data, FeatureBatch)
+                     else FeatureBatch.from_dict(store.sft, data, ids=ids))
         if not batch.ids_explicit:
             # feature ids must be unique across writes, re-based on a
             # shallow copy so the caller's batch is never mutated: with
@@ -1627,14 +1655,15 @@ class TpuDataStore:
         own_token = _token is None
         token = _token if _token is not None else admission_gate.acquire(name)
         try:
+            queue_ms = getattr(token, "queue_ms", 0.0)
             if timeout_ms is not None:
                 with deadline_scope(timeout_ms, partial_results) as scope:
                     result, eval_store = self._run_query(
-                        name, query, explain, materialize)
+                        name, query, explain, materialize, queue_ms)
                 result.timed_out = scope.timed_out
             else:
                 result, eval_store = self._run_query(
-                    name, query, explain, materialize)
+                    name, query, explain, materialize, queue_ms)
                 ambient = current_scope()
                 if ambient is not None and ambient.timed_out:
                     result.timed_out = True
@@ -1644,40 +1673,52 @@ class TpuDataStore:
                 token.release()
 
     def _run_query(self, name: str, query, explain: Explainer | None,
-                   materialize: bool):
+                   materialize: bool, queue_ms: float = 0.0):
         """Rows this caller may not see — a failed visibility, a lean
         tombstone — are masked out before sort and ``max_features``, so
         the limit fills from visible rows; attribute-guarded values are
-        nulled for the filter as well as the result."""
+        nulled for the filter as well as the result.  The query is one
+        trace: a root ``query`` span over the planner's spans."""
         store = self._store(name)
         q = query if isinstance(query, Query) else Query.of(query)
         q = self._intercept(store.sft, q)
-        if store.batch is None or len(store.batch) == 0:
-            if not store.multihost:
-                result = QueryResult(FeatureBatch.empty(store.sft),
-                                     np.empty(0, dtype=np.int64),
-                                     FilterStrategy("none", 0), 0.0, 0.0)
-                self._audit(name, q, result)
-                return result, store
-            # a locally empty process still ENTERS the planner's
-            # collectives (other processes may hold rows)
-            if store.batch is None:
-                store.batch = FeatureBatch.empty(store.sft)
-        allowed = None
-        eval_store = store
-        if self._auth_provider is not None:
-            auths = self._auth_provider.get_authorizations()
-            allowed = store.vis_mask(auths)
-            masked = store.masked_batch(auths)
-            if masked is not store.batch:
-                eval_store = _MaskedStoreView(store, masked)
-        if store.tombstone is not None:
-            live = ~store.tombstone
-            allowed = live if allowed is None else (allowed & live)
-        result = QueryPlanner(store.sft, eval_store).run(
-            q, explain, allowed=allowed, materialize=materialize)
-        self._audit(name, q, result)
-        return result, eval_store
+        with obs_span("query", schema=name) as sp:
+            if sp.recording:
+                sp.set_attr("filter", repr(q.filter))
+                sp.set_attr("lean", bool(store.lean))
+                if queue_ms:
+                    # the admission wait happens BEFORE this span opens
+                    sp.set_attr("admission.queue_ms", round(queue_ms, 3))
+                tenant = q.hints.get("TENANT")
+                if tenant:
+                    sp.set_attr("tenant", str(tenant))
+            if store.batch is None or len(store.batch) == 0:
+                if not store.multihost:
+                    result = QueryResult(FeatureBatch.empty(store.sft),
+                                         np.empty(0, dtype=np.int64),
+                                         FilterStrategy("none", 0), 0.0, 0.0)
+                    self._audit(name, q, result)
+                    return result, store
+                # a locally empty process still ENTERS the planner's
+                # collectives (other processes may hold rows)
+                if store.batch is None:
+                    store.batch = FeatureBatch.empty(store.sft)
+            allowed = None
+            eval_store = store
+            if self._auth_provider is not None:
+                auths = self._auth_provider.get_authorizations()
+                allowed = store.vis_mask(auths)
+                masked = store.masked_batch(auths)
+                if masked is not store.batch:
+                    eval_store = _MaskedStoreView(store, masked)
+            if store.tombstone is not None:
+                live = ~store.tombstone
+                allowed = live if allowed is None else (allowed & live)
+            result = QueryPlanner(store.sft, eval_store).run(
+                q, explain, allowed=allowed, materialize=materialize)
+            sp.set_attr("hits", int(len(result.positions)))
+            self._audit(name, q, result)
+            return result, eval_store
 
     def _audit(self, name: str, q: Query, result: QueryResult) -> None:
         self._audit_record(name, repr(q.filter), dict(q.hints),
@@ -1689,11 +1730,11 @@ class TpuDataStore:
                       hits: int) -> None:
         """The ONE audit emission path: every query shape (planner,
         batched windows, fused) updates the same registry keys and writes
-        an identically shaped QueryEvent.  ``plan_ms=None`` means the
-        planning phase never ran (the batched paths plan inside the
-        index): the event records 0.0 but the ``plan_ms`` timer gets NO
-        sample, so phantom zeros never drag its quantiles down.  The
-        trace id is "" (the port has no trace layer yet)."""
+        an identically shaped QueryEvent stamped with the active trace id.
+        ``plan_ms=None`` means the planning phase never ran (the batched
+        paths plan inside the index): the event records 0.0 but the
+        ``plan_ms`` timer gets NO sample, so phantom zeros never drag its
+        quantiles down."""
         _metrics.counter(f"query.{name}.count").inc()
         if plan_ms is not None:
             _metrics.timer(f"query.{name}.plan_ms").update(plan_ms)
@@ -1703,7 +1744,7 @@ class TpuDataStore:
                 store="tpu", type_name=name, user=self._user,
                 filter=filter_repr, hints=hints,
                 plan_time_ms=plan_ms or 0.0, scan_time_ms=scan_ms,
-                hits=hits, trace_id=""))
+                hits=hits, trace_id=current_trace_id()))
 
     def _hit_columns(self, name: str, query):
         """The hits of ``query`` as a column batch (ids are not minted on
@@ -1729,14 +1770,20 @@ class TpuDataStore:
         return str(ex)
 
     def explain_analyze(self, name: str, query="INCLUDE"):
-        raise NotImplementedError(
-            "explain_analyze (traced actuals) is not ported: it needs the "
-            "observability layer (ROADMAP A8)")
+        """EXPLAIN ANALYZE: run the query under a forced trace capture
+        and return the plan narration merged with the measured actuals
+        (:mod:`~geomesa_tpu_torch.obs.explain_analyze`)."""
+        from .obs.explain_analyze import explain_analyze
+        return explain_analyze(self, name, query)
 
     def storage_report(self) -> dict:
-        raise NotImplementedError(
-            "storage_report is not ported: it needs the observability "
-            "layer's resource accounting (ROADMAP A8)")
+        """Where this store's bytes live, accounted and audited against
+        the actual buffers, with the ``storage.*`` gauges published from
+        it (:mod:`~geomesa_tpu_torch.obs.resource`)."""
+        from .obs.resource import publish_storage_gauges, storage_report
+        rep = storage_report(self)
+        publish_storage_gauges(self, rep)
+        return rep
 
     def _intercept(self, sft: FeatureType, q: Query) -> Query:
         """The schema's interceptors' rewrite of ``q`` (QueryInterceptor
@@ -1970,7 +2017,12 @@ class TpuDataStore:
         token = admission_gate.acquire(name)
         t0 = time.perf_counter()
         try:
-            with deadline_scope(timeout_ms, False):
+            with deadline_scope(timeout_ms, False), \
+                    obs_span("tile.render", schema=name, z=z, x=x, y=y,
+                             tile=tile) as sp:
+                queue_ms = getattr(token, "queue_ms", 0.0)
+                if sp.recording and queue_ms:
+                    sp.set_attr("admission.queue_ms", round(queue_ms, 3))
                 _metrics.counter(TILE_REQUESTS).inc()
                 return self._render_tile(name, store, z, x, y, tile, query)
         finally:
@@ -2473,15 +2525,17 @@ class TpuDataStore:
         scanned before expiry keep their exact hits and the rest come
         back empty."""
         token = admission_gate.acquire(name)
+        queue_ms = getattr(token, "queue_ms", 0.0)
         try:
             if timeout_ms is not None:
                 with deadline_scope(timeout_ms, partial_results):
-                    return self._query_windows_body(name, windows)
-            return self._query_windows_body(name, windows)
+                    return self._query_windows_body(name, windows, queue_ms)
+            return self._query_windows_body(name, windows, queue_ms)
         finally:
             token.release()
 
-    def _query_windows_body(self, name: str, windows) -> list[np.ndarray]:
+    def _query_windows_body(self, name: str, windows,
+                            queue_ms: float = 0.0) -> list[np.ndarray]:
         store = self._store(name)
         if store.batch is None or len(store.batch) == 0:
             if not store.multihost:
@@ -2502,9 +2556,14 @@ class TpuDataStore:
             # clamps open bounds to the data extent) through the lean
             # index's one batched multi-window scan; lean XZ schemas take
             # the per-window planner path below
-            t0 = time.time()
-            hits = store.index("z3").query_many(list(windows))
-            return self._windows_done(name, store, windows, hits, t0)
+            with obs_span("query", schema=name, windows=len(windows),
+                          lean=True) as sp:
+                if sp.recording and queue_ms:
+                    sp.set_attr("admission.queue_ms", round(queue_ms, 3))
+                t0 = time.time()
+                hits = store.index("z3").query_many(list(windows))
+                return self._windows_done(name, store, windows, hits, t0,
+                                          sp)
         enabled = sft.enabled_indices
         if not (sft.is_points and sft.dtg_field and not intercepted
                 and not store.lean
@@ -2526,32 +2585,35 @@ class TpuDataStore:
                     name, Query.of(f),
                     _token=AdmissionToken(None))[0].positions)
             return out
-        t0 = time.time()
-        # untimed windows (both bounds None) scan the z2 index: with the
-        # time axis open, z3 covering ranges degrade to near full-bin
-        # scans while z2 ranges stay tight
-        untimed = [i for i, (_, lo, hi) in enumerate(windows)
-                   if lo is None and hi is None]
-        if len(untimed) == len(windows):
-            hits = store.z2_index().query_many([w[0] for w in windows])
-        elif not untimed:
-            hits = store.z3_index().query_many(list(windows))
-        else:
-            uset = set(untimed)
-            timed = [i for i in range(len(windows)) if i not in uset]
-            z2_hits = store.z2_index().query_many(
-                [windows[i][0] for i in untimed])
-            z3_hits = store.z3_index().query_many(
-                [windows[i] for i in timed])
-            hits = [None] * len(windows)
-            for j, i in enumerate(untimed):
-                hits[i] = z2_hits[j]
-            for j, i in enumerate(timed):
-                hits[i] = z3_hits[j]
-        return self._windows_done(name, store, windows, hits, t0)
+        with obs_span("query", schema=name, windows=len(windows)) as sp:
+            if sp.recording and queue_ms:
+                sp.set_attr("admission.queue_ms", round(queue_ms, 3))
+            t0 = time.time()
+            # untimed windows (both bounds None) scan the z2 index: with
+            # the time axis open, z3 covering ranges degrade to near
+            # full-bin scans while z2 ranges stay tight
+            untimed = [i for i, (_, lo, hi) in enumerate(windows)
+                       if lo is None and hi is None]
+            if len(untimed) == len(windows):
+                hits = store.z2_index().query_many([w[0] for w in windows])
+            elif not untimed:
+                hits = store.z3_index().query_many(list(windows))
+            else:
+                uset = set(untimed)
+                timed = [i for i in range(len(windows)) if i not in uset]
+                z2_hits = store.z2_index().query_many(
+                    [windows[i][0] for i in untimed])
+                z3_hits = store.z3_index().query_many(
+                    [windows[i] for i in timed])
+                hits = [None] * len(windows)
+                for j, i in enumerate(untimed):
+                    hits[i] = z2_hits[j]
+                for j, i in enumerate(timed):
+                    hits[i] = z3_hits[j]
+            return self._windows_done(name, store, windows, hits, t0, sp)
 
     def _windows_done(self, name: str, store: _SchemaStore, windows,
-                      hits: list, t0: float) -> list[np.ndarray]:
+                      hits: list, t0: float, sp) -> list[np.ndarray]:
         """Mask the batched paths' per-window hits, count and audit them.
         The mask is ``_effective_mask`` (restricted visibility plus
         tombstones), whose restricted decision is AGREED under
@@ -2561,9 +2623,10 @@ class TpuDataStore:
         if allowed is not None:
             hits = _apply_mask_global(store, hits, allowed)
         _metrics.counter(f"query.{name}.windows").inc(len(windows))
+        n_hits = int(sum(len(h) for h in hits))
+        sp.set_attr("hits", n_hits)
         self._audit_record(name, f"batched windows[{len(windows)}]", {},
-                           None, (time.time() - t0) * 1e3,
-                           int(sum(len(h) for h in hits)))
+                           None, (time.time() - t0) * 1e3, n_hits)
         return hits
 
     def query_fused(self, name: str, query="INCLUDE", *,
@@ -2594,15 +2657,36 @@ class TpuDataStore:
         try:
             scope = (CancelScope(timeout_ms, partial_results)
                      if timeout_ms is not None else None)
-            outcome = self._fusion.submit(
-                ("fuse", name), window,
-                lambda ws: self._fused_windows_dispatch(name, ws),
-                scope=scope, partial=partial_results, tenant=tenant,
-                schema=name)
-            positions = outcome.positions
-            batch = (store.batch.take(positions)
-                     if store.batch is not None
-                     else FeatureBatch.empty(store.sft))
+            with obs_span("query", schema=name, fused=True) as sp:
+                if sp.recording:
+                    sp.set_attr("filter", repr(q.filter))
+                    if tenant:
+                        sp.set_attr("tenant", tenant)
+                    queue_ms = getattr(token, "queue_ms", 0.0)
+                    if queue_ms:
+                        sp.set_attr("admission.queue_ms",
+                                    round(queue_ms, 3))
+                t_sub = time.perf_counter()
+                outcome = self._fusion.submit(
+                    ("fuse", name), window,
+                    lambda ws: self._fused_windows_dispatch(name, ws),
+                    scope=scope, partial=partial_results, tenant=tenant,
+                    schema=name)
+                positions = outcome.positions
+                if sp.recording:
+                    # every scheduler millisecond that was NOT the batch
+                    # executing is coalesce wait: the linger window plus
+                    # wake-up and demux latency
+                    submit_ms = (time.perf_counter() - t_sub) * 1e3
+                    sp.set_attr("coalesce.ms", round(max(
+                        outcome.coalesce_ms,
+                        submit_ms - outcome.dispatch_ms), 3))
+                    sp.set_attr("fused.dispatch.ms", outcome.dispatch_ms)
+                    sp.set_attr("hits", int(len(positions)))
+                with obs_span("query.materialize", rows=len(positions)):
+                    batch = (store.batch.take(positions)
+                             if store.batch is not None
+                             else FeatureBatch.empty(store.sft))
             return QueryResult(batch, positions,
                                FilterStrategy("fused",
                                               float(len(positions))),

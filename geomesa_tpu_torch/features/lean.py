@@ -132,6 +132,25 @@ class LeanBatch:
             self._fold_env(float(np.min(gx)), float(np.min(gy)),
                            float(np.max(gx)), float(np.max(gy)))
 
+    def host_bytes(self) -> int:
+        """Host RAM of the column store (``storage_report``'s batch
+        bytes): the column chunk arrays plus the packed-geometry buffers,
+        each array once (the flat concatenation is kept in both places).
+        Object columns count pointer width only."""
+        total, seen = 0, set()
+        for parts in self._chunks.values():
+            for a in parts:
+                if id(a) not in seen:
+                    seen.add(id(a))
+                    total += int(getattr(a, "nbytes", 0))
+        for g in self._geom_chunks:
+            for a in (g.kinds, g.coords, g.ring_offsets,
+                      g.part_ring_offsets, g.geom_part_offsets, g.bbox):
+                if id(a) not in seen:
+                    seen.add(id(a))
+                    total += int(getattr(a, "nbytes", 0))
+        return total
+
     def _fold_env(self, lo_x, lo_y, hi_x, hi_y):
         if self.envelope is None:
             self.envelope = (lo_x, lo_y, hi_x, hi_y)

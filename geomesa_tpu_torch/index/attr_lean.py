@@ -49,9 +49,18 @@ and one per device sketch fold.
 candidate counts to an ambient replan scope (planning/adaptive.py) after
 the device probe and after the host-tier seek, before any gather.
 
-Not ported from the JAX index (each is absent): degraded execution on
-device failure (a device error propagates), cancellation points, fault
-injection, heat attribution, spans and metrics.
+**Degraded execution.**  The device gather of every device generation
+and its one device→host copy share one ``try``, behind the
+``device.dispatch`` fault point.  A transient failure (device memory
+pressure) spills those generations to the host and answers them as host
+candidates; anything else propagates.  The JAX index splits the gather
+into one dispatch a generation past ``BATCH_SCAN_BUDGET`` and so spills
+only the failed one; the port keeps its single copy and spills the batch
+(ROADMAP C).  The
+spans are the JAX index's (``query.scan.device`` probe and gather,
+``query.scan.host``, ``query.scan.degraded``, ``write.spill``).
+
+Not ported from the JAX index: heat attribution.
 """
 
 from __future__ import annotations
@@ -65,10 +74,17 @@ from ..ops.search import (
     searchsorted2,
 )
 from ..metrics import (
-    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, registry as _metrics,
+    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, RESILIENCE_DEGRADED,
+    RESILIENCE_RETRIES, WRITE_SPILLS, registry as _metrics,
 )
+from ..obs.trace import device_span, obs_count
+from ..obs.trace import span as obs_span
 from ..planning.adaptive import check_replan
 from ..resilience.deadline import check_cancel
+from ..resilience.degrade import (
+    breaker, classify_device_failure, retry_budget,
+)
+from ..resilience.faults import fault_point
 from .lsm import (
     compact_incremental, merged_capacity, notify_generation_event,
     plan_size_tiered, replace_group,
@@ -448,7 +464,11 @@ class LeanAttrIndex:
             if self.device_bytes() <= self._budget_after_sentinels():
                 return
             if gen.tier == "device":
-                gen.spill_to_host()
+                # the spill is a device→host copy: a device span
+                with device_span("write.spill", gen_id=gen.gen_id,
+                                 rows=int(gen.n)):
+                    obs_count(WRITE_SPILLS)
+                    gen.spill_to_host()
                 self._host_stack = None
         if self.device_bytes() > self._budget_after_sentinels():
             raise MemoryError(
@@ -672,6 +692,54 @@ class LeanAttrIndex:
             return 1
         return int((totals > 0).sum())
 
+    def _gather(self, batch, jqid, pos_bits: int) -> np.ndarray:
+        """Coded ``qid << pos_bits | gid`` candidates of the device
+        generations' ``(gen, seek, total)`` entries, read with one
+        device→host copy."""
+        coded = []
+        for g, (starts, counts), t in batch:
+            if not int(t):
+                continue
+            # deadline yield point between generation gathers
+            if check_cancel("query.scan.device"):
+                break
+            idx, valid, rid = expand_ranges(
+                starts, counts, gather_capacity(int(t), minimum=8))
+            c = (jqid[rid] << pos_bits) | g.gid[idx].to(torch.int64)
+            coded.append(c[valid])
+        if not coded:
+            return np.empty(0, np.int64)
+        return torch.cat(coded).cpu().numpy()
+
+    def _dispatch_failed(self, gens, exc, qklo, qkhi, qslo, qshi, qqid,
+                         pos_bits):
+        """Degraded execution at the dispatch boundary: a transient
+        (memory-pressure) failure spills the failed batch to the host and
+        answers it with host-seek candidates (the planner's residual
+        filter keeps the answer exact); poison propagates (returns None).
+        The JAX attribute index's contract: no breaker check before a
+        dispatch, and the retry is counted inside the degraded span."""
+        if classify_device_failure(exc) != "transient":
+            return None
+        for g in gens:
+            breaker.record_failure((id(self), g.gen_id))
+        if retry_budget() <= 0:
+            return None
+        with obs_span("query.scan.degraded", tier="attr",
+                      reason="transient", runs=len(gens)) as sp:
+            sp.set_attr("resilience.degraded", True)
+            obs_count(RESILIENCE_DEGRADED, len(gens))
+            obs_count(RESILIENCE_RETRIES)
+            for g in gens:
+                if g.tier == "device":
+                    with device_span("write.spill", gen_id=g.gen_id,
+                                     rows=int(g.n)):
+                        obs_count(WRITE_SPILLS)
+                        g.spill_to_host()
+            self._host_stack = None
+            stack = _HostAttrStack([g.spilled for g in gens])
+            return stack.candidates(qklo, qkhi, qslo, qshi, qqid, pos_bits)
+
     def query_ranges(self, ranges: list, n_windows: int = 1,
                      total_rows: int | None = None) -> np.ndarray:
         """Candidate gids for inclusive composite ranges
@@ -704,42 +772,54 @@ class LeanAttrIndex:
             jklo, jkhi = self._dev(qklo), self._dev(qkhi)
             jslo, jshi = self._dev(qslo), self._dev(qshi)
             jqid = self._dev(qqid).to(torch.int64)
-            seeks = []
-            for g in dev_gens:
-                k, s = g.keys[:g.n], g.sec[:g.n]
-                starts = searchsorted2(k, s, jklo, jslo, side="left")
-                ends = searchsorted2(k, s, jkhi, jshi, side="right")
-                seeks.append((starts, torch.clamp(ends - starts, min=0)))
             self.dispatch_count += 1
-            totals = torch.stack([c.sum() for _, c in seeks]).cpu().numpy()
+            with device_span("query.scan.device", stage="probe",
+                             runs=len(dev_gens),
+                             rows=int(sum(g.n for g in dev_gens))):
+                seeks = []
+                for g in dev_gens:
+                    k, sc = g.keys[:g.n], g.sec[:g.n]
+                    starts = searchsorted2(k, sc, jklo, jslo, side="left")
+                    ends = searchsorted2(k, sc, jkhi, jshi, side="right")
+                    seeks.append((starts, torch.clamp(ends - starts, min=0)))
+                totals = torch.stack(
+                    [c.sum() for _, c in seeks]).cpu().numpy()
             # adaptive-replan probe point: device totals are known BEFORE
             # any gather, so aborting here discards nothing
             dev_total = int(totals.sum())
             check_replan("query.scan.probe", dev_total)
             if dev_total:
-                self.dispatch_count += self._gather_dispatches(totals)
-                coded = []
-                for g, (starts, counts), t in zip(dev_gens, seeks, totals):
-                    if not int(t):
-                        continue
-                    # deadline yield point between generation gathers
-                    # (partial mode: unscanned generations' rows are
-                    # simply absent — candidates are a subset either way)
-                    if check_cancel("query.scan.device"):
-                        break
-                    idx, valid, rid = expand_ranges(
-                        starts, counts, gather_capacity(int(t), minimum=8))
-                    c = (jqid[rid] << pos_bits) | g.gid[idx].to(torch.int64)
-                    coded.append(c[valid])
-                if coded:
-                    parts.append(torch.cat(coded).cpu().numpy())
+                try:
+                    fault_point("device.dispatch")
+                    self.dispatch_count += self._gather_dispatches(totals)
+                    with device_span("query.scan.device", stage="gather",
+                                     runs=len(dev_gens)):
+                        flat = self._gather(list(zip(dev_gens, seeks,
+                                                     totals)),
+                                            jqid, pos_bits)
+                except Exception as e:  # noqa: BLE001 — classified
+                    flat = self._dispatch_failed(
+                        dev_gens, e, qklo, qkhi, qslo, qshi, qqid,
+                        pos_bits)
+                    if flat is None:
+                        raise
+                if len(flat):
+                    parts.append(flat)
         host_cand_n = 0
         if host_gens:
-            if self._host_stack is None:
-                self._host_stack = _HostAttrStack(
-                    [g.spilled for g in host_gens])
-            coded = self._host_stack.candidates(qklo, qkhi, qslo, qshi,
-                                                qqid, pos_bits)
+            with obs_span("query.scan.host", runs=len(host_gens)):
+                stack = self._host_stack
+                if stack is None:
+                    stack = _HostAttrStack([g.spilled for g in host_gens])
+                    # cached only while these are every host generation:
+                    # one this query demoted answered through its own
+                    # degraded candidates (the JAX index caches the stale
+                    # stack; ROADMAP C)
+                    if len(host_gens) == sum(g.tier == "host"
+                                             for g in self.generations):
+                        self._host_stack = stack
+                coded = stack.candidates(qklo, qkhi, qslo, qshi, qqid,
+                                         pos_bits)
             host_cand_n = int(len(coded))
             if host_cand_n:
                 parts.append(coded)

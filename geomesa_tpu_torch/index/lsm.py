@@ -13,7 +13,9 @@ from __future__ import annotations
 import time
 
 from ..metrics import registry as _metrics
+from ..obs.trace import span as obs_span
 from ..resilience.deadline import check_cancel
+from ..resilience.faults import fault_point
 
 __all__ = ["plan_size_tiered", "compact_incremental", "merged_capacity",
            "notify_generation_event", "replace_group"]
@@ -87,21 +89,28 @@ def compact_incremental(plan, merge_one, budget_ms: float | None = None,
         # sample, or no-op calls would drive the timer's quantiles to 0
         return 0
     merged = 0
-    while True:
-        # interrupts fall BETWEEN merges, where the store is always
-        # consistent: merge_one swaps a fully-built merged run in
-        merge_one(groups[0])
-        merged += 1
-        if max_groups is not None and merged >= max_groups:
-            break
-        if (budget_ms is not None
-                and (time.perf_counter() - t0) * 1e3 >= budget_ms):
-            break
-        if check_cancel("compaction.merge_step"):
-            break
-        groups = plan()
-        if not groups:
-            break
+    # ONE span for the whole merge-replan loop: every index variant
+    # routes through this policy, so compaction is traced here once
+    with obs_span("lean.compaction") as sp:
+        while True:
+            # an armed fault or an expired deadline interrupts BETWEEN
+            # merges, where the store is always consistent: merge_one
+            # swaps a fully-built merged run in, and the next compact()
+            # replans from whatever runs survive
+            fault_point("compaction.merge_step")
+            merge_one(groups[0])
+            merged += 1
+            if max_groups is not None and merged >= max_groups:
+                break
+            if (budget_ms is not None
+                    and (time.perf_counter() - t0) * 1e3 >= budget_ms):
+                break
+            if check_cancel("compaction.merge_step"):
+                break
+            groups = plan()
+            if not groups:
+                break
+        sp.set_attr("merged_groups", merged)
     _metrics.timer("lean.compaction.ms").update(
         (time.perf_counter() - t0) * 1e3)
     return merged

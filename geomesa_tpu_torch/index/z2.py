@@ -31,6 +31,7 @@ from ..curve.legacy import legacy_z2_sfc
 from ..curve.sfc import z2_sfc
 from ..curve.zorder import deinterleave2, interleave2
 from ..device import resolve_device
+from ..obs.trace import device_span
 from ..ops.search import (
     coded_pos_bits, expand_ranges, gather_capacity, pack_coded, pack_wire,
     pad_boxes, pad_pow2, pad_ranges, run_packed_query, split_coded,
@@ -293,9 +294,14 @@ class Z2PointIndex:
         args = (self.z, self.pos, self.x, self.y,
                 self._dev(r["rzlo"]), self._dev(r["rzhi"]),
                 self._dev(ixy), self._dev(bxs))
-        hits, self._capacity = run_packed_query(
-            lambda capacity: _query_packed(*args, capacity=capacity),
-            self._capacity)
+
+        def dispatch(capacity):
+            # the copy ends inside the span: it is the device round trip
+            with device_span("query.scan.device", stage="packed",
+                             capacity=capacity):
+                return _query_packed(*args, capacity=capacity).cpu()
+
+        hits, self._capacity = run_packed_query(dispatch, self._capacity)
         return hits
 
     def density_world(self, width: int, height: int) -> np.ndarray:
@@ -357,8 +363,12 @@ class Z2PointIndex:
                 self._dev(r["rqid"]), self._dev(ixy_c), self._dev(boxes_c),
                 self._dev(bqid_c))
         pos_bits = coded_pos_bits(len(self), n_q)
-        coded, self._capacity = run_packed_query(
-            lambda capacity: _query_many_packed(
-                *args, capacity=capacity, pos_bits=pos_bits),
-            self._capacity)
+
+        def dispatch(capacity):
+            with device_span("query.scan.device", stage="packed_many",
+                             capacity=capacity):
+                return _query_many_packed(*args, capacity=capacity,
+                                          pos_bits=pos_bits).cpu()
+
+        coded, self._capacity = run_packed_query(dispatch, self._capacity)
         return split_coded(coded, pos_bits, n_q)

@@ -33,6 +33,7 @@ from ..curve.binnedtime import TimePeriod, max_date_ms, max_offset, to_binned_ti
 from ..curve.legacy import legacy_z3_sfc
 from ..curve.sfc import z3_sfc
 from ..device import resolve_device
+from ..obs.trace import device_span
 from ..ops.search import (
     coded_pos_bits, expand_ranges, gather_capacity, pack_coded,
     pack_wire, pad_boxes, pad_pow2, pad_ranges, run_packed_query,
@@ -514,9 +515,14 @@ class Z3PointIndex:
         )
         if self._capacity >= TWO_PHASE_MIN_CAPACITY:
             return self._query_two_phase(args)
-        hits, self._capacity = run_packed_query(
-            lambda capacity: _query_packed(*args, capacity=capacity),
-            self._capacity)
+
+        def dispatch(capacity):
+            # the copy ends inside the span: it is the device round trip
+            with device_span("query.scan.device", stage="packed",
+                             capacity=capacity):
+                return _query_packed(*args, capacity=capacity).cpu()
+
+        hits, self._capacity = run_packed_query(dispatch, self._capacity)
         return hits
 
     def _query_two_phase(self, args) -> np.ndarray:
@@ -527,21 +533,23 @@ class Z3PointIndex:
         directly."""
         capacity = self._capacity
         while True:
-            packed, totals = _scan_keep_device(*args, capacity=capacity)
-            total, nhits = (int(v) for v in totals.cpu().tolist())
-            if total > capacity:
-                capacity = gather_capacity(total)
-                continue
-            # decay toward the observed candidate volume so one huge
-            # query doesn't tax every later small one (re-growth costs a
-            # single retry)
-            self._capacity = max(self.DEFAULT_CAPACITY,
-                                 gather_capacity(total))
-            k = gather_capacity(max(nhits, 1), minimum=8)
-            if k >= capacity:  # dense result: compact can't shrink
-                out = packed.cpu().numpy()
-            else:
-                out = _compact_hits(packed, k=k).cpu().numpy()
+            with device_span("query.scan.device", stage="two_phase",
+                             capacity=capacity):
+                packed, totals = _scan_keep_device(*args, capacity=capacity)
+                total, nhits = (int(v) for v in totals.cpu().tolist())
+                if total > capacity:
+                    capacity = gather_capacity(total)
+                    continue
+                # decay toward the observed candidate volume so one huge
+                # query doesn't tax every later small one (re-growth
+                # costs a single retry)
+                self._capacity = max(self.DEFAULT_CAPACITY,
+                                     gather_capacity(total))
+                k = gather_capacity(max(nhits, 1), minimum=8)
+                if k >= capacity:  # dense result: compact can't shrink
+                    out = packed.cpu().numpy()
+                else:
+                    out = _compact_hits(packed, k=k).cpu().numpy()
             return np.sort(out[out >= 0]).astype(np.int64)
 
     def query_many(self, windows,
@@ -600,9 +608,13 @@ class Z3PointIndex:
             self._dev(qtlo), self._dev(qthi),
         )
         pos_bits = coded_pos_bits(len(self), n_q)
-        coded, self._capacity = run_packed_query(
-            lambda capacity: _query_many_packed(
-                *args, capacity=capacity, pos_bits=pos_bits),
-            self._capacity)
+
+        def dispatch(capacity):
+            with device_span("query.scan.device", stage="packed_many",
+                             capacity=capacity):
+                return _query_many_packed(*args, capacity=capacity,
+                                          pos_bits=pos_bits).cpu()
+
+        coded, self._capacity = run_packed_query(dispatch, self._capacity)
         # a feature can land in several of a query's covering ranges
         return split_coded(coded, pos_bits, n_q)

@@ -64,9 +64,26 @@ counts to an ambient replan scope (planning/adaptive.py) after the
 device probe and after the host-tier seek, before any gather or exact
 mask, so a mispredicted plan aborts having collected nothing.
 
-Not ported from the JAX index (each is absent): degraded execution on
-device failure (a device error propagates), heat tracking, spans and
-metrics.
+**Degraded execution.**  A tier's device scan gathers every generation
+with candidates and reads them back with one device→host copy, inside
+one ``try``.  A transient failure (device memory pressure,
+:func:`~geomesa_tpu_torch.resilience.classify_device_failure`) demotes
+every generation of that batch to the host tier and answers them as host
+candidates, which the payload re-check keeps exact; generations whose
+circuit breaker is open skip the device the same way.  Every other
+failure propagates.  The JAX index splits a tier into one dispatch a
+generation past its compile budget and so demotes only the failed one;
+the port keeps its single copy a tier and demotes the batch (ROADMAP C).
+The ``device.dispatch`` fault point sits before each tier's batch,
+``host.spill`` before each spill and ``ingest.append`` at each append's
+entry.
+
+**Tracing.**  The JAX index's spans: ``query.decompose``, the probe's and
+each tier's ``query.scan.device`` (each ends in the device→host copy it
+times), ``query.scan.host`` (seek, recheck), ``query.scan.degraded``,
+``query.materialize`` (payload gathers), ``write.seal``, ``write.spill``,
+``lean.density``, ``pyramid.build`` and ``lean.compaction``.  Not ported:
+heat tracking.
 
 Reference mapping: Z3IndexKeySpace.scala:60 (key layout),
 IndexAdapter.scala:95-106 (writers), AccumuloQueryPlan.scala:87-157
@@ -94,11 +111,19 @@ from .lsm import (
     plan_size_tiered, replace_group,
 )
 from ..metrics import (
-    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, PYRAMID_BUILD_MS,
-    registry as _metrics,
+    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, LEAN_DENSITY_CACHE_HITS,
+    LEAN_DENSITY_CACHE_MISSES, PYRAMID_BUILD_MS, PYRAMID_BUILDS,
+    PYRAMID_SERVE_HITS, RESILIENCE_DEGRADED, RESILIENCE_RETRIES,
+    WRITE_SEALS, WRITE_SPILLS, registry as _metrics,
 )
+from ..obs.trace import device_span, obs_count
+from ..obs.trace import span as obs_span
 from ..planning.adaptive import check_replan
 from ..resilience.deadline import check_cancel
+from ..resilience.degrade import (
+    breaker, classify_device_failure, retry_budget,
+)
+from ..resilience.faults import fault_point
 from .partial_cache import PartialCache
 from .pyramid import DensityPyramid, _ladder_depth, pyramid_spec
 from .z3 import (
@@ -706,7 +731,13 @@ class LeanZ3Index:
         return self.device_bytes() <= self._budget_after_sentinels()
 
     def _spill(self, gen: _Generation) -> None:
-        gen.spill_to_host()
+        # injected BEFORE the copy: a faulted spill leaves the generation
+        # on the device, fully queryable
+        fault_point("host.spill")
+        # the spill IS a device→host copy: a device span
+        with device_span("write.spill", gen_id=gen.gen_id, rows=int(gen.n)):
+            obs_count(WRITE_SPILLS)
+            gen.spill_to_host()
         self._host_stack = None   # restacked lazily on the next query
 
     def _rebalance(self) -> None:
@@ -783,6 +814,9 @@ class LeanZ3Index:
         if self._n_rows + len(x) > np.iinfo(np.int32).max:
             raise ValueError("LeanZ3Index positions are int32: "
                              "2,147M rows max per index")
+        # injected at ENTRY, before any state mutates: a faulted append
+        # loses the whole slice — rows are fully indexed or absent
+        fault_point("ingest.append")
         x = np.ascontiguousarray(x, dtype=np.float64)
         y = np.ascontiguousarray(y, dtype=np.float64)
         dtg_ms = np.ascontiguousarray(dtg_ms, dtype=np.int64)
@@ -799,12 +833,18 @@ class LeanZ3Index:
         while done < m_total:
             gen = self.generations[-1] if self.generations else None
             if gen is None or gen.tier == "host" or gen.n >= gen.capacity:
-                sealed = (gen.gen_id if gen is not None
-                          and gen.tier != "host" else None)
                 # base = global row id of the generation's first row
-                gen = self._new_generation(self._n_rows + done)
-                if sealed is not None:
+                if gen is not None and gen.tier != "host":
+                    # the live generation SEALS on rollover; the span
+                    # covers the rebalance it triggers
+                    sealed = gen.gen_id
+                    with obs_span("write.seal", gen_id=gen.gen_id,
+                                  tier=gen.tier, rows=int(gen.n)):
+                        obs_count(WRITE_SEALS)
+                        gen = self._new_generation(self._n_rows + done)
                     notify_generation_event(self, "seal", [sealed])
+                else:
+                    gen = self._new_generation(self._n_rows + done)
             room = gen.capacity - gen.n
             take = min(room, m_total - done)
             m_pad = min(gather_capacity(take, minimum=8), room)
@@ -961,9 +1001,12 @@ class LeanZ3Index:
         follows) and the totals, read with one device→host copy."""
         if not gens:
             return [], np.empty(0, np.int64)
-        seeks = [_seek(g, rb, rlo, rhi) for g in gens]
-        self.dispatch_count += 1
-        totals = torch.stack([c.sum() for _, c in seeks]).cpu().numpy()
+        n_dev = int(sum(g.n for g in gens))
+        with device_span("query.scan.device", stage="probe", runs=len(gens),
+                         rows=n_dev, bytes=n_dev * KEYS_BYTES):
+            seeks = [_seek(g, rb, rlo, rhi) for g in gens]
+            self.dispatch_count += 1
+            totals = torch.stack([c.sum() for _, c in seeks]).cpu().numpy()
         return seeks, totals
 
     # -- query path -------------------------------------------------------
@@ -985,29 +1028,32 @@ class LeanZ3Index:
         w_boxes: list = []
         qtlo = np.empty(n_q, dtype=np.int64)
         qthi = np.empty(n_q, dtype=np.int64)
-        for q, (bxs, lo, hi) in enumerate(windows):
-            # yield point between range decompositions: a window not yet
-            # planned scans nothing (partial mode), so the planned
-            # windows' results stay exact
-            if check_cancel("query.decompose"):
-                break
-            lo, hi = self._clamp_time(lo, hi)
-            qtlo[q], qthi[q] = lo, hi
-            bxs = np.atleast_2d(np.asarray(bxs, dtype=np.float64))
-            w_boxes.append(bxs)
-            # per-BIN range budget: plan_z3_query splits its target across
-            # the interval's bins, so open/long intervals would starve
-            # each bin into hugely overcovering ranges
-            budget = min(max_ranges * _bins_spanned(lo, hi, self.period),
-                         _MAX_RANGES_PER_WINDOW)
-            plan = plan_z3_query(bxs, lo, hi, self.period, budget,
-                                 sfc=self.sfc)
-            if plan.num_ranges == 0:
-                continue
-            rbin.append(plan.rbin)
-            rzlo.append(plan.rzlo)
-            rzhi.append(plan.rzhi)
-            rqid.append(np.full(plan.num_ranges, q, dtype=np.int32))
+        with obs_span("query.decompose", windows=n_q) as dsp:
+            for q, (bxs, lo, hi) in enumerate(windows):
+                # yield point between range decompositions: a window not
+                # yet planned scans nothing (partial mode), so the
+                # planned windows' results stay exact
+                if check_cancel("query.decompose"):
+                    break
+                lo, hi = self._clamp_time(lo, hi)
+                qtlo[q], qthi[q] = lo, hi
+                bxs = np.atleast_2d(np.asarray(bxs, dtype=np.float64))
+                w_boxes.append(bxs)
+                # per-BIN range budget: plan_z3_query splits its target
+                # across the interval's bins, so open/long intervals
+                # would starve each bin into hugely overcovering ranges
+                budget = min(max_ranges * _bins_spanned(lo, hi,
+                                                        self.period),
+                             _MAX_RANGES_PER_WINDOW)
+                plan = plan_z3_query(bxs, lo, hi, self.period, budget,
+                                     sfc=self.sfc)
+                if plan.num_ranges == 0:
+                    continue
+                rbin.append(plan.rbin)
+                rzlo.append(plan.rzlo)
+                rzhi.append(plan.rzhi)
+                rqid.append(np.full(plan.num_ranges, q, dtype=np.int32))
+            dsp.set_attr("ranges", int(sum(len(r) for r in rbin)))
         if not rbin:
             return [np.empty(0, dtype=np.int64) for _ in range(n_q)]
         ra = pad_ranges(
@@ -1027,7 +1073,9 @@ class LeanZ3Index:
         dev_total = int(totals.sum())
         check_replan("query.scan.probe", dev_total)
         nf = len(full_gens)
-        exact_hits = np.empty(0, np.int64)
+        exact_parts: list = []
+        # keys-tier candidates, and the DEGRADED candidates of either
+        # device tier: the host re-check below keeps both exact
         cand: list = []
         # deadline yield points between tier phases (partial mode skips
         # the tiers not yet started; what was scanned stays exact)
@@ -1036,22 +1084,22 @@ class LeanZ3Index:
             boxes_c = np.concatenate(w_boxes)
             bqid_c = np.concatenate([np.full(len(b), q, dtype=np.int64)
                                      for q, b in enumerate(w_boxes)])
-            exact_hits = self._scan_full(
-                full_gens, seeks[:nf], totals[:nf], rq, pos_bits,
-                self._dev(boxes_c), self._dev(bqid_c), self._dev(qtlo),
-                self._dev(qthi))
+            exact = (self._dev(boxes_c), self._dev(bqid_c),
+                     self._dev(qtlo), self._dev(qthi))
+            exact_parts = self._scan_tier(
+                full_gens, seeks[:nf], totals[:nf], rq, pos_bits, exact,
+                ra, cand)
         if (keys_gens and not check_cancel("query.scan.keys")
                 and int(totals[nf:].sum())):
-            got = self._scan_keys(keys_gens, seeks[nf:], totals[nf:], rq,
-                                  pos_bits)
-            if len(got):
-                cand.append(got)
+            cand += self._scan_tier(keys_gens, seeks[nf:], totals[nf:], rq,
+                                    pos_bits, None, ra, cand)
         if host_gens and not check_cancel("query.scan.host"):
             # host tier: stacked numpy seeks, flat in run count
-            if self._host_stack is None:
-                self._host_stack = HostStack([g.run for g in host_gens])
-            got = self._host_stack.candidates(
-                ra["rbin"], ra["rzlo"], ra["rzhi"], ra["rqid"], pos_bits)
+            with obs_span("query.scan.host", stage="seek",
+                          runs=len(host_gens)):
+                got = self._host_stack_of(host_gens).candidates(
+                    ra["rbin"], ra["rzlo"], ra["rzhi"], ra["rqid"],
+                    pos_bits)
             if len(got):
                 # second probe point: host-tier candidates are counted
                 # before the payload re-check, the expensive host step
@@ -1061,38 +1109,134 @@ class LeanZ3Index:
         cand_hits = np.concatenate(cand) if cand else np.empty(0, np.int64)
         if len(cand_hits):
             # host exact mask on the payload (the client-side re-check of
-            # keys/host-tier candidates)
-            x, y, t = self._payload_flat()
-            qids = cand_hits >> pos_bits
-            rows = cand_hits & mask_bits
-            cx, cy, ct = x[rows], y[rows], t[rows]
-            keep = np.zeros(len(rows), dtype=bool)
-            for q in range(n_q):
-                sel = qids == q
-                if not sel.any():
-                    continue
-                in_box = np.zeros(int(sel.sum()), dtype=bool)
-                for b in w_boxes[q]:
-                    in_box |= ((cx[sel] >= b[0]) & (cy[sel] >= b[1])
-                               & (cx[sel] <= b[2]) & (cy[sel] <= b[3]))
-                keep[sel] = (in_box & (ct[sel] >= qtlo[q])
-                             & (ct[sel] <= qthi[q]))
-            cand_hits = cand_hits[keep]
+            # keys/host-tier and degraded candidates)
+            with obs_span("query.scan.host", stage="recheck",
+                          candidates=int(len(cand_hits))):
+                x, y, t = self._payload_flat()
+                qids = cand_hits >> pos_bits
+                rows = cand_hits & mask_bits
+                cx, cy, ct = x[rows], y[rows], t[rows]
+                keep = np.zeros(len(rows), dtype=bool)
+                for q in range(n_q):
+                    sel = qids == q
+                    if not sel.any():
+                        continue
+                    in_box = np.zeros(int(sel.sum()), dtype=bool)
+                    for b in w_boxes[q]:
+                        in_box |= ((cx[sel] >= b[0]) & (cy[sel] >= b[1])
+                                   & (cx[sel] <= b[2]) & (cy[sel] <= b[3]))
+                    keep[sel] = (in_box & (ct[sel] >= qtlo[q])
+                                 & (ct[sel] <= qthi[q]))
+                cand_hits = cand_hits[keep]
         # sorted codes hold each window's hits as one run; overlapping
         # covering ranges can repeat a row, which split_coded drops
-        merged = np.sort(np.concatenate([exact_hits, cand_hits]))
+        merged = np.sort(np.concatenate(exact_parts + [cand_hits]))
         return split_coded(merged, pos_bits, n_q)
 
-    def _scan_keys(self, gens, seeks, totals, rq, pos_bits) -> np.ndarray:
-        """CANDIDATE gather over ``keys``-tier generations: per generation
-        with candidates, expand + gather global positions coded as
+    def _host_stack_of(self, host_gens: list) -> HostStack:
+        """The stacked runs of ``host_gens``, the host generations this
+        query started with.  Cached only while they are still every host
+        generation: a generation this query demoted answers through its
+        own degraded candidates, and a stack cached without it would hide
+        its rows from every later query (the JAX index caches that stack;
+        ROADMAP C)."""
+        if self._host_stack is not None:
+            return self._host_stack
+        stack = HostStack([g.run for g in host_gens])
+        if len(host_gens) == sum(g.tier == "host" for g in self.generations):
+            self._host_stack = stack
+        return stack
+
+    def _scan_tier(self, gens, seeks, totals, rq, pos_bits, exact, ra,
+                   degraded_out: list) -> list:
+        """One tier's device scan, one batch and one copy (module doc):
+        flat coded arrays, every non-negative code a hit (``full`` tier,
+        with ``exact`` the device mask's boxes, box owners and time
+        bounds) or a candidate (``keys`` tier).  A transient failure of
+        the batch, and an open breaker, answer those generations as host
+        candidates in ``degraded_out``; any other failure propagates."""
+        tier = "full" if exact is not None else "keys"
+        live = [(g, sk, t) for g, sk, t in zip(gens, seeks, totals)
+                if int(t)]
+        if not live:
+            return []
+        tripped = [g for g, _, _ in live
+                   if not breaker.allows((id(self), g.gen_id))]
+        if tripped:
+            # open circuit: this generation's device dispatch keeps
+            # failing — route it through the host tier until the breaker
+            # cools down (no device attempt at all)
+            coded = self._degrade_to_host(tripped, ra, pos_bits, tier,
+                                          reason="breaker")
+            if len(coded):
+                degraded_out.append(coded)
+            skip = {id(g) for g in tripped}
+            live = [e for e in live if id(e[0]) not in skip]
+            if not live:
+                return []
+        row_bytes = FULL_BYTES if tier == "full" else KEYS_BYTES
+        gens_l = [g for g, _, _ in live]
+        try:
+            fault_point("device.dispatch")
+            rows = int(sum(g.n for g in gens_l))
+            with device_span("query.scan.device", tier=tier,
+                             runs=len(live), rows=rows,
+                             bytes=rows * row_bytes):
+                flat = (self._gather_full(live, rq, pos_bits, *exact)
+                        if exact is not None
+                        else self._gather_keys(live, rq, pos_bits))
+        except Exception as e:  # noqa: BLE001 — classified below
+            coded = self._dispatch_failed(gens_l, e, ra, pos_bits, tier)
+            if coded is None:
+                raise
+            if len(coded):
+                degraded_out.append(coded)
+            return []
+        for g in gens_l:
+            breaker.record_success((id(self), g.gen_id))
+        return [flat] if len(flat) else []
+
+    def _dispatch_failed(self, gens, exc, ra, pos_bits, tier):
+        """Classify a failed batch dispatch.  A transient failure (device
+        memory pressure) demotes the batch's generations to the host tier
+        and returns their host-seek candidates: one bounded retry, off the
+        device.  None when the failure must propagate (poison, or a zero
+        retry budget)."""
+        if classify_device_failure(exc) != "transient":
+            return None
+        for g in gens:
+            breaker.record_failure((id(self), g.gen_id))
+        if retry_budget() <= 0:
+            return None
+        obs_count(RESILIENCE_RETRIES)
+        return self._degrade_to_host(gens, ra, pos_bits, tier,
+                                     reason="transient")
+
+    def _degrade_to_host(self, gens, ra, pos_bits, tier, reason):
+        """Demote ``gens`` to the host tier (the spill path) and answer
+        their share of the scan as host-seek CANDIDATES: the caller's
+        payload re-check restores exactness.  Recorded as a
+        ``query.scan.degraded`` span flagged ``resilience.degraded``, not
+        a user-facing error."""
+        with obs_span("query.scan.degraded", tier=tier, reason=reason,
+                      runs=len(gens)) as sp:
+            sp.set_attr("resilience.degraded", True)
+            obs_count(RESILIENCE_DEGRADED, len(gens))
+            for g in gens:
+                if g.tier != "host":
+                    self._spill(g)
+            stack = HostStack([g.run for g in gens])
+            return stack.candidates(ra["rbin"], ra["rzlo"], ra["rzhi"],
+                                    ra["rqid"], pos_bits)
+
+    def _gather_keys(self, group, rq, pos_bits) -> np.ndarray:
+        """CANDIDATE gather over one tier's ``keys``-tier generations:
+        per generation, expand + gather global positions coded as
         ``qid << pos_bits | pos``; one device→host copy.  The exact mask
         runs on the host payload."""
         dt = wire_dtype(pos_bits)
         parts = []
-        for gen, (starts, counts), tot in zip(gens, seeks, totals):
-            if not int(tot):
-                continue
+        for gen, (starts, counts), tot in group:
             # deadline yield point between generation dispatches: partial
             # mode stops STARTING generations (scanned ones stay exact)
             if check_cancel("query.scan.device"):
@@ -1108,20 +1252,18 @@ class LeanZ3Index:
         flat = torch.cat(parts).cpu().numpy()
         return flat[flat >= 0].astype(np.int64)
 
-    def _scan_full(self, gens, seeks, totals, rq, pos_bits, boxes, bqid,
-                   qtlo, qthi) -> np.ndarray:
-        """EXACT scan over ``full``-tier generations: seek + gather + the
-        float64 bbox+time mask over the generation's device payload.  A
-        candidate only matches boxes/time bounds of its own window.
-        Every non-negative code is a true hit; past
+    def _gather_full(self, group, rq, pos_bits, boxes, bqid, qtlo,
+                     qthi) -> np.ndarray:
+        """EXACT scan over one tier's ``full``-tier generations: seek +
+        gather + the float64 bbox+time mask over the generation's device
+        payload.  A candidate only matches boxes/time bounds of its own
+        window.  Every non-negative code is a true hit; past
         ``_TWO_PHASE_MIN_SLOTS`` gathered slots the coded buffer stays on
         the device and only a survivors-sized prefix is copied."""
         dt = wire_dtype(pos_bits)
         parts = []
-        for gen, (starts, counts), tot in zip(gens, seeks, totals):
-            if not int(tot):
-                continue
-            if check_cancel("query.scan.device"):   # as in _scan_keys
+        for gen, (starts, counts), tot in group:
+            if check_cancel("query.scan.device"):   # as in _gather_keys
                 break
             cap = gather_capacity(int(tot), minimum=self.DEFAULT_CAPACITY)
             idx, valid, rid = expand_ranges(starts, counts, cap)
@@ -1177,11 +1319,14 @@ class LeanZ3Index:
                                      side="left"))
             if hi <= lo:
                 continue
+            m = hi - lo
             idx = self._dev(sorted_pos[lo:hi] - gen.base)
             self.dispatch_count += 1
-            x[lo:hi] = gen.x[idx].cpu().numpy()
-            y[lo:hi] = gen.y[idx].cpu().numpy()
-            t[lo:hi] = gen.t[idx].cpu().numpy()
+            with device_span("query.materialize", stage="gather", runs=1,
+                             rows=m, bytes=m * PAYLOAD_BYTES):
+                x[lo:hi] = gen.x[idx].cpu().numpy()
+                y[lo:hi] = gen.y[idx].cpu().numpy()
+                t[lo:hi] = gen.t[idx].cpu().numpy()
             covered[lo:hi] = True
         if not covered.all():
             hx, hy, ht = self._payload_flat()
@@ -1227,6 +1372,13 @@ class LeanZ3Index:
         granularity, exact for whole-extent scans and cell-inclusive
         (never excluding a true hit) at a partial window's edges; every
         hit bins at its z-cell midpoint."""
+        with obs_span("lean.density", grid=f"{width}x{height}",
+                      generations=len(self.generations)):
+            return self._density_scan(boxes, t_lo_ms, t_hi_ms, env,
+                                      width, height, max_ranges)
+
+    def _density_scan(self, boxes, t_lo_ms, t_hi_ms, env, width: int,
+                      height: int, max_ranges: int) -> np.ndarray:
         grid = np.zeros((height, width), np.float64)
         if self._n_rows == 0:
             return grid
@@ -1420,6 +1572,7 @@ class LeanZ3Index:
                     else None
                 if part is not None:
                     self.pyramid_serve_hits += 1
+                    obs_count(PYRAMID_SERVE_HITS)
                     grid += part
                     continue
                 part = cache.get(g.gen_id)
@@ -1428,11 +1581,15 @@ class LeanZ3Index:
             if part is None:
                 scan.append(g)
             else:
+                obs_count(LEAN_DENSITY_CACHE_HITS)
                 grid += part
         if scan:
-            stacked = torch.stack([
-                self._sweep_device(g, env_t, width, height, world)
-                for g in scan]).cpu().numpy()
+            obs_count(LEAN_DENSITY_CACHE_MISSES, len(scan))
+            with device_span("query.scan.device", stage="sweep",
+                             runs=len(scan)):
+                stacked = torch.stack([
+                    self._sweep_device(g, env_t, width, height, world)
+                    for g in scan]).cpu().numpy()
             for i, g in enumerate(scan):
                 part = stacked[i].reshape(height, width)
                 grid += part
@@ -1452,13 +1609,17 @@ class LeanZ3Index:
                 lvl = self._pyramid_level(g.gen_id, width)
                 if lvl is not None:
                     self.pyramid_serve_hits += 1
+                    obs_count(PYRAMID_SERVE_HITS)
                     grid += lvl
                     continue
             part = cache.get(g.gen_id)
             if part is None:
+                obs_count(LEAN_DENSITY_CACHE_MISSES)
                 part = g.run.sweep_partial(self.sfc, env_t, width, height,
                                            world)
                 self._density_cache.add(cache, g.gen_id, part)
+            else:
+                obs_count(LEAN_DENSITY_CACHE_HITS)
             grid += part
         return grid
 
@@ -1486,19 +1647,26 @@ class LeanZ3Index:
         for g in self._sealed():
             if g.gen_id in cache:
                 continue
+            fault_point("pyramid.build")
             t0 = time.perf_counter()
-            if g.tier == "host":
-                pyr = DensityPyramid.from_base(
-                    g.run.sweep_partial(self.sfc, _WORLD_ENV, base, base,
-                                        True), levels)
-            else:
-                base_dev = self._sweep_device(
-                    g, _WORLD_ENV, base, base, True).reshape(base, base)
-                lv = {base: base_dev.cpu().numpy()}
-                for arr in pyramid_reduce(base_dev, depth):
-                    lv[arr.shape[0]] = arr.cpu().numpy()
-                pyr = DensityPyramid(lv)
+            with obs_span("pyramid.build", gen_id=g.gen_id, tier=g.tier,
+                          base=base):
+                if g.tier == "host":
+                    pyr = DensityPyramid.from_base(
+                        g.run.sweep_partial(self.sfc, _WORLD_ENV, base,
+                                            base, True), levels)
+                else:
+                    with device_span("query.scan.device", stage="sweep",
+                                     runs=1):
+                        base_dev = self._sweep_device(
+                            g, _WORLD_ENV, base, base,
+                            True).reshape(base, base)
+                        lv = {base: base_dev.cpu().numpy()}
+                        for arr in pyramid_reduce(base_dev, depth):
+                            lv[arr.shape[0]] = arr.cpu().numpy()
+                    pyr = DensityPyramid(lv)
             self._pyramid_cache.add(cache, g.gen_id, pyr)
+            obs_count(PYRAMID_BUILDS)
             _metrics.timer(PYRAMID_BUILD_MS).update(
                 (time.perf_counter() - t0) * 1e3)
             built += 1

@@ -55,9 +55,9 @@ __all__ = ["MetricRegistry", "Timer", "Counter", "Gauge", "HistogramMetric",
            "ALERT_SLO_FIRED", "ALERT_SLO_ACTIVE"]
 
 # The metric-name constants are the JAX package's, so one dashboard reads
-# both packages.  Some name families (compile tracking, scrape and trace
-# self-observation, degraded execution, alerts) belong to layers the port
-# does not have yet; their keys are declared here and recorded by nobody.
+# both packages.  Some name families (compile tracking, scrape
+# self-observation, alerts) belong to layers the port does not have yet;
+# their keys are declared here and recorded by nobody.
 
 #: lean LSM lifecycle: compaction work (index/*_lean ``compact()``) and
 #: the sealed-generation density-partial cache

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .build import count_launch, load
+from .gate import GATES
 from .launch import BLOCK_ROWS, Resident, cdiv, pick_cluster
 
 __all__ = ["density_grid_kernel", "density_grid_kernel_reference",
@@ -179,12 +180,15 @@ def density_grid_kernel(x, y, weights, mask, env, width: int,
     width) grid."""
     width, height = int(width), int(height)
     _check(x, y, weights, mask, env, width, height)
-    if x.device.type == "cpu":
-        return density_grid_kernel_reference(x, y, weights, mask, env,
-                                             width, height)
-    if x.device.type != "cuda":
-        raise ValueError(f"density_grid_kernel: unsupported device "
-                         f"{x.device}")
+    return GATES["density"].dispatch(
+        x.device,
+        lambda: density_grid_kernel_reference(x, y, weights, mask, env,
+                                              width, height),
+        lambda: _launch(x, y, weights, mask, env, width, height))
+
+
+def _launch(x, y, weights, mask, env, width: int,
+            height: int) -> torch.Tensor:
     n = int(x.shape[0])
     if n == 0:
         return torch.zeros((height, width), dtype=torch.float32,

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .build import count_launch, load
+from .gate import GATES
 from .launch import (
     BLOCK_ROWS, CLUSTER_SIZES, MAX_SHARED_BYTES, STAGE_BYTES, THREADS, WARPS,
     Resident, cdiv, pick_cluster,
@@ -152,10 +153,12 @@ def hist1d(bins, weights, mask, n_bins: int) -> torch.Tensor:
     """Masked weighted 1-D histogram; float32 ``(n_bins,)``."""
     n_bins = int(n_bins)
     _check(bins, weights, mask, n_bins)
-    if bins.device.type == "cpu":
-        return hist1d_reference(bins, weights, mask, n_bins)
-    if bins.device.type != "cuda":
-        raise ValueError(f"hist1d: unsupported device {bins.device}")
+    return GATES["hist1d"].dispatch(
+        bins.device, lambda: hist1d_reference(bins, weights, mask, n_bins),
+        lambda: _launch(bins, weights, mask, n_bins))
+
+
+def _launch(bins, weights, mask, n_bins: int) -> torch.Tensor:
     n = int(bins.shape[0])
     if n == 0:
         return torch.zeros(n_bins, dtype=torch.float32, device=bins.device)

@@ -21,6 +21,7 @@ import torch
 
 from ..curve.zorder import deinterleave2
 from .build import count_launch, load
+from .gate import GATES
 
 __all__ = ["z2_mask", "z2_mask_reference"]
 
@@ -58,6 +59,11 @@ def _check(z, ixy) -> None:
     if ixy.dim() != 2 or ixy.shape[1] != 4:
         raise ValueError(f"z2_mask: ixy must be (R, 4), got "
                          f"{tuple(ixy.shape)}")
+    if z.device.type == "cuda" and ixy.shape[0] > MAX_BOXES:
+        # a caller's error, checked before the gate (which counts only
+        # build and launch failures); the plain version has no such limit
+        raise ValueError(f"z2_mask: {ixy.shape[0]} boxes, the kernel stages "
+                         f"at most {MAX_BOXES}")
 
 
 def z2_mask_reference(z, ixy) -> torch.Tensor:
@@ -79,13 +85,12 @@ def z2_mask(z, ixy) -> torch.Tensor:
     [xlo, ylo, xhi, yhi].  Returns bool (N,).
     """
     _check(z, ixy)
-    if z.device.type == "cpu":
-        return z2_mask_reference(z, ixy)
-    if z.device.type != "cuda":
-        raise ValueError(f"z2_mask: unsupported device {z.device}")
-    if ixy.shape[0] > MAX_BOXES:
-        raise ValueError(f"z2_mask: {ixy.shape[0]} boxes, the kernel stages "
-                         f"at most {MAX_BOXES}")
+    return GATES["z2_scan"].dispatch(
+        z.device, lambda: z2_mask_reference(z, ixy),
+        lambda: _launch(z, ixy))
+
+
+def _launch(z, ixy) -> torch.Tensor:
     n = int(z.shape[0])
     out = torch.empty(n, dtype=torch.uint8, device=z.device)
     if n:

@@ -8,7 +8,9 @@ same contract::
 On CUDA tensors :func:`z3_mask` launches ``csrc/z3_mask.cu`` (built with
 ``nvcc`` at first use, see :mod:`geomesa_tpu_torch.ops.build`) or raises;
 on CPU tensors it runs :func:`z3_mask_reference`, the plain PyTorch
-version of the same function.  ``z3_mask.launches`` counts kernel
+version of the same function.  Every call goes through the ``z3_scan``
+gate (:mod:`~geomesa_tpu_torch.ops.gate`), which never gives way to the
+plain version on a CUDA tensor.  ``z3_mask.launches`` counts kernel
 launches.  What bounds the kernel on the card, and its design, are noted
 in the CUDA source.
 """
@@ -21,6 +23,7 @@ import torch
 
 from ..curve.zorder import deinterleave3
 from .build import count_launch, load
+from .gate import GATES
 
 __all__ = ["z3_mask", "z3_mask_reference"]
 
@@ -63,6 +66,11 @@ def _check(z, ixy, tlo, thi) -> None:
     if ixy.dim() != 2 or ixy.shape[1] != 4:
         raise ValueError(f"z3_mask: ixy must be (R, 4), got "
                          f"{tuple(ixy.shape)}")
+    if z.device.type == "cuda" and ixy.shape[0] > MAX_BOXES:
+        # a caller's error, checked before the gate (which counts only
+        # build and launch failures); the plain version has no such limit
+        raise ValueError(f"z3_mask: {ixy.shape[0]} boxes, the kernel stages "
+                         f"at most {MAX_BOXES}")
 
 
 def z3_mask_reference(z, ixy, tlo, thi) -> torch.Tensor:
@@ -86,13 +94,12 @@ def z3_mask(z, ixy, tlo, thi) -> torch.Tensor:
     offset bounds (already gathered per owning range).  Returns bool (N,).
     """
     _check(z, ixy, tlo, thi)
-    if z.device.type == "cpu":
-        return z3_mask_reference(z, ixy, tlo, thi)
-    if z.device.type != "cuda":
-        raise ValueError(f"z3_mask: unsupported device {z.device}")
-    if ixy.shape[0] > MAX_BOXES:
-        raise ValueError(f"z3_mask: {ixy.shape[0]} boxes, the kernel stages "
-                         f"at most {MAX_BOXES}")
+    return GATES["z3_scan"].dispatch(
+        z.device, lambda: z3_mask_reference(z, ixy, tlo, thi),
+        lambda: _launch(z, ixy, tlo, thi))
+
+
+def _launch(z, ixy, tlo, thi) -> torch.Tensor:
     n = int(z.shape[0])
     out = torch.empty(n, dtype=torch.uint8, device=z.device)
     if n:

@@ -41,8 +41,9 @@ feeds the replan probe, candidates allgather, and sketch partials merge
 through :func:`~geomesa_tpu_torch.parallel.stats.allreduce_run_sketch`.
 Spilled runs stay on their owning process.
 
-Not ported (each is absent): spans, heat tracking and the breaker's
-failure classification.
+A failed device gather is classified and recorded on the breaker, then
+re-raised: no process degrades alone inside a collective.  Not ported
+(each is absent): spans and heat tracking.
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from ..ops.search import (
 from ..metrics import (
     LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, registry as _metrics,
 )
+from ..resilience.degrade import breaker, classify_device_failure
 from ..planning.adaptive import check_replan
 from .lean import lexsort
 from .mesh import DeviceMesh
@@ -574,16 +576,27 @@ class ShardedLeanAttrIndex:
             if dev_total:
                 self.dispatch_count += self._gather_dispatches(totals)
                 coded = []
-                for i, g in enumerate(dev_gens):
-                    for s, a in enumerate(args):
-                        t = int(totals[shard0 + s, i])
-                        if not t:
-                            continue
-                        starts, counts = seeks[i][s]
-                        idx, valid, rid = expand_ranges(
-                            starts, counts, gather_capacity(t, minimum=8))
-                        c = (a["qid"][rid] << pos_bits) | g.gid[s][idx]
-                        coded.append(c[valid].cpu().numpy())
+                # collective path: classify only — a transient failure is
+                # recorded on the breaker and re-raised, never retried
+                # locally (a process retrying alone strands its peers)
+                try:
+                    for i, g in enumerate(dev_gens):
+                        for s, a in enumerate(args):
+                            t = int(totals[shard0 + s, i])
+                            if not t:
+                                continue
+                            starts, counts = seeks[i][s]
+                            idx, valid, rid = expand_ranges(
+                                starts, counts,
+                                gather_capacity(t, minimum=8))
+                            c = ((a["qid"][rid] << pos_bits)
+                                 | g.gid[s][idx])
+                            coded.append(c[valid].cpu().numpy())
+                except Exception as e:  # noqa: BLE001 — classify, re-raise
+                    if classify_device_failure(e) == "transient":
+                        for g in dev_gens:
+                            breaker.record_failure((id(self), g.gen_id))
+                    raise
                 if coded:
                     parts.append(np.concatenate(coded))
         if host_gens:

@@ -91,10 +91,14 @@ from ..ops.search import (
 )
 from ..metrics import (
     LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, PYRAMID_BUILD_MS,
-    registry as _metrics,
+    PYRAMID_BUILDS, registry as _metrics,
 )
+from ..obs.trace import device_span, obs_count
+from ..obs.trace import span as obs_span
 from ..planning.adaptive import check_replan
 from ..resilience.deadline import check_cancel
+from ..resilience.degrade import breaker, classify_device_failure
+from ..resilience.faults import fault_point
 from .mesh import DeviceMesh
 from .multihost import (
     agreed_int, allgather_concat, allreduce_tensor, process_index,
@@ -699,26 +703,40 @@ class ShardedLeanZ3Index:
         by its own total, so none truncates."""
         self.dispatch_count += self._scan_dispatches(totals)
         parts = []
-        for i, gen in enumerate(gens):
-            for s in range(self.mesh.size):
-                tot = int(totals[self._shard0 + s, i])
-                if not tot:
-                    continue
-                a = args[s]
-                starts, counts = seeks[i][s]
-                idx, valid, rid = expand_ranges(
-                    starts, counts, gather_capacity(tot, minimum=8))
-                cqid = a["rqid"][rid]
-                ok = valid
-                if exact:
-                    xc, yc, tc = gen.x[s][idx], gen.y[s][idx], gen.t[s][idx]
-                    in_box = (_in_boxes(xc, yc, a["boxes"])
-                              & (cqid[:, None] == a["bqid"][None, :])
-                              ).any(dim=1)
-                    ok = (valid & in_box & (tc >= a["qtlo"][cqid])
-                          & (tc <= a["qthi"][cqid]))
-                coded = (cqid << pos_bits) | gen.pos[s][idx]
-                parts.append(coded[ok].cpu().numpy())
+        # no demote-and-retry here: the gathered candidates allgather, so
+        # a process retrying alone would strand its peers.  A transient
+        # failure (device memory pressure) is still recorded on the
+        # breaker, then re-raised
+        try:
+            with device_span("query.scan.device",
+                             tier="full" if exact else "keys",
+                             runs=len(gens)):
+                for i, gen in enumerate(gens):
+                    for s in range(self.mesh.size):
+                        tot = int(totals[self._shard0 + s, i])
+                        if not tot:
+                            continue
+                        a = args[s]
+                        starts, counts = seeks[i][s]
+                        idx, valid, rid = expand_ranges(
+                            starts, counts, gather_capacity(tot, minimum=8))
+                        cqid = a["rqid"][rid]
+                        ok = valid
+                        if exact:
+                            xc, yc = gen.x[s][idx], gen.y[s][idx]
+                            tc = gen.t[s][idx]
+                            in_box = (_in_boxes(xc, yc, a["boxes"])
+                                      & (cqid[:, None]
+                                         == a["bqid"][None, :])).any(dim=1)
+                            ok = (valid & in_box & (tc >= a["qtlo"][cqid])
+                                  & (tc <= a["qthi"][cqid]))
+                        coded = (cqid << pos_bits) | gen.pos[s][idx]
+                        parts.append(coded[ok].cpu().numpy())
+        except Exception as e:  # noqa: BLE001 — classify, then re-raise
+            if classify_device_failure(e) == "transient":
+                for gen in gens:
+                    breaker.record_failure((id(self), gen.gen_id))
+            raise
         return (np.concatenate(parts) if parts
                 else np.empty(0, np.int64))
 
@@ -1078,11 +1096,15 @@ class ShardedLeanZ3Index:
         for g in list(self.generations[:-1]):
             if g.gen_id in cache:
                 continue
+            fault_point("pyramid.build")
             t0 = time.perf_counter()
-            part = self.density([_PYRAMID_WORLD], None, None,
-                                _PYRAMID_WORLD, base, base, _gens=[g])
+            with obs_span("pyramid.build", gen_id=g.gen_id, tier=g.tier,
+                          base=base, sharded=True):
+                part = self.density([_PYRAMID_WORLD], None, None,
+                                    _PYRAMID_WORLD, base, base, _gens=[g])
             self._pyramid_cache.add(cache, g.gen_id,
                                     DensityPyramid.from_base(part, levels))
+            obs_count(PYRAMID_BUILDS)
             _metrics.timer(PYRAMID_BUILD_MS).update(
                 (time.perf_counter() - t0) * 1e3)
             built += 1

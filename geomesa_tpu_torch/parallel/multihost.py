@@ -85,12 +85,16 @@ def initialize_distributed(coordinator_address: str, num_processes: int,
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group (no-op without one)."""
+    """Leave the process group (no-op without one).  The kernel gates'
+    agreed probe outcomes held for this group's processes, so they are
+    forgotten with it."""
     global _DEVICE_GROUP, _DEVICE_BACKEND
+    from ..ops.gate import forget_agreements
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _DEVICE_GROUP = None
     _DEVICE_BACKEND = None
+    forget_agreements()
 
 
 def _initialized() -> bool:

@@ -56,6 +56,7 @@ from ..ops.search import (
     coded_pos_bits, expand_ranges, gather_capacity, pack_coded, pack_wire,
     pad_boxes, pad_pow2, pad_ranges, searchsorted2, split_coded,
 )
+from ..ops.gate import agree_kernel
 from ..ops.z3_mask import z3_mask
 from .mesh import DeviceMesh, device_mesh, shard_batch
 from .multihost import (
@@ -635,6 +636,8 @@ class ShardedZ3Index:
         ixy, bxs = pad_boxes(plan.ixy, plan.boxes,
                              pad_pow2(len(plan.boxes), minimum=1))
         ixy, bxs = np.ascontiguousarray(ixy), np.ascontiguousarray(bxs)
+        if self._multihost:
+            agree_kernel("z3_scan", self.mesh[0])
         t_lo, t_hi = plan.t_lo_ms, plan.t_hi_ms
         if capacity is not None:   # explicit capacity: one pass, retries
             return np.unique(_global_hits(self._ring_pass(
@@ -695,6 +698,8 @@ class ShardedZ3Index:
                              pad_pow2(len(plan.boxes), minimum=1))
         args = _PerDevice(ixy=ixy, boxes=bxs, **r)
         t_lo, t_hi = plan.t_lo_ms, plan.t_hi_ms
+        if self._multihost:
+            agree_kernel("z3_scan", self.mesh[0])
         while True:
             scans = [_scan_shard(*cols, args.on(cols[0].device), t_lo, t_hi,
                                  capacity)
@@ -768,6 +773,8 @@ class ShardedZ3Index:
             np.concatenate(bqid))
         args = _PerDevice(ixy=ixy_c, boxes=boxes_c, bqid=bqid_c, qtlo=qtlo,
                           qthi=qthi, **ra)
+        if self._multihost:
+            agree_kernel("z3_scan", self.mesh[0])
         # multihost gids span GID_PROC_SHIFT + process bits: the position
         # field must clear all of it, or process bits bleed into the qid
         pos_bits = coded_pos_bits(
@@ -937,6 +944,8 @@ def sharded_density(x, y, dtg, gid, weights, boxes,
                 & (ts >= t_lo_ms) & (ts <= t_hi_ms))
         ws = (gid_weight_lookup(gs, a["w"], a["bases"]) if weights is not None
               else torch.ones_like(xs))
+        if multihost and total is None:
+            agree_kernel("density", xs.device)
         grid = density_grid_auto(xs, ys, ws, mask, env, width, height)
         total = grid if total is None else total + grid.to(total.device)
     if multihost:

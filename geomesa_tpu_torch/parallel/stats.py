@@ -31,6 +31,7 @@ import torch
 
 from ..metrics import merge_snapshots
 from ..metrics import registry as _registry
+from ..ops.gate import agree_kernel
 from ..ops.hist1d_kernel import hist1d
 from ..stats.stat import Frequency, Stat, _string_digest, parse_stat
 from .multihost import (
@@ -189,6 +190,8 @@ def sharded_stats_scan(idx, boxes, t_lo_ms, t_hi_ms, values=None,
     h_lo, h_hi = ((float(hist_range[0]), float(hist_range[1]))
                   if hist_range else (0.0, 1.0))
     kernel = bool(hist_bins) and _hist_kernel_ok(idx)
+    if kernel and idx._multihost:
+        agree_kernel("hist1d", idx.mesh[0])
     tables = {"boxes": boxes}
     if values is not None:
         tables["table"], tables["bases"] = idx._weight_table(values)
@@ -252,6 +255,8 @@ def sharded_frequency_scan(idx, boxes, t_lo_ms, t_hi_ms, values,
         col, dtype=np.int64 if col.dtype.kind in "iu" else np.float64)
     args = _PerDevice(boxes=boxes, table=table, bases=bases)
     kernel = _hist_kernel_ok(idx)
+    if kernel and idx._multihost:
+        agree_kernel("hist1d", idx.mesh[0])
     parts = []
     for xs, ys, ts, gs in zip(idx.x, idx.y, idx.dtg, idx.gid):
         a = args.on(xs.device)

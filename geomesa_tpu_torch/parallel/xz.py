@@ -33,6 +33,7 @@ from ..index.z3 import _lexsort2
 from ..ops.search import (
     expand_ranges, pack_wire, pad_pow2, pad_ranges, searchsorted2,
 )
+from ..resilience.degrade import breaker, classify_device_failure
 from .mesh import DeviceMesh, device_mesh, shard_batch
 from .multihost import agreed_int, global_device_mesh, process_local_shard
 from .scan import (
@@ -203,8 +204,15 @@ class ShardedXZ2Index:
                         "rzhi": ranges[:, 1].astype(np.int64)},
                        pad_pow2(len(ranges)))
         args = _PerDevice(**r, **_envelope_args(env))
-        flat, self._capacity = _read_wires(_xz2_scan, self._shards(), args,
-                                           self._capacity)
+        # collective path: classify only — a transient failure is
+        # recorded on the breaker and re-raised, never retried locally
+        try:
+            flat, self._capacity = _read_wires(
+                _xz2_scan, self._shards(), args, self._capacity)
+        except Exception as e:  # noqa: BLE001 — classify, then re-raise
+            if classify_device_failure(e) == "transient":
+                breaker.record_failure((id(self), "xz2"))
+            raise
         return np.unique(flat[flat >= 0]).astype(np.int64)
 
     def query(self, geometry: Geometry, max_ranges: int = DEFAULT_MAX_RANGES,
@@ -317,8 +325,15 @@ class ShardedXZ3Index:
                        pad_pow2(len(trip)))
         args = _PerDevice(**r, **_envelope_args(env),
                           t_lo=np.int64(t_lo_ms), t_hi=np.int64(t_hi_ms))
-        flat, self._capacity = _read_wires(_xz3_scan, self._shards(), args,
-                                           self._capacity)
+        # collective path: classify only — a transient failure is
+        # recorded on the breaker and re-raised, never retried locally
+        try:
+            flat, self._capacity = _read_wires(
+                _xz3_scan, self._shards(), args, self._capacity)
+        except Exception as e:  # noqa: BLE001 — classify, then re-raise
+            if classify_device_failure(e) == "transient":
+                breaker.record_failure((id(self), "xz3"))
+            raise
         return np.unique(flat[flat >= 0]).astype(np.int64)
 
     def query(self, geometry: Geometry, t_lo_ms: int, t_hi_ms: int,

@@ -25,6 +25,7 @@ from ..ops.search import (
     coded_pos_bits, expand_ranges, gather_capacity, pack_coded, pack_wire,
     pad_boxes, pad_pow2, pad_ranges, split_coded,
 )
+from ..ops.gate import agree_kernel
 from ..ops.z2_mask import z2_mask
 from .mesh import DeviceMesh, device_mesh, shard_batch
 from .multihost import (
@@ -231,6 +232,8 @@ class ShardedZ2Index:
         ixy, bxs = pad_boxes(plan.ixy, plan.boxes,
                              pad_pow2(len(plan.boxes), minimum=1))
         args = _PerDevice(ixy=ixy, boxes=bxs, **r)
+        if self._multihost:
+            agree_kernel("z2_scan", self.mesh[0])
 
         def scan(lz, lg, xs, ys, a, capacity):
             idx, gc, valid, _, total = _gather(lz, lg, a, capacity)
@@ -274,6 +277,8 @@ class ShardedZ2Index:
             pad_pow2(sum(len(b) for b in bxs), minimum=1),
             np.concatenate(bqid))
         args = _PerDevice(ixy=ixy_c, boxes=boxes_c, bqid=bqid_c, **r)
+        if self._multihost:
+            agree_kernel("z2_scan", self.mesh[0])
         pos_bits = coded_pos_bits(
             multihost_gid_span() if self._multihost else self._n_total, n_q)
 

@@ -48,6 +48,8 @@ from ..filters.evaluate import evaluate_filter
 from ..geometry.types import Polygon
 from ..metrics import PLAN_ESTIMATE_RATIO, PLAN_REPLANNED
 from ..metrics import registry as _metrics
+from ..obs.trace import current_span
+from ..obs.trace import span as obs_span
 from ..resilience.deadline import check_cancel
 from .adaptive import ReplanSignal, replan_scope
 from .explain import Explainer, ExplainNull
@@ -149,53 +151,74 @@ class QueryPlanner:
 
         t0 = time.perf_counter()
         mh = getattr(store, "multihost", False)
-        stats = store.stats_map()
-        # multihost: the global count and merged stats — every process
-        # must cost the strategies alike
-        n_plan = stats["count"].count if mh else len(batch)
-        decider = StrategyDecider(
-            self.sft, stats, n_plan,
-            allowed_indices=store.query_indices,
-            attr_z3_tier=not store.lean,
-            servable_attrs=(set(store._lean_attr_names())
-                            if store.lean else None),
-            estimator=store.estimator())
-        strategy, _ = decider.decide_with_options(
-            query.filter, explain, forced=query.hints.get("QUERY_INDEX"))
+        with obs_span("query.plan") as psp:
+            stats = store.stats_map()
+            # multihost: the global count and merged stats — every
+            # process must cost the strategies alike
+            n_plan = stats["count"].count if mh else len(batch)
+            decider = StrategyDecider(
+                self.sft, stats, n_plan,
+                allowed_indices=store.query_indices,
+                attr_z3_tier=not store.lean,
+                servable_attrs=(set(store._lean_attr_names())
+                                if store.lean else None),
+                estimator=store.estimator())
+            strategy, options = decider.decide_with_options(
+                query.filter, explain,
+                forced=query.hints.get("QUERY_INDEX"))
+            # the chosen estimate, its source and every option's cost
+            # land on the plan span: the cost model is reconstructable
+            # from the trace
+            psp.set_attr("strategy", strategy.index)
+            psp.set_attr("plan.estimate.rows", round(float(strategy.cost), 1))
+            psp.set_attr("plan.estimate.source", strategy.source)
+            if psp.recording and options:
+                psp.set_attr("plan.options",
+                             {o.index: round(float(o.cost), 1)
+                              for o in options})
         plan_ms = (time.perf_counter() - t0) * 1000
         check_deadline("planning")
 
         t1 = time.perf_counter()
-        try:
-            with self._replan_scope_for(strategy, query):
-                candidates = self._scan(strategy, query, explain)
-        except ReplanSignal as sig:
-            # adaptive mid-query replan: the scan's probe observed
-            # candidates diverging past the threshold — re-decide with
-            # the actual folded in, re-scan ONCE
-            strategy, candidates = self._replan(sig, strategy, decider,
-                                                query, explain)
+        replanned = False
+        with obs_span("query.scan", strategy=strategy.index) as ssp:
+            try:
+                with self._replan_scope_for(strategy, query):
+                    candidates = self._scan(strategy, query, explain)
+            except ReplanSignal as sig:
+                # adaptive mid-query replan: the scan's probe observed
+                # candidates diverging past the threshold — re-decide
+                # with the actual folded in, re-scan ONCE
+                strategy, candidates = self._replan(sig, strategy, decider,
+                                                    query, explain)
+                replanned = True
+                ssp.set_attr("strategy", strategy.index)
+            ssp.set_attr("candidates",
+                         -1 if candidates is None else int(len(candidates)))
         check_deadline("index scan")
-        # multihost: candidates are GLOBAL gids — each process
-        # residual-filters only its own gid-decoded rows
-        cand = (store.local_rows_of(candidates)
-                if mh and candidates is not None else candidates)
-        if candidates is None:  # full scan (of this process's rows)
-            mask = evaluate_filter(query.filter, batch)
-            positions = np.flatnonzero(mask)
-        elif len(cand):
-            # lean column stores re-check through an id-free ChunkView: a
-            # take() would mint O(candidates) feature-id strings just to
-            # throw them away.  Id-predicated filters still need real ids.
-            if (hasattr(batch, "take_view")
-                    and not _filter_needs_ids(query.filter)):
-                sub = batch.take_view(cand)
+        with obs_span("query.post_filter") as fsp:
+            # multihost: candidates are GLOBAL gids — each process
+            # residual-filters only its own gid-decoded rows
+            cand = (store.local_rows_of(candidates)
+                    if mh and candidates is not None else candidates)
+            if candidates is None:  # full scan (of this process's rows)
+                mask = evaluate_filter(query.filter, batch)
+                positions = np.flatnonzero(mask)
+            elif len(cand):
+                # lean column stores re-check through an id-free
+                # ChunkView: a take() would mint O(candidates) feature-id
+                # strings just to throw them away.  Id-predicated filters
+                # still need real ids.
+                if (hasattr(batch, "take_view")
+                        and not _filter_needs_ids(query.filter)):
+                    sub = batch.take_view(cand)
+                else:
+                    sub = batch.take(cand)
+                mask = evaluate_filter(query.filter, sub)
+                positions = cand[mask]
             else:
-                sub = batch.take(cand)
-            mask = evaluate_filter(query.filter, sub)
-            positions = cand[mask]
-        else:
-            positions = np.asarray(cand, dtype=np.int64)
+                positions = np.asarray(cand, dtype=np.int64)
+            fsp.set_attr("hits", int(len(positions)))
         scan_ms = (time.perf_counter() - t1) * 1000
         check_deadline("filtering")
         explain(lambda: f"Scan: {len(positions)} hits "
@@ -206,6 +229,18 @@ class QueryPlanner:
                              else len(candidates))
         ratio = (float(strategy.cost) + 1.0) / (actual_scanned + 1.0)
         _metrics.histogram(PLAN_ESTIMATE_RATIO).update(ratio)
+        # the estimate audit lands on the enclosing query span, which
+        # EXPLAIN ANALYZE reads
+        root = current_span()
+        if root is not None:
+            root.set_attr("plan.estimate.rows",
+                          round(float(strategy.cost), 1))
+            root.set_attr("plan.estimate.source", strategy.source)
+            root.set_attr("plan.actual.scanned", actual_scanned)
+            root.set_attr("plan.actual.matched", int(len(positions)))
+            root.set_attr("plan.estimate.ratio", round(ratio, 4))
+            if replanned:
+                root.set_attr("plan.replanned", True)
         explain(lambda: f"Estimate audit: predicted {strategy.cost:.0f} "
                         f"rows ({strategy.source}), scanned "
                         f"{actual_scanned}, matched "
@@ -274,20 +309,25 @@ class QueryPlanner:
         the probe's seeks dropped with the aborted call), and the new
         strategy's candidate superset passes the same residual filter as
         always."""
-        _metrics.counter(PLAN_REPLANNED).inc()
-        explain(lambda: f"Replanning: {strategy.index} observed "
-                        f"{sig.observed} candidates at {sig.point} "
-                        f"vs estimate {sig.estimate:.0f}")
-        try:
-            new, _ = decider.decide_with_options(
-                query.filter, explain,
-                observed={strategy.index: float(sig.observed)})
-        except RuntimeError:
-            # blocked full-table scan surfaced by the re-decide: finish
-            # under the original strategy rather than fail a query that
-            # was already running
-            new = strategy
-        return new, self._scan(new, query, explain)
+        with obs_span("query.replan", from_strategy=strategy.index,
+                      observed=int(sig.observed),
+                      estimate=round(float(sig.estimate), 1)) as rsp:
+            _metrics.counter(PLAN_REPLANNED).inc()
+            explain(lambda: f"Replanning: {strategy.index} observed "
+                            f"{sig.observed} candidates at {sig.point} "
+                            f"vs estimate {sig.estimate:.0f}")
+            try:
+                new, _ = decider.decide_with_options(
+                    query.filter, explain,
+                    observed={strategy.index: float(sig.observed)})
+            except RuntimeError:
+                # blocked full-table scan surfaced by the re-decide:
+                # finish under the original strategy rather than fail a
+                # query that was already running
+                new = strategy
+            rsp.set_attr("to_strategy", new.index)
+            candidates = self._scan(new, query, explain)
+        return new, candidates
 
     # -- strategy execution ----------------------------------------------
     def _scan(self, strategy: FilterStrategy, query: Query,

@@ -8,9 +8,9 @@ both OFF by default:
 - concurrency: more than ``geomesa.resilience.admission.max.concurrent``
   queries in flight;
 - device-memory pressure: the ``storage.total.device_bytes`` gauge above
-  ``geomesa.resilience.hbm.headroom`` bytes.  The gauge is whatever the
-  registry holds: the port publishes no storage gauge yet, so the check
-  acts only where a caller sets it.
+  ``geomesa.resilience.hbm.headroom`` bytes.  The gauge is what
+  :func:`~geomesa_tpu_torch.obs.resource.publish_storage_gauges` last
+  published (or whatever a caller set).
 
 An over-budget request queues up to ``admission.queue.ms`` (a brief wait
 absorbs bursts without queueing unboundedly), then sheds with
@@ -84,8 +84,8 @@ class AdmissionGate:
         self._next_ticket = 0
 
     def _refresh_locked(self) -> None:
-        # the knobs come from the environment: re-read on every acquire
-        # (three lookups), so a changed setting takes effect at once
+        # re-read on every acquire (three lookups), so a changed
+        # setting (environment or set_property) takes effect at once
         self._max = int(
             ResilienceProperties.ADMISSION_MAX_CONCURRENT.get() or 0)
         self._queue_ms = float(

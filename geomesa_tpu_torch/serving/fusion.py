@@ -45,6 +45,7 @@ from ..metrics import (SERVING_BATCH_WINDOWS, SERVING_COALESCE_MS,
                        SERVING_FUSED_REQUESTS, SERVING_RIDER_EXPIRED,
                        SERVING_TENANT_SHED)
 from ..metrics import registry as _registry
+from ..obs.trace import span as obs_span
 from ..resilience import (Backpressure, CancelScope, QueryTimeout,
                           deadline_scope)
 
@@ -337,22 +338,28 @@ class FusionScheduler:
                         m.coalesce_ms)
                 first_round = False
             try:
-                if margin is not None:
-                    # the batch runs under its members' minimum remaining
-                    # margin, in partial mode: expiry stops the scan at a
-                    # yield point — it never raises out of a shared
-                    # dispatch.  A margin already spent (a leader that
-                    # expired while it lingered) is a scope expired from
-                    # the start, not one without a deadline.
-                    bscope = CancelScope(margin, True)
-                    if bscope._deadline_t is None:
-                        bscope._deadline_t = bscope._start_t
-                    with deadline_scope(scope=bscope):
+                with obs_span("serving.fuse", schema=schema,
+                              batch=len(pending),
+                              windows=len(windows)) as sp:
+                    if margin is not None:
+                        # the batch runs under its members' minimum
+                        # remaining margin, in partial mode: expiry stops
+                        # the scan at a yield point — it never raises out
+                        # of a shared dispatch.  A margin already spent (a
+                        # leader that expired while it lingered) is a
+                        # scope expired from the start, not one without a
+                        # deadline.
+                        bscope = CancelScope(margin, True)
+                        if bscope._deadline_t is None:
+                            bscope._deadline_t = bscope._start_t
+                        with deadline_scope(scope=bscope):
+                            hits = dispatch(windows)
+                        expired_mid = bscope.timed_out
+                    else:
                         hits = dispatch(windows)
-                    expired_mid = bscope.timed_out
-                else:
-                    hits = dispatch(windows)
-                    expired_mid = False
+                        expired_mid = False
+                    sp.set_attr("hits", int(sum(len(h) for h in hits)))
+                    sp.set_attr("partial", bool(expired_mid))
             except BaseException as e:
                 for m in pending:
                     m.error = e

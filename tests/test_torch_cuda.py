@@ -74,9 +74,16 @@ def test_z3_mask_kernel_matches_reference(cuda_device, n, n_boxes, pad_to):
 
 
 def test_z3_mask_kernel_rejects_too_many_boxes(cuda_device):
+    from geomesa_tpu_torch import metrics
+    from geomesa_tpu_torch.ops.gate import GATES
     args = _mask_inputs(64, 3073, 3073, 0, cuda_device)
+    failures = metrics.registry.counter(
+        GATES["z3_scan"].failures_metric).count
     with pytest.raises(ValueError):
         z3_mask(*args)
+    # a caller's error is refused before the gate: no kernel failure
+    assert metrics.registry.counter(
+        GATES["z3_scan"].failures_metric).count == failures
 
 
 def test_z3_mask_kernel_rejects_mixed_devices(cuda_device):
@@ -930,3 +937,44 @@ def test_mesh_lean_store_on_card_matches_cpu(cuda_device):
     assert z3_mask.launches > before
     np.testing.assert_array_equal(
         got, z3.query([(-5, -5, 5, 5)], MS_2018, MS_2018 + 20 * DAY))
+
+
+# -- the kernel gates and degraded execution on the card ------------------
+
+def test_gates_launch_on_the_card(cuda_device):
+    """Each wrapper launches its kernel through its gate (``ok`` True),
+    and a failing launch reaches the caller through the gate, which
+    launches again on the next call."""
+    from geomesa_tpu_torch.ops import gate
+    from geomesa_tpu_torch.ops import z3_mask as z3m
+    z, ixy, tlo, thi = _mask_inputs(1 << 12, 3, 4, 7, cuda_device)
+    z3_mask(z, ixy, tlo, thi)
+    for kind in gate.GATES:
+        gate._probe(kind, cuda_device)
+        assert gate.GATES[kind].ok in (None, True)
+    g = gate.GATES["z3_scan"]
+    real = z3m._launcher
+    try:
+        z3m._launch_fn = None
+        z3m._launcher = lambda: (lambda *a: 1)   # a refused launch
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            z3_mask(z, ixy, tlo, thi)
+        assert g.ok is False
+    finally:
+        z3m._launcher = real
+    assert torch.equal(z3_mask(z, ixy, tlo, thi).cpu(),
+                       z3_mask_reference(*(t.cpu() for t in
+                                           (z, ixy, tlo, thi))))
+    assert g.ok is True
+
+
+def test_allocator_oom_is_transient(cuda_device):
+    """The caching allocator's out-of-memory error classifies transient
+    (the degraded path's trigger); a launch error does not."""
+    from geomesa_tpu_torch.resilience import classify_device_failure
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as err:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda_device)
+    assert classify_device_failure(err.value) == "transient"
+    assert classify_device_failure(RuntimeError(
+        "z3_mask kernel launch failed: CUDA error 700")) == "poison"

@@ -189,11 +189,14 @@ def test_unserved_options_raise(stores):
     with pytest.raises(ValueError, match="requires a mesh"):
         TpuDataStore(device="cpu", multihost=True)
     # visibilities and auth providers are served since the lifecycle
-    # slice; the observability-backed reports still raise
-    with pytest.raises(NotImplementedError, match="explain_analyze"):
-        tds.explain_analyze("gdelt", "INCLUDE")
-    with pytest.raises(NotImplementedError, match="storage_report"):
-        tds.storage_report()
+    # slice, EXPLAIN ANALYZE and the storage report since the
+    # observability slice; EXPLAIN ANALYZE of SQL waits for the SQL layer
+    ea = tds.explain_analyze("gdelt", "INCLUDE")
+    assert ea.summary["actual_matched"] == len(tds._store("gdelt").batch)
+    assert "gdelt" in tds.storage_report()["schemas"]
+    from geomesa_tpu_torch.obs import explain_analyze_sql
+    with pytest.raises(NotImplementedError, match="SQL"):
+        explain_analyze_sql(tds, "SELECT * FROM gdelt")
 
 
 def test_lean_sized_first_write_raises(monkeypatch):

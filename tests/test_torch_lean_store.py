@@ -326,12 +326,12 @@ def test_left_out_features_raise(stores, tmp_path):
         assert list(b.positions) == list(a.positions) == list(
             jds.query_result("poly", q).positions)
     # deletes and visibilities are served since the lifecycle slice
-    # (tests/test_torch_delete.py, tests/test_torch_security.py); the
-    # observability-backed reports still raise
-    with pytest.raises(NotImplementedError, match="explain_analyze"):
-        tds.explain_analyze("evt", "INCLUDE")
-    with pytest.raises(NotImplementedError, match="storage_report"):
-        tds.storage_report()
+    # (tests/test_torch_delete.py, tests/test_torch_security.py), the
+    # observability-backed reports since the observability slice
+    # (tests/test_torch_explain_analyze.py, tests/test_torch_resource.py)
+    assert tds.explain_analyze("evt", "INCLUDE").summary["hits"] == len(
+        tds._store("evt").batch)
+    assert tds.storage_report()["reconciliation"]["within_tolerance"]
 
 
 # -- lean schemas over a mesh (the JAX package's tests/test_lean_store.py

@@ -13,7 +13,9 @@ queries, count, heatmap, pyramids and compaction with a ring query on the
 mesh store, and a one-process multihost store's query, stats, bounds,
 append and delete, and the serving plane (batched windows on a default
 and a lean store, fused queries from four threads, a tile and a query
-under deadlines, the audit and the metrics reduction), loads neither
+under deadlines, the audit and the metrics reduction), a traced query,
+a lean query degraded by a fault armed through ``set_property``, the
+storage report and EXPLAIN ANALYZE, loads neither
 ``jax`` nor
 any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
@@ -270,6 +272,27 @@ serving = {
     "requests": allreduce_metrics_snapshot()[
         "serving.fused.requests"]["count"],
     "windows_count": mreg.counter("query.s.windows").count}
+from geomesa_tpu_torch import config as tcfg
+from geomesa_tpu_torch.metrics import RESILIENCE_DEGRADED
+from geomesa_tpu_torch.obs import storage_report, tracer
+from geomesa_tpu_torch.ops.gate import kernel_health
+with tracer.capture() as cap:
+    tq = ds.query_result("s", sq)
+tspans = sorted({sp.name for tr in cap.traces() for sp in tr.spans})
+deg0 = mreg.counter(RESILIENCE_DEGRADED).count
+tcfg.set_property("geomesa.resilience.fault.points", "device.dispatch:1=oom")
+try:
+    dq = sv.query_result("sv", sq)
+finally:
+    tcfg.clear_property("geomesa.resilience.fault.points")
+obs = {"spans": tspans, "traced_hits": int(len(tq.positions)),
+       "degraded": mreg.counter(RESILIENCE_DEGRADED).count - deg0,
+       "degraded_hits": int(len(dq.positions)),
+       "trace_id": bool(aw.query_events("sv")[-1].trace_id),
+       "storage": storage_report(sv)["reconciliation"]["within_tolerance"],
+       "explain": sv.explain_analyze("sv", sq).summary["actual_matched"],
+       "gates": sorted(k for k, v in kernel_health().items()
+                       if k.endswith("_ok"))}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -296,7 +319,8 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "replans": str(rex).count("Replanning: z3 observed"),
                   "attr": attr, "poly": poly, "life": life,
                   "persist": persist, "mesh_lean": mesh_lean,
-                  "multihost": multihost, "serving": serving}))
+                  "multihost": multihost, "serving": serving,
+                  "obs": obs}))
 """
 
 
@@ -376,12 +400,29 @@ def test_import_and_query_load_no_jax():
     assert sv["cancelled"] is True and sv["inflight"] == 0
     assert sv["events"] >= 4 and sv["requests"] == 4
     assert sv["windows_count"] == 2
+    obs = out["obs"]
+    assert {"query", "query.plan", "query.scan", "query.scan.device",
+            "query.post_filter"} <= set(obs["spans"])
+    assert obs["traced_hits"] == sv["solo"][1]
+    # the armed fault demoted generations and the answer stayed whole
+    assert obs["degraded"] >= 1 and obs["degraded_hits"] == sv["fused_solo"]
+    assert obs["trace_id"] is True and obs["storage"] is True
+    assert obs["explain"] == sv["fused_solo"]
+    assert obs["gates"] == ["density_ok", "hist1d_ok", "z2_scan_ok",
+                            "z3_scan_ok"]
 
 
 def test_source_scan_covers_the_serving_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"metrics.py", "audit.py", "resilience/deadline.py",
             "resilience/admission.py", "serving/fusion.py"} <= scanned
+
+
+def test_source_scan_covers_the_observability_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"obs/trace.py", "obs/resource.py", "obs/explain_analyze.py",
+            "resilience/faults.py", "resilience/degrade.py",
+            "ops/gate.py"} <= scanned
 
 
 def test_source_scan_covers_the_multihost_modules():
