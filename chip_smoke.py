@@ -11,10 +11,10 @@
                           [--mesh-lean-rows 32000000]
                           [--mesh-lean-slots 4194304]
                           [--poly-rows 8000000] [--poly-mesh-rows 8000000]
-                          [--lean-poly-rows 32000000]
+                          [--lean-poly-rows 16000000]
                           [--lean-poly3-rows 16000000]
                           [--lean-poly3-slots 2097152]
-                          [--mesh-lean-poly-rows 16000000]
+                          [--mesh-lean-poly-rows 8000000]
                           [--mesh-lean-poly3-rows 8000000]
                           [--mesh-lean-poly-slots 2097152]
                           [--life-rows 6000000]
@@ -109,6 +109,24 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    wall time, the audit's ``trace_id`` equal to the traced query's (""
    when unsampled), and one ``explain_analyze`` whose matched rows equal
    the query's hits;
+6d. obs, on stores earlier phases built.  On the facade's ``gdelt``
+   store: the 20 queries traced under ``geomesa.slo.objectives`` of 1 ms
+   at 0.99 (every one misses it) and a burn alert at 1, folded into the
+   SLO plane; the ``query`` class's stage ledger and its
+   ``unattributed`` share, both windows' burn (> 1), exactly one alert
+   fired; the registry's ``prometheus_text`` plus the plane's exposition
+   parsed line by line; ``compile_count()`` (the kernel-build watch)
+   unchanged across the warm queries.  Inside phase 8, after its
+   ``compact`` and serving part: the lean queries with the heat tracker
+   cleared, then ``heat_report`` ranks every z3 generation once, with
+   as many touches as queries that reached it and the tier
+   ``storage_report`` gives; the BBOX+DURING queries' p50 with
+   ``geomesa.obs.heat.enabled`` on and off in turns (not gated); one
+   ``CompactionJob`` and one ``PyramidJob``, each ``succeeded`` in
+   ``jobs_registry`` with its phase span.  Inside phase 11b, after its
+   ``compact``: the lean queries traced, their ``unattributed`` share,
+   and one ``heat_report`` ranking every generation of its three
+   indexes once;
 7. mesh: ``TpuDataStore(mesh=device_mesh(1))`` on schema ``events``
    (``actor:String,score:Double,dtg:Date,*geom:Point``): ``--mesh-rows``
    rows in 4 writes with no query between (the sharded z3 index builds
@@ -332,7 +350,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 6b (which must
-launch z3_mask, z2_mask and density_grid), phase 6c (z3_mask), phase 7, phase 8 (whose
+launch z3_mask, z2_mask and density_grid), phase 6c (z3_mask), phase 6d
+(its facade part must launch z3_mask; its lean and mesh lean parts count
+apart inside their phases, set to 0 and read around each, and are
+reported), phase 7, phase 8 (whose
 serving part 8b counts apart, set to 0 and read around it, and
 reported: the lean fused scan runs no kernel, as the JAX lean programs
 reach none),
@@ -2293,6 +2314,282 @@ def allocated_after_gc(cuda: bool):
     return int(torch.cuda.memory_allocated())
 
 
+#: one line of the Prometheus text exposition: a sample (with an optional
+#: label and an optional OpenMetrics exemplar) or a ``# TYPE`` line
+_PROM_SAMPLE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_]+="[^"]*"\})? '
+                r'[-+0-9.eE]+(inf)?( # \{trace_id="[^"]+"\} [-+0-9.eE]+)?$')
+_PROM_TYPE = (r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* "
+              r"(counter|gauge|summary|histogram)$")
+
+
+def prom_lines(text: str) -> int:
+    """Check ``text`` line by line as Prometheus text exposition; returns
+    the number of lines, raises at the first line that does not parse."""
+    import re
+    sample, typ = re.compile(_PROM_SAMPLE), re.compile(_PROM_TYPE)
+    lines = text.splitlines()
+    for line in lines:
+        if not (sample.match(line) or typ.match(line)):
+            raise AssertionError(f"Prometheus text: {line!r} does not parse")
+    return len(lines)
+
+
+def _ledger(traces) -> dict:
+    """The summed stage ledger of the finished ``query`` roots of
+    ``traces`` (obs/attribution.py): ``{stages_ms, total_ms, queries,
+    unattributed_share}``, and ``unmapped_ms``, the exclusive time of the
+    spans the ledger maps to no stage (the root's own among them), by
+    span name: what the ``unattributed`` stage holds."""
+    from geomesa_tpu_torch.obs import SLO_STAGES, attribute
+    from geomesa_tpu_torch.obs.attribution import SPAN_STAGE
+    led = dict.fromkeys(SLO_STAGES, 0.0)
+    unmapped: dict = {}
+    total, n, shares = 0.0, 0, []
+    for tr in traces:
+        att = attribute(tr)
+        if att is None or att["class"] != "query":
+            continue
+        for k, v in att["stages"].items():
+            led[k] += v
+        total += att["total_ms"]
+        shares.append(att["stages"]["unattributed"]
+                      / max(att["total_ms"], 1e-9))
+        n += 1
+        child: dict = {}
+        for sp in tr.spans:
+            if sp.parent_id is not None:
+                child[sp.parent_id] = child.get(sp.parent_id, 0.0) \
+                    + sp.duration_ms
+        for sp in tr.spans:
+            if sp.name not in SPAN_STAGE:
+                unmapped[sp.name] = unmapped.get(sp.name, 0.0) + max(
+                    0.0, sp.duration_ms - child.get(sp.span_id, 0.0))
+    return {"stages_ms": led, "total_ms": total, "queries": n,
+            "unattributed_share": led["unattributed"] / max(total, 1e-9),
+            "unattributed_share_max": max(shares) if shares else 0.0,
+            "unmapped_ms": unmapped}
+
+
+def obs_facade_part(qs, ds, report):
+    """6d on the facade's ``gdelt`` store: the trace phase's 20 queries,
+    traced, fold into the SLO plane under an objective they all miss
+    (1 ms at 0.99, the alert at a burn of 1); the ``query`` class's stage
+    ledger, both windows' burn, one alert fired exactly once; the
+    registry's Prometheus text and the plane's exposition parsed line by
+    line; the kernel-build count unchanged across the warm queries."""
+    from geomesa_tpu_torch.config import clear_property, set_property
+    from geomesa_tpu_torch.metrics import ALERT_SLO_FIRED, registry
+    from geomesa_tpu_torch.obs import (
+        compile_count, prometheus_text, slo_plane, tracer,
+    )
+
+    qsql = [_ecql(boxes, lo, hi) for _, boxes, lo, hi in qs]
+    knobs = {"geomesa.slo.objectives": "query:1:0.99",
+             "geomesa.slo.burn.alert": 1.0, "geomesa.obs.sampler": "always"}
+    for k, v in knobs.items():
+        set_property(k, v)
+    try:
+        slo_plane.reset()
+        fired0 = registry.counter(ALERT_SLO_FIRED).count
+        req0 = registry.counter("slo.query.requests").count
+        builds0 = compile_count()
+        with tracer.capture(capacity=len(qsql) + 8) as cap:
+            for q in qsql:
+                ds.query_result("gdelt", q)
+        builds = compile_count() - builds0
+        traces = cap.traces()
+        slo = slo_plane.report()["classes"]["query"]
+        alerts = slo_plane.alerts(cls="query")
+        fired = registry.counter(ALERT_SLO_FIRED).count - fired0
+        folded = registry.counter("slo.query.requests").count - req0
+        slo_plane.publish()
+        text = (prometheus_text(registry.snapshot())
+                + slo_plane.exposition())
+        n_lines = prom_lines(text)
+    finally:
+        for k in knobs:
+            clear_property(k)
+    led = _ledger(traces)
+    rep = {"ledger": led, "folded": folded, "burn_5m": slo["burn_5m"],
+           "burn_1h": slo["burn_1h"], "alerts_fired": fired,
+           "alerts_in_ring": len(alerts), "prom_lines": n_lines,
+           "prom_exemplars": text.count("# {trace_id="),
+           "kernel_builds": builds}
+    if folded != len(qsql) or led["queries"] != len(qsql):
+        raise AssertionError(f"SLO plane folded {folded} and attributed "
+                             f"{led['queries']} of {len(qsql)} queries")
+    if not (slo["burn_5m"] > 1.0 and slo["burn_1h"] > 1.0):
+        raise AssertionError(f"the query class does not burn: {slo}")
+    if fired != 1 or len(alerts) != 1:
+        raise AssertionError(f"{fired} alerts fired, {len(alerts)} in the "
+                             f"ring: one expected")
+    if builds:
+        raise AssertionError(f"{builds} kernel builds across the warm "
+                             f"queries")
+    report.setdefault("obs", {})["facade"] = rep
+    stages = ", ".join(f"{k} {v:.1f}" for k, v in led["stages_ms"].items()
+                       if v)
+    log(f"obs (facade): {len(qsql)} traced queries folded; query ledger "
+        f"(ms) {stages} of {led['total_ms']:.1f} ms, unattributed "
+        f"{led['unattributed_share']:.2%} (unmapped spans' own ms "
+        f"{ {k: round(v, 1) for k, v in led['unmapped_ms'].items()} }); "
+        f"burn 5m {slo['burn_5m']}, 1h "
+        f"{slo['burn_1h']}; alerts fired {fired} (ring {len(alerts)}); "
+        f"Prometheus text {n_lines} lines parsed, "
+        f"{rep['prom_exemplars']} exemplars; kernel builds {builds}")
+
+
+def _reached(traces) -> int:
+    """Traced queries whose plan held ranges: their scan reached every
+    generation of the index (the probe's seek)."""
+    return sum(1 for tr in traces for s in tr.spans
+               if s.name == "query.decompose"
+               and s.attributes.get("ranges", 0) > 0)
+
+
+def obs_lean_part(ds, name, checks, report, reps: int = 2):
+    """6d on the lean phase's store (after its ``compact``): the lean
+    queries with the heat tracker cleared, then ``heat_report``: every
+    generation of the z3 index ranks once, its touches equal the queries
+    whose scan reached it, its tier equals ``storage_report``'s.  The
+    BBOX+DURING queries' p50 with ``geomesa.obs.heat.enabled`` on and off
+    in turns (not gated).  One ``CompactionJob`` and one ``PyramidJob``,
+    each ``succeeded`` in ``jobs_registry`` with its phase span."""
+    import numpy as np
+    from geomesa_tpu_torch.config import clear_property, set_property
+    from geomesa_tpu_torch.jobs import CompactionJob, PyramidJob
+    from geomesa_tpu_torch.obs import (
+        compile_count, heat_tracker, jobs_registry, tracer,
+    )
+
+    # one query first: the estimator refolds its cell table after the
+    # phase's compaction, a touch of every generation of its own
+    ds.query_result(name, checks[0][1])
+    builds0 = compile_count()
+    heat_tracker.clear()
+    set_property("geomesa.obs.sampler", "always")
+    try:
+        with tracer.capture(capacity=len(checks) + 8) as cap:
+            for c in checks:
+                ds.query_result(name, c[1])
+        reached = _reached(cap.traces())
+        heat = ds.heat_report()
+        storage = ds.storage_report()
+        # heat on and off in turns, BBOX+DURING queries only
+        wall = {"on": [], "off": []}
+        timed = [c for c in checks if c[3] is not None]
+        for turn in range(2 * reps):
+            mode = ("on", "off")[(turn + turn // 2) % 2]
+            set_property("geomesa.obs.heat.enabled", mode == "on")
+            for c in timed:
+                t0 = time.perf_counter()
+                ds.query_result(name, c[1])
+                wall[mode].append((time.perf_counter() - t0) * 1e3)
+        clear_property("geomesa.obs.heat.enabled")
+        jobs_registry.clear()
+        with tracer.capture() as jcap:
+            merged = CompactionJob(ds, name).run()
+            built = PyramidJob(ds, name).run()
+    finally:
+        clear_property("geomesa.obs.sampler")
+        clear_property("geomesa.obs.heat.enabled")
+    builds = compile_count() - builds0
+    z3 = [r for r in heat["generations"] if r["index"] == "z3"]
+    ids = [r["gen_id"] for r in z3]
+    placed = {g["gen_id"]: g["tier"] for g in
+              storage["schemas"][name]["indexes"]["z3"]["generations"]}
+    if sorted(ids) != sorted(placed) or len(ids) != len(set(ids)):
+        raise AssertionError(f"heat ranks z3 generations {sorted(ids)}, "
+                             f"storage holds {sorted(placed)}")
+    bad = [r for r in z3 if r["scans"] != reached
+           or r["tier"] != placed[r["gen_id"]]
+           or r["placement"]["tier"] != placed[r["gen_id"]]]
+    if bad or reached != len(checks):
+        raise AssertionError(f"heat: {len(bad)} generations off ({bad[:2]}),"
+                             f" {reached} of {len(checks)} queries reached "
+                             f"the index")
+    jobs = {}
+    for kind, phase in (("compaction", "compact"), ("pyramid", "build")):
+        rec = jobs_registry.jobs(kind=kind)
+        spans = [s for t in jcap.traces() if t.name == f"job.{kind}"
+                 for s in t.spans if s.name == "job.phase"]
+        if (len(rec) != 1 or rec[0].state != "succeeded"
+                or [p["name"] for p in rec[0].phases] != [phase]
+                or [s.attributes.get("phase") for s in spans] != [phase]):
+            raise AssertionError(f"job {kind}: "
+                                 f"{[r.to_json() for r in rec]}, phase "
+                                 f"spans {len(spans)}")
+        jobs[kind] = {"state": rec[0].state, "ms": rec[0].duration_ms,
+                      "progress": rec[0].progress}
+    if builds:
+        raise AssertionError(f"{builds} kernel builds across the lean "
+                             f"queries")
+    p50 = {m: float(np.median(v)) for m, v in wall.items()}
+    temps = [r["temperature"] for r in z3]
+    rep = {"generations": len(z3), "reached": reached,
+           "tiers": {t: sum(r["tier"] == t for r in z3)
+                     for t in ("full", "keys", "host")},
+           "temperature_max": max(temps), "temperature_min": min(temps),
+           "p50_ms": p50, "p50_ratio_on_off": p50["on"] / p50["off"],
+           "queries_timed": len(timed), "reps": reps, "jobs": jobs,
+           "compaction": {k: v.get("merged_groups") for k, v in
+                          merged.items()}, "pyramids_built": built,
+           "kernel_builds": builds}
+    report.setdefault("obs", {})["lean"] = rep
+    log(f"obs (lean): heat ranks {len(z3)} z3 generations once each, "
+        f"{reached} touches a generation = the queries that reached it, "
+        f"tiers {rep['tiers']} as storage_report; temperature "
+        f"{min(temps):.3f}-{max(temps):.3f}; p50 heat on "
+        f"{p50['on']:.2f} ms / off {p50['off']:.2f} ms "
+        f"({rep['p50_ratio_on_off']:.3f}x, not gated); CompactionJob "
+        f"{jobs['compaction']['ms']:.1f} ms, PyramidJob "
+        f"{jobs['pyramid']['ms']:.1f} ms ({built} built), both succeeded "
+        f"with their phase spans")
+
+
+def obs_mesh_lean_part(ds, name, checks, report):
+    """6d on the mesh lean phase's store (after its ``compact``): the lean
+    queries traced, their ``unattributed`` share of the query ledger, and
+    one ``heat_report`` that ranks every generation of the sharded z3
+    and attribute indexes once."""
+    from geomesa_tpu_torch.config import clear_property, set_property
+    from geomesa_tpu_torch.obs import compile_count, heat_tracker, tracer
+
+    builds0 = compile_count()
+    heat_tracker.clear()
+    set_property("geomesa.obs.sampler", "always")
+    try:
+        with tracer.capture(capacity=len(checks) + 8) as cap:
+            for c in checks:
+                ds.query_result(name, c[1])
+    finally:
+        clear_property("geomesa.obs.sampler")
+    led = _ledger(cap.traces())
+    heat = ds.heat_report()
+    builds = compile_count() - builds0
+    store = ds._store(name)
+    want = sorted((k, g.gen_id) for k, i in store._indexes.items()
+                  if hasattr(i, "generations") for g in i.generations)
+    got = sorted((r["index"], r["gen_id"]) for r in heat["generations"])
+    if got != want:
+        raise AssertionError(f"mesh lean heat ranks {got}, the indexes "
+                             f"hold {want}")
+    if led["queries"] != len(checks) or builds:
+        raise AssertionError(f"mesh lean: {led['queries']} of {len(checks)}"
+                             f" queries attributed, {builds} builds")
+    touched = sum(1 for r in heat["generations"] if r["scans"])
+    rep = {"ledger": led, "generations": len(got), "touched": touched,
+           "indexes": heat["indexes"], "kernel_builds": builds}
+    report.setdefault("obs", {})["mesh_lean"] = rep
+    log(f"obs (mesh lean): {len(checks)} traced queries, unattributed "
+        f"{led['unattributed_share']:.2%} of {led['total_ms']:.1f} ms "
+        f"(worst query {led['unattributed_share_max']:.2%}; unmapped "
+        f"spans' own ms "
+        f"{ {k: round(v, 1) for k, v in led['unmapped_ms'].items()} }); "
+        f"heat ranks "
+        f"{len(got)} generations once each, {touched} touched")
+
+
 def lean_checks(qs) -> list:
     """The lean phases' queries: 3 city, 3 region and 2 continent
     BBOX+DURING queries of the index phase, then the first city and the
@@ -2315,7 +2612,8 @@ def lean_checks(qs) -> list:
     return checks
 
 
-def lean_phase(rng, args, centres, qs, dev, report, cat=None, serving=None):
+def lean_phase(rng, args, centres, qs, dev, report, cat=None, serving=None,
+               obs=None):
     """The lean profile: ``--lean-rows`` GDELT-like rows (with a ``score``)
     written in 4 batches to a schema with no profile set, whose first
     write switches it to lean; a budget that leaves all three tiers;
@@ -2325,7 +2623,8 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None, serving=None):
     after ``compact``.  With ``cat`` the store keeps its catalog there
     from the start and is flushed after its closing ``age_off``; returns
     what the lean persist phase reopens and checks.  ``serving(ds, name,
-    (x, y, t))`` runs after ``compact``, before the ``age_off``."""
+    (x, y, t))`` and then ``obs(ds, name, checks)`` run after ``compact``,
+    before the ``age_off``."""
     import numpy as np
     import torch
     from geomesa_tpu_torch import TpuDataStore, density_process
@@ -2647,6 +2946,8 @@ def lean_phase(rng, args, centres, qs, dev, report, cat=None, serving=None):
         f"{sealed} sealed generations (merged ones inherited) from pyramids")
     if serving is not None:
         serving(ds, "scale", (x, y, t))
+    if obs is not None:
+        obs(ds, "scale", checks)
     rep["tombstones"] = lean_tombstones(ds, store, (x, y, t), checks, box,
                                         env3, (t3x, t3y), cuda)
     report["lean"] = rep
@@ -3906,7 +4207,7 @@ MESH_LEAN_BUDGET_PER_SLOT = 384
 MESH_LEAN_Z3_BUDGET_PER_SLOT = 168
 
 
-def mesh_lean_phase(rng, args, centres, qs, dev, report):
+def mesh_lean_phase(rng, args, centres, qs, dev, report, obs=None):
     """Lean schemas over ``device_mesh(1)``: ``--mesh-lean-rows`` rows of
     the attribute phases' generator in 4 writes on the lean attribute
     schema at ``--mesh-lean-slots``-slot per-shard generations
@@ -3916,7 +4217,9 @@ def mesh_lean_phase(rng, args, centres, qs, dev, report):
     after pyramids, a weighted heatmap (the density kernel), compaction,
     then a flush, a drop and a reopen over ``device_mesh(1)``; the
     accounted device bytes against ``torch.cuda.memory_allocated``.  Then
-    a point schema whose z3 generations pass through all three tiers."""
+    a point schema whose z3 generations pass through all three tiers.
+    ``obs(ds, name, checks)`` runs after the compaction, before the
+    flush."""
     import numpy as np
     import torch
     from geomesa_tpu_torch import TpuDataStore, density_process, device_mesh
@@ -4178,6 +4481,8 @@ def mesh_lean_phase(rng, args, centres, qs, dev, report):
         again = [run_query(ds, *checks[0]), run_query(ds, *checks[6])]
         rep["compact"] = {"s": compact_s, "generations_before": gens_before,
                           "result": res, "world": wrow, "queries": again}
+        if obs is not None:
+            obs(ds, "mlean", checks)
         log(f"mesh lean: compact in {compact_s:.2f} s, {gens_before} → "
             f"{ {k: r['generations'] for k, r in res.items()} } "
             "generations; world heatmap "
@@ -5308,7 +5613,7 @@ def main(argv=None) -> int:
                     help="rows of the default-profile polygon phase")
     ap.add_argument("--poly-mesh-rows", type=int, default=8_000_000,
                     help="rows of the mesh polygon phase")
-    ap.add_argument("--lean-poly-rows", type=int, default=32_000_000,
+    ap.add_argument("--lean-poly-rows", type=int, default=16_000_000,
                     help="rows of the lean XZ2 polygon phase")
     ap.add_argument("--lean-poly3-rows", type=int, default=8_000_000,
                     help="rows of the lean XZ3 polygon phase")
@@ -5316,7 +5621,7 @@ def main(argv=None) -> int:
                     help="slots per generation of the lean XZ3 phase (8 "
                          "generations at 8M rows: device and host tiers, "
                          "and a compaction that merges host runs)")
-    ap.add_argument("--mesh-lean-poly-rows", type=int, default=16_000_000,
+    ap.add_argument("--mesh-lean-poly-rows", type=int, default=8_000_000,
                     help="rows of the mesh lean XZ2 polygon phase")
     ap.add_argument("--mesh-lean-poly3-rows", type=int, default=8_000_000,
                     help="rows of the mesh lean XZ3 polygon phase")
@@ -5476,6 +5781,39 @@ def main(argv=None) -> int:
         raise AssertionError(f"z3_mask was never launched on the traced "
                              f"queries: {report['trace_path_launches']}")
 
+    # 6d, obs: the SLO plane, the Prometheus text and the build watch on
+    # the facade's store (counts set to 0 just before, read just after);
+    # its lean and mesh lean parts run inside those phases below
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    obs_facade_part(qs, ds, report)
+    phase_s["obs_facade"] = time.perf_counter() - t0
+    obs_launches = {"facade": {k: fn.launches for k, fn in counters.items()}}
+    report["obs_path_launches"] = obs_launches
+    if obs_launches["facade"]["z3_mask"] <= 0:
+        raise AssertionError(f"z3_mask was never launched on the obs "
+                             f"path: {obs_launches['facade']}")
+
+    def obs_part(label, part):
+        # a 6d part inside another phase: its own counts (set to 0 just
+        # before, read just after); the host phase's resume where they
+        # stood
+        def run(ds, name, checks):
+            saved = {k: fn.launches for k, fn in counters.items()}
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            part(ds, name, checks, report)
+            phase_s[f"obs_{label}"] = time.perf_counter() - t0
+            obs_launches[label] = {k: fn.launches
+                                   for k, fn in counters.items()}
+            log(f"obs ({label}) path: launches {obs_launches[label]}, "
+                f"{phase_s[f'obs_{label}']:.1f} s")
+            for k, fn in counters.items():
+                fn.launches = saved[k]
+        return run
+
     # the serving plane on the facade's store: counts set to 0 just
     # before, read just after; batched windows launch z3_mask (timed) and
     # z2_mask (untimed), the tile density_grid
@@ -5535,7 +5873,8 @@ def main(argv=None) -> int:
             fn.launches = 0
         t0 = time.perf_counter()
         lean = lean_phase(rng, args, centres, qs, dev, report, cat=lean_cat,
-                          serving=lean_serving)
+                          serving=lean_serving,
+                          obs=obs_part("lean", obs_lean_part))
         phase_s["lean"] = time.perf_counter() - t0
         lean_launches = {k: fn.launches for k, fn in counters.items()}
         if lean_launches["density_grid"] <= 0:
@@ -5585,7 +5924,8 @@ def main(argv=None) -> int:
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    mesh_lean_phase(rng, args, centres, qs, dev, report)
+    mesh_lean_phase(rng, args, centres, qs, dev, report,
+                    obs=obs_part("mesh_lean", obs_mesh_lean_part))
     phase_s["mesh_lean"] = time.perf_counter() - t0
     mesh_lean_launches = {k: fn.launches for k, fn in counters.items()}
     if mesh_lean_launches["density_grid"] <= 0:

@@ -5,28 +5,82 @@ Values resolve, in order: programmatic override (:func:`set_property`)
 Per-schema user data (features/feature_type.py) and per-query hints are
 the other two tiers.
 
-This holds only the knobs the ported main path reads; the names and
+This holds only the knobs the port's sources read; the names and
 defaults are those of ``geomesa_tpu.config``, so one environment
 configures both packages alike.
+
+**The option registry.**  Every declared knob (a :class:`SystemProperty`
+or a per-schema :class:`SchemaOption`) is registered by name.  A
+``geomesa.*`` name nobody declared warns once with
+:class:`UnknownOptionWarning` when it is set, cleared or looked up, and
+raises ``ValueError`` under ``geomesa.config.strict`` (clearing only
+warns, so a stale override stays removable).  Names outside ``geomesa.``
+pass untouched.  The JAX package declares a few names the port reads
+nowhere yet (ROADMAP A): ``geomesa.arrow.chunk.rows``,
+``geomesa.arrow.dictionary.threshold`` and
+``geomesa.arrow.stream.buffer.bytes`` (the Arrow slice, A9);
+``geomesa.query.loose.bounding.box`` and ``geomesa.query.cost.type``
+(read by nothing in either package); ``geomesa.scan.pallas`` (the port's
+kernels never fall back) and ``geomesa.obs.write.block`` (the port's
+writes end without a device copy): those three are deliberate
+differences (ROADMAP C).  Setting any of them here warns.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
-__all__ = ["SystemProperty", "QueryProperties", "DensityProperties",
-           "PlanningProperties", "ResilienceProperties", "ServingProperties",
-           "ObsProperties", "DEFAULT_MAX_RANGES", "set_property",
-           "clear_property", "config_generation"]
+__all__ = ["SystemProperty", "SchemaOption", "QueryProperties",
+           "DensityProperties", "PlanningProperties", "ResilienceProperties",
+           "ServingProperties", "ObsProperties", "SloProperties",
+           "SchemaProperties", "ConfigProperties", "DEFAULT_MAX_RANGES",
+           "set_property", "clear_property", "config_generation",
+           "known_option_names", "check_option_name",
+           "UnknownOptionWarning"]
 
 _overrides: dict[str, Any] = {}
 _lock = threading.Lock()
 #: bumped on every override change: hot paths (the fault registry, the
 #: tracer) cache resolved values keyed on it, paying one int read a call
 _generation = 0
+
+#: the option registry: every declared knob, system property and schema
+#: option alike, keyed by name (filled by ``_register_declarations``)
+_REGISTRY: dict[str, Any] = {}
+#: names already warned about (one warning per unknown name)
+_warned: set[str] = set()
+
+
+class UnknownOptionWarning(UserWarning):
+    """A ``geomesa.*`` option name nobody declared: almost always a typo
+    that would otherwise silently read the default forever."""
+
+
+def known_option_names() -> frozenset:
+    """Every declared option name (system properties and schema
+    options)."""
+    return frozenset(_REGISTRY)
+
+
+def check_option_name(name: str, *, raise_in_strict: bool = True) -> None:
+    """Warn about an undeclared ``geomesa.*`` name, and raise under
+    ``geomesa.config.strict`` unless ``raise_in_strict`` is False
+    (:func:`clear_property`: removing a stale override must stay
+    possible while strict mode is on).  Other names pass untouched."""
+    if not name.startswith("geomesa.") or name in _REGISTRY \
+            or not _REGISTRY:
+        return
+    msg = (f"unregistered option {name!r}: not declared in "
+           f"geomesa_tpu_torch/config.py (typo?)")
+    if raise_in_strict and ConfigProperties.STRICT.to_bool():
+        raise ValueError(msg)
+    if name not in _warned:
+        _warned.add(name)
+        warnings.warn(msg, UnknownOptionWarning, stacklevel=3)
 
 
 def config_generation() -> int:
@@ -36,6 +90,7 @@ def config_generation() -> int:
 def set_property(name: str, value) -> None:
     """Override a property for this process (wins over the environment)."""
     global _generation
+    check_option_name(name)
     with _lock:
         _overrides[name] = value
         _generation += 1
@@ -43,6 +98,7 @@ def set_property(name: str, value) -> None:
 
 def clear_property(name: str) -> None:
     global _generation
+    check_option_name(name, raise_in_strict=False)
     with _lock:
         _overrides.pop(name, None)
         _generation += 1
@@ -60,6 +116,7 @@ class SystemProperty:
         return self.name.replace(".", "_").upper()
 
     def get(self):
+        check_option_name(self.name)
         with _lock:
             if self.name in _overrides:
                 return _overrides[self.name]
@@ -79,6 +136,68 @@ class SystemProperty:
 
     def to_bool(self) -> bool:
         return bool(self.get())
+
+
+@dataclass(frozen=True)
+class SchemaOption:
+    """A declared per-schema option: a ``geomesa.*`` key read from a
+    schema's user data (features/feature_type.py, the store), declared
+    here only so the registry knows it; it resolves where it always did
+    (``sft.user_data.get(...)``)."""
+
+    name: str
+    default: Any = None
+    doc: str = ""
+
+
+class ConfigProperties:
+    """The config system's own knobs."""
+
+    #: strict option mode: an undeclared ``geomesa.*`` name raises at
+    #: ``set_property`` and at lookup instead of warning
+    STRICT = SystemProperty("geomesa.config.strict", False)
+
+
+class SchemaProperties:
+    """Per-schema option declarations (the user-data keys the store and
+    the feature types read)."""
+
+    #: index layout profile: ``lean`` selects the tiered lean indexes
+    INDEX_PROFILE = SchemaOption("geomesa.index.profile", "",
+                                 "index layout profile ('lean')")
+    #: explicit index-version pin list, or 'current'
+    INDEX_VERSIONS = SchemaOption("geomesa.index.versions", "",
+                                  "pin index versions")
+    #: which attribute is THE temporal axis (else the first Date one)
+    INDEX_DTG = SchemaOption("geomesa.index.dtg", "",
+                             "temporal attribute override")
+    #: comma list restricting which index kinds build
+    INDICES_ENABLED = SchemaOption("geomesa.indices.enabled", "",
+                                   "restrict built indexes")
+    #: z3 time-bin interval: 'day' | 'week' | 'month' | 'year'
+    Z3_INTERVAL = SchemaOption("geomesa.z3.interval", "week",
+                               "z3 time-bin period")
+    #: xz curve resolution (g in the XZ-ordering papers)
+    XZ_PRECISION = SchemaOption("geomesa.xz.precision", 12,
+                                "xz curve precision")
+    #: feature-id minting strategy ('z3' = locality-preserving)
+    FID_STRATEGY = SchemaOption("geomesa.fid.strategy", "",
+                                "feature-id strategy")
+    #: age-off retention expression (age_off.py)
+    AGE_OFF = SchemaOption("geomesa.age.off", "",
+                           "age-off retention window")
+    #: registered query interceptors (planning/interceptor.py)
+    QUERY_INTERCEPTORS = SchemaOption("geomesa.query.interceptors", "",
+                                      "query interceptor chain")
+    #: lean-profile device budget in bytes for this schema's tiers
+    LEAN_HBM_BUDGET = SchemaOption("geomesa.lean.hbm.budget", 0,
+                                   "lean device-tier byte budget")
+    #: lean LSM size-tier factor (0 disables auto-compaction)
+    LEAN_COMPACTION_FACTOR = SchemaOption(
+        "geomesa.lean.compaction.factor", 4, "LSM size-tier factor")
+    #: lean generation capacity in slots (rollover threshold)
+    LEAN_GENERATION_SLOTS = SchemaOption(
+        "geomesa.lean.generation.slots", 0, "generation slot capacity")
 
 
 class QueryProperties:
@@ -206,9 +325,9 @@ class ServingProperties:
 
 
 class ObsProperties:
-    """Trace knobs (obs/trace.py).  The sampler and the slow threshold
+    """Observability knobs (obs/).  The sampler and the slow threshold
     re-resolve whenever :func:`set_property` bumps the config generation;
-    the capacities are read when a tracer is built."""
+    the trace capacities are read when a tracer is built."""
 
     #: master switch: off makes every span a shared no-op
     ENABLED = SystemProperty("geomesa.obs.enabled", True)
@@ -229,6 +348,70 @@ class ObsProperties:
     #: spans a trace may record before children become no-ops (the root
     #: counts ``spans.dropped``); <= 0 disables the cap
     TRACE_MAX_SPANS = SystemProperty("geomesa.obs.trace.max.spans", 4096)
+    #: the kernel-build watch (obs/recompile.py): count each completed
+    #: ``nvcc`` build into the ``jax.compile.*`` metrics
+    RECOMPILE_TRACK = SystemProperty("geomesa.obs.recompile.track", True)
+    #: access-temperature tracking (obs/heat.py): per-(schema, index,
+    #: generation) touch counters folded into a decayed temperature;
+    #: off reduces every record site to one cached bool read
+    HEAT_ENABLED = SystemProperty("geomesa.obs.heat.enabled", True)
+    #: temperature decay constant τ in seconds: a touch contributes
+    #: ``exp(-(now - t)/τ)`` to its generation's score
+    HEAT_TAU_S = SystemProperty("geomesa.obs.heat.tau.s", 600.0)
+    #: bound on tracked (schema, index, generation) entries; past it the
+    #: coldest tenth evicts
+    HEAT_MAX_ENTRIES = SystemProperty("geomesa.obs.heat.max.entries", 8192)
+    #: finished job records the job registry keeps (obs/jobs.py)
+    JOBS_CAPACITY = SystemProperty("geomesa.obs.jobs.capacity", 128)
+    #: scrape cache of the web front end: a scrape younger than this many
+    #: ms is reused; <= 0 disables (declared for the JAX name; the port's
+    #: web front end is ROADMAP A11)
+    SCRAPE_MIN_INTERVAL_MS = SystemProperty(
+        "geomesa.obs.scrape.min.interval.ms", 0.0)
+
+
+class SloProperties:
+    """SLO plane knobs (obs/slo.py): per-class latency objectives,
+    rolling burn windows and the alert ring, re-read whenever the config
+    generation moves."""
+
+    #: master switch: off makes the trace finish hook a no-op
+    ENABLED = SystemProperty("geomesa.slo.enabled", True)
+    #: objectives, one per request class: comma-separated
+    #: ``class:latency_ms:target`` triples.  A request spends budget when
+    #: it errored or its latency (admission queue included) passed
+    #: ``latency_ms``; burn = bad fraction / (1 - target)
+    OBJECTIVES = SystemProperty(
+        "geomesa.slo.objectives",
+        "query:250:0.99,write:1000:0.99,tile.render:250:0.99")
+    #: short burn window in seconds (the fast-burn signal)
+    WINDOW_SHORT_S = SystemProperty("geomesa.slo.window.short.s", 300.0)
+    #: long burn window in seconds (the sustained-burn confirmation)
+    WINDOW_LONG_S = SystemProperty("geomesa.slo.window.long.s", 3600.0)
+    #: rolling-window bucket width in seconds
+    BUCKET_S = SystemProperty("geomesa.slo.bucket.s", 10.0)
+    #: alert threshold: fires (edge-triggered) when both windows burn
+    #: past it, re-arms when the short one drops back; <= 0 disables
+    BURN_ALERT = SystemProperty("geomesa.slo.burn.alert", 10.0)
+    #: alert ring capacity (threshold crossings kept)
+    ALERTS_CAPACITY = SystemProperty("geomesa.slo.alerts.capacity", 128)
+    #: distinct-tenant label bound: past it new tenants fold into
+    #: ``other``
+    TENANTS_MAX = SystemProperty("geomesa.slo.tenants.max", 64)
+
+
+def _register_declarations() -> None:
+    """Fill the option registry from the declaration classes above: the
+    one place a knob becomes known to the strict mode."""
+    for cls in (QueryProperties, ObsProperties, SchemaProperties,
+                ConfigProperties, ResilienceProperties, ServingProperties,
+                DensityProperties, PlanningProperties, SloProperties):
+        for value in vars(cls).values():
+            if isinstance(value, (SystemProperty, SchemaOption)):
+                _REGISTRY[value.name] = value
+
+
+_register_declarations()
 
 
 #: default scan-ranges budget (import-time snapshot users can override per

@@ -87,7 +87,9 @@ audited through ``audit_writer``.  ``query_windows`` answers many
 bbox+time windows in one batched scan, and ``query_fused`` coalesces
 concurrent compatible queries on a lean z3 schema into one such scan
 (:mod:`~geomesa_tpu_torch.serving`).  ``explain_analyze`` and
-``storage_report`` are not ported and raise rather than degrade.
+``storage_report`` read the store's instrumentation, and
+``heat_report`` ranks the lean generations by access temperature
+(:mod:`~geomesa_tpu_torch.obs.heat`).
 """
 
 from __future__ import annotations
@@ -401,6 +403,8 @@ class _SchemaStore:
                     idx.append(np.asarray(x[lo:lo + step], np.float64),
                                np.asarray(y[lo:lo + step], np.float64),
                                np.asarray(t[lo:lo + step], np.int64))
+            # the heat touches of the index record under this scope
+            idx.heat_scope = (self.sft.name, "z3")
             if self.pyramid_trigger is not None:
                 idx.generation_listeners.append(self.pyramid_trigger)
             self._indexes["z3"] = idx
@@ -447,6 +451,7 @@ class _SchemaStore:
                     idx.append_bboxes(bb[lo:lo + step],
                                       np.asarray(t[lo:lo + step], np.int64),
                                       base_gid=lo)
+        idx.heat_scope = (self.sft.name, kind)
         self._indexes[kind] = idx
         self._index_coverage[kind] = n
         self.build_counts[kind] = self.build_counts.get(kind, 0) + 1
@@ -513,6 +518,7 @@ class _SchemaStore:
                     idx.append(col[lo:lo + step],
                                np.asarray(dtg[lo:lo + step], np.int64),
                                base_gid=lo)
+            idx.heat_scope = (self.sft.name, key)
             self._indexes[key] = idx
             self._index_coverage[key] = n
             self.build_counts[key] = self.build_counts.get(key, 0) + 1
@@ -1783,6 +1789,19 @@ class TpuDataStore:
         from .obs.resource import publish_storage_gauges, storage_report
         rep = storage_report(self)
         publish_storage_gauges(self, rep)
+        return rep
+
+    def heat_report(self, limit: int | None = None) -> dict:
+        """Every lean generation ranked hot→cold by decayed access
+        temperature, joined with its placement from the storage
+        accounting, plus per-(schema, index) aggregates; publishes the
+        ``heat.*`` gauges from the whole report
+        (:mod:`~geomesa_tpu_torch.obs.heat`)."""
+        from .obs.heat import heat_report, publish_heat_gauges
+        rep = heat_report(self)
+        publish_heat_gauges(self, rep)
+        if limit is not None:
+            rep["generations"] = rep["generations"][:limit]
         return rep
 
     def _intercept(self, sft: FeatureType, q: Query) -> Query:

@@ -58,9 +58,11 @@ into one dispatch a generation past ``BATCH_SCAN_BUDGET`` and so spills
 only the failed one; the port keeps its single copy and spills the batch
 (ROADMAP C).  The
 spans are the JAX index's (``query.scan.device`` probe and gather,
-``query.scan.host``, ``query.scan.degraded``, ``write.spill``).
-
-Not ported from the JAX index: heat attribution.
+``query.scan.host``, ``query.scan.degraded``, ``write.spill``, and
+``lean.sketch`` around a sketch fold with its cache hits and misses).
+Query and sketch scans record their per-generation heat touches
+(obs/heat.py) under :attr:`LeanAttrIndex.heat_scope`, as the JAX index
+does.
 """
 
 from __future__ import annotations
@@ -74,8 +76,12 @@ from ..ops.search import (
     searchsorted2,
 )
 from ..metrics import (
-    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, RESILIENCE_DEGRADED,
-    RESILIENCE_RETRIES, WRITE_SPILLS, registry as _metrics,
+    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, LEAN_SKETCH_CACHE_HITS,
+    LEAN_SKETCH_CACHE_MISSES, RESILIENCE_DEGRADED, RESILIENCE_RETRIES,
+    WRITE_SPILLS, registry as _metrics,
+)
+from ..obs.heat import (
+    heat_enabled, merge_index_generations, record_index_scan,
 )
 from ..obs.trace import device_span, obs_count
 from ..obs.trace import span as obs_span
@@ -356,6 +362,10 @@ class LeanAttrIndex:
     windows; results are CANDIDATE gids (the planner's residual filter
     makes them exact, as for every index here)."""
 
+    #: ``(schema, index_key)`` the heat touches record under, stamped by
+    #: the store; an index built directly records under its class name
+    heat_scope: tuple | None = None
+
     GENERATION_SLOTS = 1 << 24
     DEFAULT_CAPACITY = 1 << 15
     BATCH_SCAN_BUDGET = 1 << 26
@@ -577,7 +587,11 @@ class LeanAttrIndex:
             self._host_stack = None   # restacked lazily
         merged.gen_id = self._next_gen_id()
         # stale sketch partials must never double-count
-        self._sketch_cache.drop_generations([g.gen_id for g in group])
+        dead_ids = [g.gen_id for g in group]
+        self._sketch_cache.drop_generations(dead_ids)
+        # the merged run inherits its sources' access temperature, before
+        # the swap (see index/z3_lean.py)
+        merge_index_generations(self, dead_ids, merged.gen_id)
         self.generations = replace_group(self.generations, group, merged)
         self.compactions += 1
         _metrics.counter(LEAN_COMPACTION_MERGES).inc()
@@ -614,6 +628,11 @@ class LeanAttrIndex:
         compaction mints new gen_ids), so a warm repeat folds only the
         live run.  ``want_values`` folds (TopK/Enumeration's exact
         value→count maps) run on the host over the runs' key columns."""
+        with obs_span("lean.sketch", attr=self.attr,
+                      generations=len(self.generations)):
+            return self._sketch_scan(fold)
+
+    def _sketch_scan(self, fold):
         from ..parallel.stats import HIST_KERNEL_MAX_SLOTS
         from ..stats.sketch import RunSketch, device_fold_body, fold_attr_runs
         merged = RunSketch()
@@ -623,34 +642,44 @@ class LeanAttrIndex:
         cache = self._sketch_cache.spec_cache(fold)
         dev_scan: list = []
         host_scan: list = []
+        touches: list | None = [] if heat_enabled() else None
         for g in self.generations:
             part = cache.get(g.gen_id) if g is not live else None
             if part is not None:
+                obs_count(LEAN_SKETCH_CACHE_HITS)
                 merged = merged + part
             elif g.tier == "device":
                 dev_scan.append(g)
             else:
                 host_scan.append(g)
+            if touches is not None:
+                touches.append((g.gen_id, g.tier, int(g.n),
+                                0 if part is not None
+                                else int(g.n) * SLOT_BYTES, None))
+        if touches:
+            record_index_scan(self, touches)
         is_float = self.attr_type in ("float", "double")
         new_parts: dict[int, object] = {}
         if dev_scan and not fold.want_values:
             # every uncached device run, then ONE device→host copy
             self.dispatch_count += 1
-            outs = [device_fold_body(
-                g.keys[:g.n], g.sec[:g.n], int(fold.slo), int(fold.shi),
-                float(fold.hlo), float(fold.hhi), bins=int(fold.bins),
-                depth=int(fold.depth), width=int(fold.width),
-                is_float=is_float,
-                hist_kernel=g.capacity < HIST_KERNEL_MAX_SLOTS)
-                for g in dev_scan]
-            ints = torch.stack([torch.stack([o[0].to(torch.int64), o[1],
-                                             o[2]]) for o in outs])
-            sums = torch.stack([torch.stack([o[3], o[4]]) for o in outs])
-            hists = [o[5] for o in outs]
-            cmss = [o[6] for o in outs]
-            ints, sums = ints.cpu().numpy(), sums.cpu().numpy()
-            hists = torch.stack(hists).cpu().numpy()
-            cmss = torch.stack(cmss).cpu().numpy()
+            with device_span("query.scan.device", stage="sketch",
+                             runs=len(dev_scan)):
+                outs = [device_fold_body(
+                    g.keys[:g.n], g.sec[:g.n], int(fold.slo), int(fold.shi),
+                    float(fold.hlo), float(fold.hhi), bins=int(fold.bins),
+                    depth=int(fold.depth), width=int(fold.width),
+                    is_float=is_float,
+                    hist_kernel=g.capacity < HIST_KERNEL_MAX_SLOTS)
+                    for g in dev_scan]
+                ints = torch.stack([torch.stack([o[0].to(torch.int64), o[1],
+                                                 o[2]]) for o in outs])
+                sums = torch.stack([torch.stack([o[3], o[4]]) for o in outs])
+                hists = [o[5] for o in outs]
+                cmss = [o[6] for o in outs]
+                ints, sums = ints.cpu().numpy(), sums.cpu().numpy()
+                hists = torch.stack(hists).cpu().numpy()
+                cmss = torch.stack(cmss).cpu().numpy()
             for i, g in enumerate(dev_scan):
                 n = int(ints[i, 0])
                 new_parts[id(g)] = RunSketch(
@@ -676,6 +705,7 @@ class LeanAttrIndex:
             p = new_parts[id(g)]
             merged = merged + p
             if g is not live:
+                obs_count(LEAN_SKETCH_CACHE_MISSES)
                 self._sketch_cache.add(cache, g.gen_id, p)
         return merged
 
@@ -824,6 +854,16 @@ class LeanAttrIndex:
             if host_cand_n:
                 parts.append(coded)
                 check_replan("query.scan.probe", dev_total + host_cand_n)
+        if heat_enabled():
+            # device runs attribute candidates exactly from the probe
+            # totals; host candidates split by run size (obs/heat.py)
+            touches = [(g.gen_id, g.tier, int(g.n), int(g.n) * SLOT_BYTES,
+                        int(totals[i])) for i, g in enumerate(dev_gens)]
+            n_host = sum(g.n for g in host_gens)
+            touches += [(g.gen_id, "host", int(g.n), int(g.n) * SLOT_BYTES,
+                         int(round(host_cand_n * g.n / n_host)))
+                        for g in host_gens]
+            record_index_scan(self, touches)
         if not parts:
             return np.empty(0, np.int64)
         merged = np.concatenate(parts)

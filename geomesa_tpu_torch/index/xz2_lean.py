@@ -47,6 +47,16 @@ class LeanCoreFacade:
         return len(self._core)
 
     @property
+    def heat_scope(self):
+        """The heat scope (obs/heat.py), held by the core, where the scans
+        that record touches run."""
+        return self._core.heat_scope
+
+    @heat_scope.setter
+    def heat_scope(self, scope) -> None:
+        self._core.heat_scope = scope
+
+    @property
     def generations(self):
         return self._core.generations
 

@@ -82,8 +82,13 @@ entry.
 each tier's ``query.scan.device`` (each ends in the device→host copy it
 times), ``query.scan.host`` (seek, recheck), ``query.scan.degraded``,
 ``query.materialize`` (payload gathers), ``write.seal``, ``write.spill``,
-``lean.density``, ``pyramid.build`` and ``lean.compaction``.  Not ported:
-heat tracking.
+``lean.density``, ``pyramid.build`` and ``lean.compaction``.
+
+**Heat.**  Each scan (query, density, sweep, cell fold) records its
+per-generation touches with :func:`~geomesa_tpu_torch.obs.heat.record_index_scan`
+under :attr:`LeanZ3Index.heat_scope`, the same ``(gen_id, tier, rows,
+bytes, matched)`` tuples as the JAX index's sites, and a compaction merge
+passes its sources' temperature on to the merged run.
 
 Reference mapping: Z3IndexKeySpace.scala:60 (key layout),
 IndexAdapter.scala:95-106 (writers), AccumuloQueryPlan.scala:87-157
@@ -115,6 +120,9 @@ from ..metrics import (
     LEAN_DENSITY_CACHE_MISSES, PYRAMID_BUILD_MS, PYRAMID_BUILDS,
     PYRAMID_SERVE_HITS, RESILIENCE_DEGRADED, RESILIENCE_RETRIES,
     WRITE_SEALS, WRITE_SPILLS, registry as _metrics,
+)
+from ..obs.heat import (
+    heat_enabled, merge_index_generations, record_index_scan,
 )
 from ..obs.trace import device_span, obs_count
 from ..obs.trace import span as obs_span
@@ -550,6 +558,10 @@ def _in_boxes(xc, yc, boxes):
 class LeanZ3Index:
     """Tiered generational keys-on-device Z3 index (see module doc)."""
 
+    #: ``(schema, index_key)`` the heat touches record under, stamped by
+    #: the store; an index built directly records under its class name
+    heat_scope: tuple | None = None
+
     #: slots per generation.  Each append re-sorts its generation, so
     #: generation size trades sort cost per slice against run count per
     #: query.
@@ -905,6 +917,10 @@ class LeanZ3Index:
             self._host_stack = None   # restacked lazily
         merged.gen_id = self._next_gen_id()
         dead_ids = [g.gen_id for g in group]
+        # the merged run inherits its sources' access temperature, credited
+        # before the swap so a racing heat report's prune sees the fresh
+        # merged entry
+        merge_index_generations(self, dead_ids, merged.gen_id)
         # the merged run's pyramid is the SUM of its parents', taken
         # before the parents' entries drop
         self._inherit_pyramids(dead_ids, merged.gen_id)
@@ -1093,6 +1109,7 @@ class LeanZ3Index:
                 and int(totals[nf:].sum())):
             cand += self._scan_tier(keys_gens, seeks[nf:], totals[nf:], rq,
                                     pos_bits, None, ra, cand)
+        host_cand_n = 0
         if host_gens and not check_cancel("query.scan.host"):
             # host tier: stacked numpy seeks, flat in run count
             with obs_span("query.scan.host", stage="seek",
@@ -1100,11 +1117,26 @@ class LeanZ3Index:
                 got = self._host_stack_of(host_gens).candidates(
                     ra["rbin"], ra["rzlo"], ra["rzhi"], ra["rqid"],
                     pos_bits)
-            if len(got):
+            host_cand_n = len(got)
+            if host_cand_n:
                 # second probe point: host-tier candidates are counted
                 # before the payload re-check, the expensive host step
-                check_replan("query.scan.probe", dev_total + len(got))
+                check_replan("query.scan.probe", dev_total + host_cand_n)
                 cand.append(got)
+        if heat_enabled():
+            # device generations attribute candidates exactly (the probe's
+            # per-generation totals); the stacked host seek loses per-run
+            # attribution, so host candidates split by run size
+            touches = [(g.gen_id, g.tier, int(g.n),
+                        int(g.n) * (FULL_BYTES if g.tier == "full"
+                                    else KEYS_BYTES),
+                        int(totals[i]))
+                       for i, g in enumerate(full_gens + keys_gens)]
+            n_host = sum(g.n for g in host_gens)
+            touches += [(g.gen_id, "host", int(g.n), int(g.n) * KEYS_BYTES,
+                         int(round(host_cand_n * g.n / n_host)))
+                        for g in host_gens]
+            record_index_scan(self, touches)
         mask_bits = (np.int64(1) << pos_bits) - 1
         cand_hits = np.concatenate(cand) if cand else np.empty(0, np.int64)
         if len(cand_hits):
@@ -1422,6 +1454,12 @@ class LeanZ3Index:
         spec = ("scan", tuple(map(tuple, bxs.tolist())), int(lo), int(hi),
                 env_t, width, height, int(max_ranges))
         cache = self._density_cache.spec_cache(spec)
+        # heat: density matches are grids, not rows, so every touch is a
+        # full-weight access; a cached partial reads zero bytes
+        touches: list | None = [] if heat_enabled() else None
+        if touches is not None:
+            touches += [(g.gen_id, "full", int(g.n), int(g.n) * FULL_BYTES,
+                         None) for g in full_gens]
         keys_scan: list = []
         for g in keys_gens:
             part = cache.get(g.gen_id) if g is not live else None
@@ -1429,6 +1467,10 @@ class LeanZ3Index:
                 keys_scan.append(g)
             else:
                 grid += part
+            if touches is not None:
+                touches.append((g.gen_id, g.tier, int(g.n),
+                                0 if part is not None
+                                else int(g.n) * KEYS_BYTES, None))
         seeks, totals = self._probe(full_gens + keys_scan, rb, rlo, rhi)
         nf = len(full_gens)
         if full_gens and int(totals[:nf].sum()):
@@ -1446,7 +1488,8 @@ class LeanZ3Index:
         # host tier: ONE stacked vectorized pass attributes hits to their
         # owning runs, a cacheable partial each
         if host_gens:
-            if any(g.gen_id not in cache for g in host_gens):
+            read = any(g.gen_id not in cache for g in host_gens)
+            if read:
                 if self._host_stack is None:
                     self._host_stack = HostStack([g.run for g in host_gens])
                 parts = self._host_stack.density_partials(
@@ -1459,6 +1502,12 @@ class LeanZ3Index:
             else:
                 for g in host_gens:
                     grid += cache[g.gen_id]
+            if touches is not None:
+                touches += [(g.gen_id, "host", int(g.n),
+                             int(g.n) * KEYS_BYTES if read else 0, None)
+                            for g in host_gens]
+        if touches:
+            record_index_scan(self, touches)
         return grid
 
     def _density_full(self, gens, seeks, totals, boxes, lo, hi, env,
@@ -1602,6 +1651,7 @@ class LeanZ3Index:
                         cache.pop(k)   # superseded row counts
                     self._density_cache.add(
                         cache, ("live", g.gen_id, int(g.n)), part)
+        scanned = {id(g) for g in scan}
         for g in self.generations:
             if g.tier != "host":
                 continue
@@ -1615,12 +1665,18 @@ class LeanZ3Index:
             part = cache.get(g.gen_id)
             if part is None:
                 obs_count(LEAN_DENSITY_CACHE_MISSES)
+                scanned.add(id(g))
                 part = g.run.sweep_partial(self.sfc, env_t, width, height,
                                            world)
                 self._density_cache.add(cache, g.gen_id, part)
             else:
                 obs_count(LEAN_DENSITY_CACHE_HITS)
             grid += part
+        if heat_enabled() and self.generations:
+            record_index_scan(self, [
+                (g.gen_id, g.tier, int(g.n),
+                 int(g.n) * KEYS_BYTES if id(g) in scanned else 0, None)
+                for g in self.generations])
         return grid
 
     def build_pyramids(self, base: int | None = None,
@@ -1719,9 +1775,11 @@ class LeanZ3Index:
                                                nb))
         live = self.generations[-1] if self.generations else None
         total = np.zeros(nb << bits, np.int64)
+        scanned: set = set()
         for g in self.generations:
             part = cache.get(g.gen_id) if g is not live else None
             if part is None:
+                scanned.add(id(g))
                 if g.tier == "host":
                     part = g.run.cell_counts(b0, nb, int(bits))
                 else:
@@ -1731,4 +1789,9 @@ class LeanZ3Index:
                 if g is not live:
                     self._sketch_cache.add(cache, g.gen_id, part)
             total += part
+        if heat_enabled() and self.generations:
+            record_index_scan(self, [
+                (g.gen_id, g.tier, int(g.n),
+                 int(g.n) * KEYS_BYTES if id(g) in scanned else 0, None)
+                for g in self.generations])
         return b0, total

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` holds a plain C entry point.  It is compiled with
 by a hash of the source, the ``csrc/*.cuh`` headers and the flags, under
 ``build/geomesa_tpu_torch/`` at the root of the checkout, and bound with
 ``ctypes``.  Nothing is built at import time: the CPU-only test runs
-import every module and build nothing.
+import every module and build nothing.  Each completed build is told to
+the listeners of :func:`add_build_listener` (the kernel-build watch of
+obs/recompile.py) with its wall seconds.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 __all__ = ["KERNELS", "build", "build_all", "load", "library_path",
-           "count_launch", "BUILD_DIR"]
+           "count_launch", "add_build_listener", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "geomesa_tpu_torch"
@@ -32,6 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 _count_lock = threading.Lock()
+#: callables ``fn(library_name, seconds)`` told of every completed build
+_build_listeners: list = []
+
+
+def add_build_listener(fn) -> None:
+    """Call ``fn(library_name, seconds)`` after every completed ``nvcc``
+    build, on the thread that waited for it (idempotent)."""
+    with _lock:
+        if fn not in _build_listeners:
+            _build_listeners.append(fn)
 
 
 def _nvcc() -> str:
@@ -71,6 +84,7 @@ def _start(name: str):
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+    proc.started = time.perf_counter()
     return lib, proc, tmp
 
 
@@ -87,6 +101,9 @@ def _finish(lib: Path, proc, tmp) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    seconds = time.perf_counter() - proc.started
+    for fn in list(_build_listeners):
+        fn(lib.name, seconds)
     return lib
 
 

@@ -42,8 +42,15 @@ through :func:`~geomesa_tpu_torch.parallel.stats.allreduce_run_sketch`.
 Spilled runs stay on their owning process.
 
 A failed device gather is classified and recorded on the breaker, then
-re-raised: no process degrades alone inside a collective.  Not ported
-(each is absent): spans and heat tracking.
+re-raised: no process degrades alone inside a collective.
+
+The JAX index's spans sit at the same sites (``write.seal``,
+``write.spill``, ``lean.sketch`` with its cache hits and misses and the
+fold's ``query.scan.device``), and query and sketch scans record their
+per-generation heat touches (obs/heat.py) under
+:attr:`ShardedLeanAttrIndex.heat_scope`.  Under multihost the host-tier
+share of a query's touches splits this process's host candidates, where
+the JAX index splits the allgathered ones (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -66,8 +73,15 @@ from ..ops.search import (
     expand_ranges, gather_capacity, pad_pow2, searchsorted2,
 )
 from ..metrics import (
-    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, registry as _metrics,
+    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, LEAN_SKETCH_CACHE_HITS,
+    LEAN_SKETCH_CACHE_MISSES, WRITE_SEALS, WRITE_SPILLS,
+    registry as _metrics,
 )
+from ..obs.heat import (
+    heat_enabled, merge_index_generations, record_index_scan,
+)
+from ..obs.trace import device_span, obs_count
+from ..obs.trace import span as obs_span
 from ..resilience.degrade import breaker, classify_device_failure
 from ..planning.adaptive import check_replan
 from .lean import lexsort
@@ -166,6 +180,10 @@ class _ShardedAttrGen:
 
 class ShardedLeanAttrIndex:
     """Sharded tiered generational attribute index (module doc)."""
+
+    #: ``(schema, index_key)`` the heat touches record under, stamped by
+    #: the store; an index built directly records under its class name
+    heat_scope: tuple | None = None
 
     @staticmethod
     def gather_payload(positions):
@@ -281,7 +299,11 @@ class ShardedLeanAttrIndex:
             if self._per_shard_resident() <= self.hbm_budget_bytes:
                 return
             if gen.tier == "device":
-                gen.spill_to_host()
+                # the spill ends in the device→host copy of its shards
+                with device_span("write.spill", gen_id=gen.gen_id,
+                                 slots=int(gen.n_slots)):
+                    obs_count(WRITE_SPILLS)
+                    gen.spill_to_host()
                 self._host_stack = None
         if self._per_shard_resident() > self.hbm_budget_bytes:
             raise MemoryError(
@@ -341,11 +363,17 @@ class ShardedLeanAttrIndex:
             gen = self.generations[-1] if self.generations else None
             if gen is None or gen.tier == "host" \
                     or gen.n_slots + m_pad > gen.slots:
-                sealed = (gen.gen_id if gen is not None
-                          and gen.tier != "host" else None)
-                gen = self._roll_generation()
-                if sealed is not None:
+                if gen is not None and gen.tier != "host":
+                    # the live generation seals on rollover (the span
+                    # covers the rebalance)
+                    sealed = gen.gen_id
+                    with obs_span("write.seal", gen_id=gen.gen_id,
+                                  tier=gen.tier, slots=int(gen.n_slots)):
+                        obs_count(WRITE_SEALS)
+                        gen = self._roll_generation()
                     notify_generation_event(self, "seal", [sealed])
+                else:
+                    gen = self._roll_generation()
             take_all = min(m_pad * n_shards, max(0, m - done))
             for s in range(n_shards):
                 lo, hi = done + s * m_pad, done + min(take_all,
@@ -404,7 +432,11 @@ class ShardedLeanAttrIndex:
             self._host_stack = None
         merged.gen_id = self._next_gen_id()
         # stale sketch partials must never double-count
-        self._sketch_cache.drop_generations([g.gen_id for g in group])
+        dead_ids = [g.gen_id for g in group]
+        self._sketch_cache.drop_generations(dead_ids)
+        # the merged run inherits its sources' access temperature, before
+        # the swap (see index/z3_lean.py)
+        merge_index_generations(self, dead_ids, merged.gen_id)
         self.generations = replace_group(self.generations, group, merged)
         self.compactions += 1
         _metrics.counter(LEAN_COMPACTION_MERGES).inc()
@@ -440,6 +472,19 @@ class ShardedLeanAttrIndex:
         fold in one stacked numpy pass; sealed runs' partials cache by
         gen_id.  Under multihost each new partial merges over the
         processes, so every process caches the same global partials."""
+        with obs_span("lean.sketch", attr=self.attr, sharded=True,
+                      generations=len(self.generations)):
+            return self._sketch_scan(fold)
+
+    def _gen_bytes(self, g) -> int:
+        """The bytes a scan of ``g`` reads: its shards' device bytes, or
+        its spilled runs' on the host tier."""
+        if g.tier == "host":
+            return (sum(int(a.nbytes) for p in g.spilled for a in p)
+                    if g.spilled else 0)
+        return g.per_shard_bytes() * self.mesh.size
+
+    def _sketch_scan(self, fold):
         from ..parallel.stats import HIST_KERNEL_MAX_SLOTS
         from ..stats.sketch import RunSketch, device_fold_body, fold_attr_runs
         merged = RunSketch()
@@ -449,36 +494,47 @@ class ShardedLeanAttrIndex:
         cache = self._sketch_cache.spec_cache(fold)
         dev_scan: list = []
         host_scan: list = []
+        touches: list | None = [] if heat_enabled() else None
         for g in self.generations:
             part = cache.get(g.gen_id) if g is not live else None
             if part is not None:
+                obs_count(LEAN_SKETCH_CACHE_HITS)
                 merged = merged + part
             elif g.tier == "device":
                 dev_scan.append(g)
             else:
                 host_scan.append(g)
+            if touches is not None:
+                touches.append((g.gen_id, g.tier, int(g.n_slots),
+                                0 if part is not None
+                                else g.per_shard_bytes() * self.mesh.size,
+                                None))
+        if touches:
+            record_index_scan(self, touches)
         is_float = self.attr_type in ("float", "double")
         new_parts: dict[int, object] = {}
         if dev_scan and not fold.want_values:
             self.dispatch_count += 1
-            for g in dev_scan:
-                part = RunSketch()
-                outs = [device_fold_body(
-                    g.keys[s][:n], g.sec[s][:n], int(fold.slo),
-                    int(fold.shi), float(fold.hlo), float(fold.hhi),
-                    bins=int(fold.bins), depth=int(fold.depth),
-                    width=int(fold.width), is_float=is_float,
-                    hist_kernel=g.slots < HIST_KERNEL_MAX_SLOTS)
-                    for s, n in enumerate(g.fill.tolist())]
-                for o in outs:
-                    n = int(o[0])
-                    part = part + RunSketch(
-                        n, int(o[1]) if n else None,
-                        int(o[2]) if n else None,
-                        float(o[3]), float(o[4]),
-                        o[5].cpu().numpy() if fold.bins else None,
-                        o[6].cpu().numpy() if fold.depth else None)
-                new_parts[id(g)] = part
+            with device_span("query.scan.device", stage="sketch",
+                             runs=len(dev_scan)):
+                for g in dev_scan:
+                    part = RunSketch()
+                    outs = [device_fold_body(
+                        g.keys[s][:n], g.sec[s][:n], int(fold.slo),
+                        int(fold.shi), float(fold.hlo), float(fold.hhi),
+                        bins=int(fold.bins), depth=int(fold.depth),
+                        width=int(fold.width), is_float=is_float,
+                        hist_kernel=g.slots < HIST_KERNEL_MAX_SLOTS)
+                        for s, n in enumerate(g.fill.tolist())]
+                    for o in outs:
+                        n = int(o[0])
+                        part = part + RunSketch(
+                            n, int(o[1]) if n else None,
+                            int(o[2]) if n else None,
+                            float(o[3]), float(o[4]),
+                            o[5].cpu().numpy() if fold.bins else None,
+                            o[6].cpu().numpy() if fold.depth else None)
+                    new_parts[id(g)] = part
         elif dev_scan:
             # exact value→count folds are dict-valued: a host fold over
             # the fetched sorted runs of every shard
@@ -503,6 +559,7 @@ class ShardedLeanAttrIndex:
             p = new_parts[id(g)]
             merged = merged + p
             if g is not live:
+                obs_count(LEAN_SKETCH_CACHE_MISSES)
                 self._sketch_cache.add(cache, g.gen_id, p)
         return merged
 
@@ -599,12 +656,14 @@ class ShardedLeanAttrIndex:
                     raise
                 if coded:
                     parts.append(np.concatenate(coded))
+        host_cand_n = 0
         if host_gens:
             if self._host_stack is None:
                 self._host_stack = _HostAttrStack(
                     [p for g in host_gens for p in g.spilled])
             coded = self._host_stack.candidates(qklo, qkhi, qslo, qshi,
                                                 qqid, pos_bits)
+            host_cand_n = len(coded)
             if len(coded):
                 # second probe point, as on one device: host candidates
                 # count before any row is materialized (process-local
@@ -613,6 +672,17 @@ class ShardedLeanAttrIndex:
                     check_replan("query.scan.probe",
                                  dev_total + len(coded))
                 parts.append(coded)
+        if heat_enabled():
+            # process-local: device runs attribute candidates exactly from
+            # the probe totals; host candidates split by consumed slots
+            touches = [(g.gen_id, g.tier, int(g.n_slots), self._gen_bytes(g),
+                        int(totals[:, i].sum()))
+                       for i, g in enumerate(dev_gens)]
+            n_host = sum(g.n_slots for g in host_gens)
+            touches += [(g.gen_id, "host", int(g.n_slots), self._gen_bytes(g),
+                         int(round(host_cand_n * g.n_slots / n_host)))
+                        for g in host_gens]
+            record_index_scan(self, touches)
         merged = (np.concatenate(parts) if parts
                   else np.empty(0, np.int64))
         if self._multihost:

@@ -57,8 +57,15 @@ held equal to the reference, never the raw layout.
 
 No Pallas kernel sits on this path in the JAX package (its scan, density
 and cell programs build their masks and grids inline), so none does here:
-each program is plain PyTorch per shard.  Spans, heat tracking,
-cancellation points and the ``pyramid.build`` fault point are not ported.
+each program is plain PyTorch per shard.
+
+**Tracing and heat.**  The JAX index's spans sit at the same sites:
+``query.decompose``, the probe's and each tier's ``query.scan.device``
+(each ends in its device→host copy), ``query.scan.host`` (seek,
+recheck), ``write.seal``, ``write.spill`` and ``pyramid.build``.  Query,
+density and cell-fold scans record their per-generation heat touches
+(obs/heat.py, process-local, never a collective) under
+:attr:`ShardedLeanZ3Index.heat_scope`.
 """
 
 from __future__ import annotations
@@ -90,8 +97,12 @@ from ..ops.search import (
     split_coded,
 )
 from ..metrics import (
-    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, PYRAMID_BUILD_MS,
-    PYRAMID_BUILDS, registry as _metrics,
+    LEAN_COMPACTION_MERGES, LEAN_COMPACTION_ROWS, LEAN_SKETCH_CACHE_HITS,
+    LEAN_SKETCH_CACHE_MISSES, PYRAMID_BUILD_MS, PYRAMID_BUILDS,
+    PYRAMID_SERVE_HITS, WRITE_SEALS, WRITE_SPILLS, registry as _metrics,
+)
+from ..obs.heat import (
+    heat_enabled, merge_index_generations, record_index_scan,
 )
 from ..obs.trace import device_span, obs_count
 from ..obs.trace import span as obs_span
@@ -265,6 +276,10 @@ class ShardedLeanZ3Index:
     """Tiered lean generational z3 index over a device mesh (module
     doc)."""
 
+    #: ``(schema, index_key)`` the heat touches record under, stamped by
+    #: the store; an index built directly records under its class name
+    heat_scope: tuple | None = None
+
     #: slots per generation PER SHARD
     GENERATION_SLOTS = 1 << 22
     DEFAULT_CAPACITY = 1 << 15
@@ -421,7 +436,11 @@ class ShardedLeanZ3Index:
                     return
         for gen in self.generations[:-1]:
             if gen.tier == "keys":
-                gen.spill_to_host()
+                # the spill ends in the device→host copy of its shards
+                with device_span("write.spill", gen_id=gen.gen_id,
+                                 slots=int(gen.n_slots)):
+                    obs_count(WRITE_SPILLS)
+                    gen.spill_to_host()
                 self._host_stack = None   # restacked on the next query
                 if self._per_shard_resident() <= self.hbm_budget_bytes:
                     return
@@ -517,11 +536,17 @@ class ShardedLeanZ3Index:
             gen = self.generations[-1] if self.generations else None
             if gen is None or gen.tier == "host" \
                     or gen.n_slots + m_pad > gen.slots:
-                sealed = (gen.gen_id if gen is not None
-                          and gen.tier != "host" else None)
-                gen = self._new_generation()
-                if sealed is not None:
+                if gen is not None and gen.tier != "host":
+                    # the live generation seals on rollover (the span
+                    # covers the rebalance)
+                    sealed = gen.gen_id
+                    with obs_span("write.seal", gen_id=gen.gen_id,
+                                  tier=gen.tier, slots=int(gen.n_slots)):
+                        obs_count(WRITE_SEALS)
+                        gen = self._new_generation()
                     notify_generation_event(self, "seal", [sealed])
+                else:
+                    gen = self._new_generation()
             take_all = min(m_pad * n_shards, max(0, m - done))
             for s in range(n_shards):
                 lo, hi = done + s * m_pad, done + min(take_all,
@@ -594,6 +619,9 @@ class ShardedLeanZ3Index:
         merged.gen_id = self._next_gen_id()
         dead_ids = [g.gen_id for g in group]
         self._sketch_cache.drop_generations(dead_ids)
+        # the merged run inherits its sources' access temperature, before
+        # the swap (see index/z3_lean.py)
+        merge_index_generations(self, dead_ids, merged.gen_id)
         # the merged run's pyramid is the SUM of its parents', taken
         # before the parents' entries drop
         self._inherit_pyramids(dead_ids, merged.gen_id)
@@ -673,13 +701,15 @@ class ShardedLeanZ3Index:
         start at :attr:`_shard0`), one device→host copy per device."""
         if not gens:
             return [], np.zeros((self.mesh.size, 0), np.int64)
-        seeks = [[_seek(g.bins[s], g.z[s], args[s])
-                  for s in range(self.mesh.size)] for g in gens]
-        sums = [torch.stack([seeks[i][s][1].sum() for i in range(len(gens))])
-                for s in range(self.mesh.size)]
         self.dispatch_count += 1
-        return seeks, self._global_totals(
-            np.stack([t.cpu().numpy() for t in sums]))
+        with device_span("query.scan.device", stage="probe", runs=len(gens)):
+            seeks = [[_seek(g.bins[s], g.z[s], args[s])
+                      for s in range(self.mesh.size)] for g in gens]
+            sums = [torch.stack([seeks[i][s][1].sum()
+                                 for i in range(len(gens))])
+                    for s in range(self.mesh.size)]
+            return seeks, self._global_totals(
+                np.stack([t.cpu().numpy() for t in sums]))
 
     def _scan_dispatches(self, totals: np.ndarray) -> int:
         """Scan programs the JAX index dispatches for one tier's probe
@@ -770,28 +800,32 @@ class ShardedLeanZ3Index:
         w_boxes: list = []
         qtlo = np.empty(n_q, dtype=np.int64)
         qthi = np.empty(n_q, dtype=np.int64)
-        for q, (bxs, lo, hi) in enumerate(windows):
-            # a per-process raise BETWEEN collective phases (the planner's
-            # precedent); the PARTIAL break is single-controller only: a
-            # process breaking on its own clock would plan fewer ranges
-            # than its peers and strand them in the next collective
-            if not self._multihost and check_cancel("query.decompose"):
-                break
-            lo, hi = self._clamp_time(lo, hi)
-            qtlo[q], qthi[q] = lo, hi
-            bxs = np.atleast_2d(np.asarray(bxs, dtype=np.float64))
-            w_boxes.append(bxs)
-            # per-BIN range budget (see index/z3_lean.query_many)
-            budget = min(max_ranges * _bins_spanned(lo, hi, self.period),
-                         _MAX_RANGES_PER_WINDOW)
-            plan = plan_z3_query(bxs, lo, hi, self.period, budget,
-                                 sfc=self.sfc)
-            if plan.num_ranges == 0:
-                continue
-            rbin.append(plan.rbin)
-            rzlo.append(plan.rzlo)
-            rzhi.append(plan.rzhi)
-            rqid.append(np.full(plan.num_ranges, q, dtype=np.int32))
+        with obs_span("query.decompose", windows=n_q) as dsp:
+            for q, (bxs, lo, hi) in enumerate(windows):
+                # a per-process raise BETWEEN collective phases (the
+                # planner's precedent); the PARTIAL break is
+                # single-controller only: a process breaking on its own
+                # clock would plan fewer ranges than its peers and strand
+                # them in the next collective
+                if not self._multihost and check_cancel("query.decompose"):
+                    break
+                lo, hi = self._clamp_time(lo, hi)
+                qtlo[q], qthi[q] = lo, hi
+                bxs = np.atleast_2d(np.asarray(bxs, dtype=np.float64))
+                w_boxes.append(bxs)
+                # per-BIN range budget (see index/z3_lean.query_many)
+                budget = min(max_ranges * _bins_spanned(lo, hi,
+                                                        self.period),
+                             _MAX_RANGES_PER_WINDOW)
+                plan = plan_z3_query(bxs, lo, hi, self.period, budget,
+                                     sfc=self.sfc)
+                if plan.num_ranges == 0:
+                    continue
+                rbin.append(plan.rbin)
+                rzlo.append(plan.rzlo)
+                rzhi.append(plan.rzhi)
+                rqid.append(np.full(plan.num_ranges, q, dtype=np.int32))
+            dsp.set_attr("ranges", int(sum(len(r) for r in rbin)))
         if not rbin:
             return [np.empty(0, dtype=np.int64) for _ in range(n_q)]
         ra = pad_ranges(
@@ -834,37 +868,57 @@ class ShardedLeanZ3Index:
                 and int(totals[:, nf:].sum())):
             cand.append(self._scan(keys_gens, seeks[nf:], totals[:, nf:],
                                    args, pos_bits, exact=False))
+        host_cand_n = 0
         if host_gens and not yield_point("query.scan.host"):
-            got = self._host_stack_of(host_gens).candidates(
-                ra["rbin"], ra["rzlo"], ra["rzhi"], ra["rqid"], pos_bits)
-            if len(got):
+            with obs_span("query.scan.host", stage="seek",
+                          runs=len(host_gens)):
+                got = self._host_stack_of(host_gens).candidates(
+                    ra["rbin"], ra["rzlo"], ra["rzhi"], ra["rqid"],
+                    pos_bits)
+            host_cand_n = len(got)
+            if host_cand_n:
                 # second probe point, as on one device: host candidates
                 # count before the payload re-check (process-local
                 # counts: no probe under multihost)
                 if not self._multihost:
-                    check_replan("query.scan.probe", dev_total + len(got))
+                    check_replan("query.scan.probe", dev_total + host_cand_n)
                 cand.append(got)
+        if heat_enabled():
+            # process-local, never a collective: device generations
+            # attribute candidates exactly through the probe's per-shard
+            # totals; host candidates split by consumed slots
+            touches = [(g.gen_id, g.tier, int(g.n_slots), g.device_bytes(),
+                        int(totals[:, i].sum()))
+                       for i, g in enumerate(full_gens + keys_gens)]
+            n_host = sum(g.n_slots for g in host_gens)
+            touches += [(g.gen_id, "host", int(g.n_slots),
+                         g.host_key_bytes(),
+                         int(round(host_cand_n * g.n_slots / n_host)))
+                        for g in host_gens]
+            record_index_scan(self, touches)
         mask_bits = (np.int64(1) << pos_bits) - 1
         flat = np.concatenate(cand) if cand else np.empty(0, np.int64)
-        if len(flat):
-            # the host exact mask on the payload (the client-side re-check
-            # of keys/host-tier candidates, all of this process's rows)
-            x, yv, t = self._payload_flat()
-            qids = flat >> pos_bits
-            rows = flat & mask_bits & ((np.int64(1) << GID_PROC_SHIFT) - 1)
-            cx, cy, ct = x[rows], yv[rows], t[rows]
-            keep = np.zeros(len(rows), dtype=bool)
-            for q in range(n_q):
-                sel = qids == q
-                if not sel.any():
-                    continue
-                in_box = np.zeros(int(sel.sum()), dtype=bool)
-                for b in w_boxes[q]:
-                    in_box |= ((cx[sel] >= b[0]) & (cy[sel] >= b[1])
-                               & (cx[sel] <= b[2]) & (cy[sel] <= b[3]))
-                keep[sel] = (in_box & (ct[sel] >= qtlo[q])
-                             & (ct[sel] <= qthi[q]))
-            flat = flat[keep]
+        with obs_span("query.scan.host", stage="recheck",
+                      candidates=int(len(flat))):
+            if len(flat):
+                # the host exact mask on the payload (the client-side re-check
+                # of keys/host-tier candidates, all of this process's rows)
+                x, yv, t = self._payload_flat()
+                qids = flat >> pos_bits
+                rows = flat & mask_bits & ((np.int64(1) << GID_PROC_SHIFT) - 1)
+                cx, cy, ct = x[rows], yv[rows], t[rows]
+                keep = np.zeros(len(rows), dtype=bool)
+                for q in range(n_q):
+                    sel = qids == q
+                    if not sel.any():
+                        continue
+                    in_box = np.zeros(int(sel.sum()), dtype=bool)
+                    for b in w_boxes[q]:
+                        in_box |= ((cx[sel] >= b[0]) & (cy[sel] >= b[1])
+                                   & (cx[sel] <= b[2]) & (cy[sel] <= b[3]))
+                    keep[sel] = (in_box & (ct[sel] >= qtlo[q])
+                                 & (ct[sel] <= qthi[q]))
+                flat = flat[keep]
         hits = np.concatenate([exact, flat])
         if self._multihost:
             hits = allgather_concat(hits)
@@ -876,7 +930,8 @@ class ShardedLeanZ3Index:
     def density(self, boxes, t_lo_ms, t_hi_ms, env,
                 width: int = 256, height: int = 256,
                 max_ranges: int = DEFAULT_MAX_RANGES,
-                _gens: list | None = None) -> np.ndarray:
+                _gens: list | None = None,
+                _record_heat: bool = True) -> np.ndarray:
         """DensityScan push-down over the mesh: per-shard grids summed —
         the full tier masks exactly on its sorted payload, the keys tier
         decodes cell-granular coordinates from the z key, host-tier runs
@@ -887,8 +942,9 @@ class ShardedLeanZ3Index:
         resolution serve sealed generations from their density pyramids
         and scan only the live generation and any pyramid-less ones —
         exact, since each level is the generation's own grid at that
-        width.  ``_gens`` restricts the scan (the pyramid builder's and
-        the fast path's hook).  Under multihost the local partial grid
+        width.  ``_gens`` restricts the scan and ``_record_heat=False``
+        leaves its heat unrecorded (the pyramid build's and the fast
+        path's hooks).  Under multihost the local partial grid
         all-reduces over the processes; pyramid levels are already
         global."""
         grid = np.zeros((height, width), np.float64)
@@ -906,20 +962,28 @@ class ShardedLeanZ3Index:
                             & (bxs[:, 2] >= 180.0) & (bxs[:, 3] >= 90.0))))
         if pyr_ok:
             rest: list = []
-            served = 0
+            served: set = set()
             for g in self.generations[:-1]:
                 lvl = self._pyramid_level(g.gen_id, width)
                 if lvl is not None:
                     self.pyramid_serve_hits += 1
+                    obs_count(PYRAMID_SERVE_HITS)
                     grid += lvl
-                    served += 1
+                    served.add(id(g))
                 else:
                     rest.append(g)
             if served:
                 rest.append(self.generations[-1])
-                return grid + self.density(boxes, t_lo_ms, t_hi_ms, env,
-                                           width, height, max_ranges,
-                                           _gens=rest)
+                grid += self.density(boxes, t_lo_ms, t_hi_ms, env, width,
+                                     height, max_ranges, _gens=rest,
+                                     _record_heat=False)
+                if heat_enabled():
+                    # pyramid-served generations read zero bytes
+                    record_index_scan(self, [
+                        (g.gen_id, g.tier, int(g.n_slots),
+                         0 if id(g) in served else self._gen_bytes(g), None)
+                        for g in self.generations])
+                return grid
         budget = min(max_ranges * _bins_spanned(lo, hi, self.period),
                      _MAX_RANGES_PER_WINDOW)
         plan = plan_z3_query(bxs, lo, hi, self.period, budget, sfc=self.sfc)
@@ -951,14 +1015,18 @@ class ShardedLeanZ3Index:
         nf = len(full_gens)
         if full_gens and int(totals[:, :nf].sum()):
             self.dispatch_count += 1
-            grid += self._density_tier(full_gens, seeks[:nf],
-                                       totals[:, :nf], args, width, height,
-                                       env_t, full=(lo, hi))
+            with device_span("query.scan.device", tier="full",
+                             runs=len(full_gens)):
+                grid += self._density_tier(full_gens, seeks[:nf],
+                                           totals[:, :nf], args, width,
+                                           height, env_t, full=(lo, hi))
         if keys_gens and int(totals[:, nf:].sum()):
             self.dispatch_count += 1
-            grid += self._density_tier(keys_gens, seeks[nf:],
-                                       totals[:, nf:], args, width, height,
-                                       env_t, keys=tb)
+            with device_span("query.scan.device", tier="keys",
+                             runs=len(keys_gens)):
+                grid += self._density_tier(keys_gens, seeks[nf:],
+                                           totals[:, nf:], args, width,
+                                           height, env_t, keys=tb)
         if host_gens:
             if _gens is None:
                 stack = self._host_stack_of(host_gens)
@@ -973,7 +1041,19 @@ class ShardedLeanZ3Index:
         if self._multihost:
             t = torch.from_numpy(grid).to(self.mesh[0])
             grid = allreduce_tensor(t).cpu().numpy()
+        if _record_heat and heat_enabled() and self.generations:
+            # density reads every generation; its matches are grids, not
+            # rows, so every touch is a full-weight access
+            record_index_scan(self, [
+                (g.gen_id, g.tier, int(g.n_slots), self._gen_bytes(g), None)
+                for g in self.generations])
         return grid
+
+    @staticmethod
+    def _gen_bytes(g) -> int:
+        """The bytes a scan of ``g`` reads: its device bytes, or its
+        spilled runs' keys on the host tier."""
+        return g.device_bytes() if g.tier != "host" else g.host_key_bytes()
 
     def _density_tier(self, gens, seeks, totals, args, width: int,
                       height: int, env, full=None, keys=None) -> np.ndarray:
@@ -1053,28 +1133,41 @@ class ShardedLeanZ3Index:
         for g in self.generations:
             part = cache.get(g.gen_id) if g is not live else None
             if part is not None:
+                obs_count(LEAN_SKETCH_CACHE_HITS)
                 total += part
             else:
                 fold.append(g)
-        if any(g.tier != "host" for g in fold):
-            self.dispatch_count += 1
+        dev_fold = [g for g in fold if g.tier != "host"]
         parts = np.zeros((len(fold), nb << bits), np.int64)
+        if dev_fold:
+            self.dispatch_count += 1
+            with device_span("query.scan.device", stage="z3_cells",
+                             runs=len(dev_fold)):
+                for i, g in enumerate(fold):
+                    if g.tier == "host":
+                        continue
+                    for s in range(self.mesh.size):
+                        k = int(g.fill[s])
+                        parts[i] += _z3_cells(g.bins[s][:k], g.z[s][:k], b0,
+                                              nb, int(bits)).cpu().numpy()
         for i, g in enumerate(fold):
             if g.tier == "host":
                 for run in g.runs:
                     parts[i] += run.cell_counts(b0, nb, int(bits))
-            else:
-                for s in range(self.mesh.size):
-                    k = int(g.fill[s])
-                    parts[i] += _z3_cells(g.bins[s][:k], g.z[s][:k], b0, nb,
-                                          int(bits)).cpu().numpy()
         if self._multihost and fold:
             from .stats import allreduce_counts
             parts = allreduce_counts(parts.reshape(-1)).reshape(parts.shape)
         for g, part in zip(fold, parts):
             total += part
             if g is not live:
+                obs_count(LEAN_SKETCH_CACHE_MISSES)
                 self._sketch_cache.add(cache, g.gen_id, np.array(part))
+        if heat_enabled() and self.generations:
+            scanned = {id(g) for g in fold}
+            record_index_scan(self, [
+                (g.gen_id, g.tier, int(g.n_slots),
+                 self._gen_bytes(g) if id(g) in scanned else 0, None)
+                for g in self.generations])
         return b0, total
 
     # -- density pyramids -------------------------------------------------
@@ -1101,7 +1194,8 @@ class ShardedLeanZ3Index:
             with obs_span("pyramid.build", gen_id=g.gen_id, tier=g.tier,
                           base=base, sharded=True):
                 part = self.density([_PYRAMID_WORLD], None, None,
-                                    _PYRAMID_WORLD, base, base, _gens=[g])
+                                    _PYRAMID_WORLD, base, base, _gens=[g],
+                                    _record_heat=False)
             self._pyramid_cache.add(cache, g.gen_id,
                                     DensityPyramid.from_base(part, levels))
             obs_count(PYRAMID_BUILDS)

@@ -978,3 +978,28 @@ def test_allocator_oom_is_transient(cuda_device):
     assert classify_device_failure(err.value) == "transient"
     assert classify_device_failure(RuntimeError(
         "z3_mask kernel launch failed: CUDA error 700")) == "poison"
+
+
+def test_traced_query_builds_no_kernel_after_build_all(cuda_device):
+    """Once every kernel is built, a traced facade query builds nothing:
+    the kernel-build watch's count stays put and no span carries
+    ``jax.recompiles``."""
+    from geomesa_tpu_torch import obs
+    from geomesa_tpu_torch.ops.build import build_all
+    build_all()
+    rng = np.random.default_rng(4)
+    n = 100_000
+    ds = TpuDataStore(device=cuda_device)
+    ds.create_schema("w", "dtg:Date,*geom:Point")
+    ds.write("w", {"dtg": rng.integers(MS_2018, MS_2018 + 14 * DAY, n),
+                   "geom": (rng.uniform(-10, 10, n), rng.uniform(-10, 10, n))})
+    q = ("BBOX(geom,-5,-5,5,5) AND dtg DURING "
+         "2018-01-03T00:00:00Z/2018-01-09T00:00:00Z")
+    ds.query_result("w", q)
+    n0 = obs.compile_count()
+    with obs.tracer.capture() as cap:
+        hits = ds.query_result("w", q)
+    assert len(hits.positions) > 0
+    assert obs.compile_count() == n0
+    spans = [s for t in cap.traces() for s in t.spans]
+    assert spans and not any("jax.recompiles" in s.attributes for s in spans)

@@ -15,7 +15,8 @@ append and delete, and the serving plane (batched windows on a default
 and a lean store, fused queries from four threads, a tile and a query
 under deadlines, the audit and the metrics reduction), a traced query,
 a lean query degraded by a fault armed through ``set_property``, the
-storage report and EXPLAIN ANALYZE, loads neither
+storage report and EXPLAIN ANALYZE, a lean store's heat report, a
+``CompactionJob``, the Prometheus text and the SLO report, loads neither
 ``jax`` nor
 any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
@@ -293,6 +294,17 @@ obs = {"spans": tspans, "traced_hits": int(len(tq.positions)),
        "explain": sv.explain_analyze("sv", sq).summary["actual_matched"],
        "gates": sorted(k for k, v in kernel_health().items()
                        if k.endswith("_ok"))}
+from geomesa_tpu_torch.jobs import CompactionJob
+from geomesa_tpu_torch.obs import jobs_registry, prometheus_text, slo_plane
+hrep = ls.heat_report()
+CompactionJob(ls, "l").run()
+obs.update({"heat": [len(hrep["generations"]),
+                     len(ls._store("l").index("z3").generations),
+                     sum(g["scans"] for g in hrep["generations"])],
+            "job": jobs_registry.jobs(kind="compaction")[0].state,
+            "prom": prometheus_text(mreg.snapshot()).count("# TYPE "),
+            "slo": [sorted(slo_plane.report()["classes"]),
+                    slo_plane.report()["enabled"]]})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -410,6 +422,10 @@ def test_import_and_query_load_no_jax():
     assert obs["explain"] == sv["fused_solo"]
     assert obs["gates"] == ["density_ok", "hist1d_ok", "z2_scan_ok",
                             "z3_scan_ok"]
+    # every lean generation ranks once, and the probe's scans touched them
+    assert obs["heat"][0] >= obs["heat"][1] > 0 and obs["heat"][2] > 0
+    assert obs["job"] == "succeeded" and obs["prom"] > 10
+    assert obs["slo"] == [["query", "tile.render", "write"], True]
 
 
 def test_source_scan_covers_the_serving_modules():
@@ -421,6 +437,8 @@ def test_source_scan_covers_the_serving_modules():
 def test_source_scan_covers_the_observability_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"obs/trace.py", "obs/resource.py", "obs/explain_analyze.py",
+            "obs/heat.py", "obs/slo.py", "obs/attribution.py",
+            "obs/prom.py", "obs/jobs.py", "obs/recompile.py", "jobs.py",
             "resilience/faults.py", "resilience/degrade.py",
             "ops/gate.py"} <= scanned
 
