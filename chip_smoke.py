@@ -23,6 +23,7 @@
                           [--mh-lean-rows 16000000]
                           [--mh-lean-slots 4194304] [--mh-timeout 400]
                           [--res-rows 8000000] [--res-slots 1048576]
+                          [--ingest-files 8] [--ingest-rows 250000]
                           [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
@@ -366,7 +367,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    stays exact); then ``ingest.append``, ``host.spill``,
    ``pyramid.build`` and ``compaction.merge_step`` armed once each, the
    store equal to its oracle after each.  At the end every kernel gate
-   must read ``ok`` with no failure.
+   must read ``ok`` with no failure;
+23. ingest: ``--ingest-files`` GDELT 1.0 event files (a week at the
+   defaults) of ``--ingest-rows`` rows each, 58 tab-separated fields
+   written by pyarrow's CSV writer after the disk check, 0.1% of the
+   rows bad (ragged, a point outside WGS84, a date before 1970), through
+   ``run_ingest`` (the GDELT converter config, skip mode, the ``z-index``
+   validator, 4 workers) into a default-profile ``gdelt`` store on the
+   card: ``ingested`` and ``failed`` equal to the generator's counts,
+   every stored row the generator's; the rows/s, the job's ``setup`` and
+   ``ingest`` spans and the time of its writes; the index phase's 20
+   queries as BBOX+DURING (z3) and BBOX (z2), each equal to the oracle
+   over the good rows; ``spatial_rdd`` of a city query (the partitions'
+   union equal to ``query_result``, ``to_arrow`` the same count) and
+   ``save_rdd`` into a second store; the converter RDD provider over
+   two of the files with a region filter, and ``run_distributed_ingest``
+   over them on ``device_mesh(1)``, each equal to the oracle; the JSON,
+   GeoJSON, XML, fixed-width, Avro, JDBC, shapefile and OSM converters
+   on a small file each into a schema of its own, a continent query
+   equal to the oracle; and the CSV, GeoJSON, GML, Leaflet and shapefile
+   exports of the city query, CSV, GeoJSON and the shapefile read back
+   equal.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 6b (which must
@@ -389,7 +410,8 @@ paths (host numpy and plain XLA), and the port none on them.  They are
 set to 0 and read around each of phases 16-18, which must launch
 z3_mask, z2_mask and density_grid (16), z3_mask and z2_mask (17), and
 z3_mask, z2_mask and hist1d (18), and around each of phases 19-21,
-which must launch every kernel (19) and z3_mask and z2_mask (21); phase
+which must launch every kernel (19) and z3_mask and z2_mask (21), and
+around phase 23, which must launch z3_mask and z2_mask; phase
 20's and 22's are reported.  Each multihost worker (phase 3b) sets its own
 counts to 0 just before its run and reads them just after; the parent
 reports them as ``multihost_path_launches``.  The
@@ -1479,12 +1501,16 @@ def serving_fused_part(args, centres, ds, name: str, cols, report):
 
 
 
+def _bbox_ecql(boxes) -> str:
+    """The ECQL of an OR of BBOXes."""
+    parts = [f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})" for b in boxes]
+    return parts[0] if len(parts) == 1 else "(" + " OR ".join(parts) + ")"
+
+
 def _ecql(boxes, lo, hi) -> str:
     """The ECQL of a ``(boxes, lo, hi)`` window: an OR of BBOXes AND the
     inclusive DURING."""
-    parts = [f"BBOX(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})" for b in boxes]
-    f = parts[0] if len(parts) == 1 else "(" + " OR ".join(parts) + ")"
-    return f"{f} AND dtg DURING {iso(lo)}/{iso(hi)}"
+    return f"{_bbox_ecql(boxes)} AND dtg DURING {iso(lo)}/{iso(hi)}"
 
 
 def trace_reading(qs, ds, report, reps: int = 3):
@@ -5867,6 +5893,551 @@ def multihost_phase(args, report) -> None:
     log(f"multihost: both workers agree; wall {wall_s:.1f} s")
 
 
+#: phase 23's schema: the GDELT 1.0 event file's action point, day,
+#: Actor1Name, EventCode and GoldsteinScale
+INGEST_SPEC = "actor:String,code:String,score:Double,dtg:Date,*geom:Point"
+#: the converter of a GDELT 1.0 event file (58 tab-separated fields, no
+#: header; GeoMesa's bundled ``gdelt`` converter reads the same columns):
+#: GLOBALEVENTID, SQLDATE (yyyyMMdd), Actor1Name, EventCode,
+#: GoldsteinScale, ActionGeo_Lat and ActionGeo_Long
+INGEST_CONFIG = {
+    "type": "tsv", "id-field": "toString($0)",
+    "fields": [{"name": "actor", "transform": "$6"},
+               {"name": "code", "transform": "toString($26)"},
+               {"name": "score", "transform": "toDouble($30)"},
+               {"name": "dtg", "transform": "date('yyyyMMdd', $1)"},
+               {"name": "geom",
+                "transform": "point(toDouble($54), toDouble($53))"}],
+    "options": {"error-mode": "skip", "validators": ["z-index"]}}
+GDELT_FIELDS = 58
+_ACTORS = ("UNITED STATES", "CHINA", "RUSSIA", "POLICE", "GOVERNMENT",
+           "PRESIDENT", "UNITED KINGDOM", "IRAN", "ISRAEL", "MILITARY",
+           "PROTESTER", "")
+_CODES = ("USA", "CHN", "RUS", "GBR", "IRN", "ISR", "FRA", "DEU", "IND",
+          "COP", "GOV", "")
+_EVENT_CODES = ("010", "020", "036", "042", "043", "051", "112", "120",
+                "173", "190")
+_PLACES = ("Washington, District of Columbia, United States",
+           "Beijing, Beijing, China", "Moscow, Moskva, Russia",
+           "London, London, City of, United Kingdom", "Tehran, Tehran, Iran",
+           "Jerusalem, Israel (general), Israel", "Paris, Ile-de-France, "
+           "France", "New Delhi, NCT, India", "Lagos, Lagos, Nigeria", "")
+
+
+def gdelt_events(rng, centres, first_id: int, n: int, n_bounds: int,
+                 n_time: int):
+    """``n`` GDELT 1.0 event rows as a 58-column pyarrow table (the
+    points of :func:`gdelt_like` at GDELT's 4 decimals, the day its
+    SQLDATE); ``n_bounds`` of them with an ActionGeo point outside
+    WGS84 and ``n_time`` dated before the z3 epoch (1965-1969).  Returns
+    the table and the good rows' ``(ids, x, y, day_ms)``."""
+    import numpy as np
+    import pyarrow as pa
+
+    x, y, t = gdelt_like(rng, n, centres)
+    x, y = np.round(x, 4), np.round(y, 4)
+    day = t // DAY * DAY
+    d = day.astype("M8[ms]").astype("M8[D]")
+    year = d.astype("M8[Y]").astype(np.int64) + 1970
+    month = d.astype("M8[M]").astype(np.int64) % 12 + 1
+    dom = (d - d.astype("M8[M]")).astype(np.int64) + 1
+    sqldate = year * 10000 + month * 100 + dom
+    bad = rng.permutation(n)[:n_bounds + n_time]
+    lat, lon = y.copy(), x.copy()
+    lat[bad[:n_bounds:2]] = 95.5
+    lon[bad[1:n_bounds:2]] = 200.25
+    sqldate[bad[n_bounds:]] = 19650101 + rng.integers(0, 4, n_time) * 10000
+    good = np.ones(n, dtype=bool)
+    good[bad] = False
+    ids = first_id + np.arange(n, dtype=np.int64)
+
+    def pick(vocab):
+        return pa.array(vocab).take(pa.array(rng.integers(0, len(vocab), n)))
+
+    def ints(lo, hi):
+        return pa.array(rng.integers(lo, hi, n))
+
+    def tenths(lo, hi):
+        return pa.array(np.round(rng.uniform(lo, hi, n), 1))
+
+    urls = tuple(f"https://www.news{i % 37}.example.com/world/2018/"
+                 f"{i:05d}/story-about-the-event-{i * 7919 % 100000}.html"
+                 for i in range(997))
+    lat_a, lon_a = pa.array(lat), pa.array(lon)
+    cols = [pa.array(ids), pa.array(sqldate), pa.array(sqldate // 100),
+            pa.array(year), pa.array(np.round(year + (dom + 30 * month)
+                                              / 365.0, 4)),
+            pick(_CODES), pick(_ACTORS), pick(_CODES), pick(_CODES),
+            pick(_CODES), pick(_CODES), pick(_CODES), pick(_CODES),
+            pick(_CODES), pick(_CODES),                      # 5-14
+            pick(_CODES), pick(_ACTORS), pick(_CODES), pick(_CODES),
+            pick(_CODES), pick(_CODES), pick(_CODES), pick(_CODES),
+            pick(_CODES), pick(_CODES),                      # 15-24
+            ints(0, 2), pick(_EVENT_CODES), pick(_EVENT_CODES),
+            pick(_EVENT_CODES), ints(1, 5), tenths(-10, 10),  # 25-30
+            ints(1, 40), ints(1, 10), ints(1, 40),
+            pa.array(np.round(rng.uniform(-20, 20, n), 6)),  # 31-34
+            ints(1, 5), pick(_PLACES), pick(_CODES), pick(_CODES),
+            lat_a, lon_a, ints(-9_999_999, 9_999_999),        # 35-41
+            ints(1, 5), pick(_PLACES), pick(_CODES), pick(_CODES),
+            lat_a, lon_a, ints(-9_999_999, 9_999_999),        # 42-48
+            ints(1, 5), pick(_PLACES), pick(_CODES), pick(_CODES),
+            lat_a, lon_a, ints(-9_999_999, 9_999_999),        # 49-55
+            pa.array(sqldate * 1000000 + rng.integers(0, 240000, n)),
+            pick(urls)]                                      # 56-57
+    assert len(cols) == GDELT_FIELDS
+    table = pa.table(cols, names=[f"c{i}" for i in range(GDELT_FIELDS)])
+    return table, (ids[good], x[good], y[good], day[good])
+
+
+def write_gdelt_file(path: str, table, first_ragged_id: int,
+                     n_ragged: int) -> None:
+    """The table as a headerless TSV (pyarrow's CSV writer), then
+    ``n_ragged`` rows cut short at 40 fields."""
+    import pyarrow.csv as pacsv
+
+    pacsv.write_csv(table, path, pacsv.WriteOptions(
+        include_header=False, delimiter="\t", quoting_style="none"))
+    with open(path, "a") as f:
+        for k in range(n_ragged):
+            f.write("\t".join([str(first_ragged_id + k), "20180105"]
+                              + ["x"] * 38) + "\n")
+
+
+class _TimedWrites:
+    """A store whose ``write`` is timed (the ingest job's single writer),
+    the rest passed through."""
+
+    def __init__(self, ds):
+        self.ds, self.write_s, self.writes = ds, 0.0, 0
+
+    def get_schema(self, name):
+        return self.ds.get_schema(name)
+
+    def write(self, name, batch):
+        import torch
+        t0 = time.perf_counter()
+        n = self.ds.write(name, batch)
+        torch.cuda.synchronize()
+        self.write_s += time.perf_counter() - t0
+        self.writes += 1
+        return n
+
+
+def _ids_of(batch):
+    import numpy as np
+    return np.sort(np.asarray(batch.ids).astype(np.int64))
+
+
+def ingest_phase(rng, args, centres, qs, dev, report) -> None:
+    """Phase 23: converter ingest of a week of GDELT 1.0 event files
+    (``--ingest-files`` TSV files of ``--ingest-rows`` rows, 58 fields,
+    0.1% bad) through ``run_ingest`` (skip mode, ``z-index`` validator,
+    4 workers) into a default-profile store on the card; the index
+    phase's 20 queries as BBOX+DURING (z3) and BBOX (z2) against the
+    oracle over the good rows; ``spatial_rdd`` and ``save_rdd``; the
+    converter RDD provider and ``run_distributed_ingest`` over two of the
+    files; each other converter type on a small file; and the CSV,
+    GeoJSON, GML, Leaflet and shapefile exports of a city query."""
+    import numpy as np
+    import torch
+    from geomesa_tpu_torch import TpuDataStore, convert, device_mesh
+    from geomesa_tpu_torch.jobs import run_distributed_ingest, run_ingest
+    from geomesa_tpu_torch.obs import jobs_registry
+    from geomesa_tpu_torch.parallel import save_rdd, spatial_rdd
+
+    n_files, per = args.ingest_files, args.ingest_rows
+    n_bad = per // 1000
+    n_ragged, n_bounds = n_bad // 3, n_bad // 3
+    n_time = n_bad - n_ragged - n_bounds
+    root = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        catalog_room(root, n_files * per * 420)
+        t0 = time.perf_counter()
+        paths, good = [], []
+        for f in range(n_files):
+            first = 1_000_000_000 + f * per
+            table, g = gdelt_events(rng, centres, first, per - n_ragged,
+                                    n_bounds, n_time)
+            paths.append(os.path.join(root, f"2018{f:04d}.export.tsv"))
+            write_gdelt_file(paths[-1], table, first + per - n_ragged,
+                             n_ragged)
+            good.append(g)
+            del table
+        gen_s = time.perf_counter() - t0
+        nbytes = dir_bytes(root)
+        ids, x, y, t = (np.concatenate(c) for c in zip(*good))
+        n_good = len(ids)
+
+        ds = TpuDataStore(device=dev)
+        ds.create_schema("gdelt", INGEST_SPEC)
+        timed = _TimedWrites(ds)
+        t0 = time.perf_counter()
+        res = run_ingest(timed, "gdelt", INGEST_CONFIG, paths, workers=4)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        rec = jobs_registry.jobs(kind="ingest", limit=1)[0]
+        spans = {p["name"]: p["ms"] for p in rec.phases}
+        if (res.ingested != n_good or res.failed != n_files * n_bad
+                or res.files != n_files or rec.state != "succeeded"):
+            raise AssertionError(
+                f"ingest: {res.ingested} ingested, {res.failed} failed of "
+                f"{res.files} files ({rec.state}); the generator made "
+                f"{n_good} good and {n_files * n_bad} bad rows")
+        # every ingested row is the generator's, value for value
+        batch = ds._store("gdelt").batch
+        order = np.argsort(batch.ids.astype(np.int64))
+        bx, by = batch.geom_xy()
+        if not (np.array_equal(batch.ids.astype(np.int64)[order], ids)
+                and np.array_equal(bx[order], x)
+                and np.array_equal(by[order], y)
+                and np.array_equal(batch.column("dtg")[order], t)):
+            raise AssertionError("ingest: the stored rows differ from the "
+                                 "generator's")
+        del batch, order, bx, by
+
+        # the index phase's 20 queries, BBOX+DURING (z3) then BBOX (z2);
+        # the first of each builds its index, timed apart
+        per_query, first_ms = [], {}
+        for index, make in (("z3", lambda q: _ecql(q[1], q[2], q[3])),
+                            ("z2", lambda q: _bbox_ecql(q[1]))):
+            for q in qs:
+                t0 = time.perf_counter()
+                r = ds.query_result("gdelt", make(q))
+                ms = (time.perf_counter() - t0) * 1e3
+                pos = (oracle(x, y, t, q[1], q[2], q[3]) if index == "z3"
+                       else box_oracle(x, y, q[1]))
+                got = _ids_of(r.batch)
+                if r.strategy.index != index or not np.array_equal(
+                        got, ids[pos]):
+                    raise AssertionError(
+                        f"ingest {index} {q[0]} query: {r.strategy.index}, "
+                        f"{len(got)} hits, oracle {len(pos)}")
+                if index not in first_ms:
+                    first_ms[index] = ms
+                else:
+                    per_query.append({"kind": q[0], "index": index,
+                                      "ms": ms, "hits": int(len(pos))})
+        lat = np.array([p["ms"] for p in per_query])
+
+        # the RDD layer over the store: a city query's partitions, their
+        # Arrow table and a save into a second store
+        city = max((q for q in qs if q[0] == "city"),
+                   key=lambda q: len(oracle(x, y, t, q[1], q[2], q[3])))
+        city_q = _ecql(city[1], city[2], city[3])
+        city_res = ds.query_result("gdelt", city_q)
+        t0 = time.perf_counter()
+        rdd = spatial_rdd({"store": ds}, "gdelt", city_q, num_partitions=4)
+        rdd_ms = (time.perf_counter() - t0) * 1e3
+        union = np.sort(np.concatenate(
+            [p.ids.astype(np.int64) for p in rdd.partitions])) \
+            if rdd.partitions else np.empty(0, np.int64)
+        table = rdd.to_arrow()
+        ds2 = TpuDataStore(device=dev)
+        saved = save_rdd(rdd, {"store": ds2}, "gdelt")
+        if (len(city_res.batch) == 0
+                or not np.array_equal(union, _ids_of(city_res.batch))
+                or table.num_rows != rdd.count()
+                or saved != rdd.count() or ds2.get_count("gdelt") != saved):
+            raise AssertionError(
+                f"ingest rdd: {rdd.count()} rows in {rdd.num_partitions} "
+                f"partitions, query {len(city_res.batch)}, arrow "
+                f"{table.num_rows}, saved {saved}")
+        del ds2, table
+
+        # the converter provider over two files, filtered by a region
+        region = next(q for q in qs if q[0] == "region")
+        region_q = _ecql(region[1], region[2], region[3])
+        two = [np.concatenate(c) for c in zip(*good[:2])]
+        want2 = two[0][oracle(two[1], two[2], two[3], region[1], region[2],
+                              region[3])]
+        t0 = time.perf_counter()
+        crdd = spatial_rdd({"paths": paths[:2], "sft": ds.get_schema("gdelt"),
+                            "converter": INGEST_CONFIG}, "gdelt", region_q)
+        conv_rdd_s = time.perf_counter() - t0
+        got2 = np.sort(np.concatenate([p.ids.astype(np.int64)
+                                       for p in crdd.partitions]))
+        if not np.array_equal(got2, want2):
+            raise AssertionError(f"ingest converter rdd: {len(got2)} rows in "
+                                 f"{crdd.num_partitions} partitions, oracle "
+                                 f"{len(want2)}")
+
+        # run_distributed_ingest over the same two files on device_mesh(1):
+        # its sharded z3 index's region query against the oracle's points
+        t0 = time.perf_counter()
+        didx, dres = run_distributed_ingest(
+            ds.get_schema("gdelt"), INGEST_CONFIG, paths[:2],
+            mesh=device_mesh(1), workers=2)
+        torch.cuda.synchronize()
+        dist_s = time.perf_counter() - t0
+        hits = didx.query(region[1], region[2], region[3])
+        st = convert.sharded_index_state(didx)
+        live = np.concatenate([np.arange(c) + s * st["gid"].shape[1]
+                               for s, c in enumerate(st["shard_counts"])])
+        gid = st["gid"].ravel()[live]
+        at = np.searchsorted(gid, hits, sorter=np.argsort(gid))
+        row = live[np.argsort(gid)[at]]
+        got_pts = [st[k].ravel()[row] for k in ("x", "y", "dtg")]
+        opos = oracle(two[1], two[2], two[3], region[1], region[2], region[3])
+        want_pts = [two[k][opos] for k in (1, 2, 3)]
+        # the index keeps no feature ids: its hits' points, as a multiset
+        got_o, want_o = np.lexsort(got_pts[::-1]), np.lexsort(want_pts[::-1])
+        if (dres.ingested != len(two[0]) or dres.failed != 2 * n_bad
+                or len(didx) != len(two[0]) or len(hits) != len(opos)
+                or not all(np.array_equal(g[got_o], w[want_o])
+                           for g, w in zip(got_pts, want_pts))):
+            raise AssertionError(
+                f"ingest distributed: {dres.ingested} ingested, "
+                f"{dres.failed} failed, index {len(didx)}, {len(hits)} hits, "
+                f"oracle {len(opos)}")
+        del didx, st, two
+
+        formats = other_formats_part(rng, centres, qs, dev, root)
+        exports = exports_part(city_res.batch, root)
+        report["ingest"] = {
+            "files": n_files, "rows_per_file": per, "fields": GDELT_FIELDS,
+            "file_bytes": nbytes, "gen_write_s": gen_s,
+            "ingested": res.ingested, "failed": res.failed,
+            "ingest_s": ingest_s,
+            "rows_per_s": n_files * per / ingest_s,
+            "bytes_per_s": nbytes / ingest_s,
+            "job_setup_ms": spans["setup"], "job_ingest_ms": spans["ingest"],
+            "write_s": timed.write_s, "writes": timed.writes,
+            "parse_convert_s": spans["ingest"] / 1e3 - timed.write_s,
+            "first_query_ms": first_ms, "query_ms_p50": float(np.median(lat)),
+            "query_ms_max": float(lat.max()), "queries": per_query,
+            "rdd": {"rows": rdd.count(), "partitions": rdd.num_partitions,
+                    "ms": rdd_ms, "saved": saved,
+                    "converter_rows": int(len(got2)),
+                    "converter_s": conv_rdd_s},
+            "distributed": {"ingested": dres.ingested, "failed": dres.failed,
+                            "hits": int(len(hits)), "s": dist_s},
+            "formats": formats, "exports": exports}
+        ing = report["ingest"]
+        log(f"ingest: {n_files} files x {per} rows x {GDELT_FIELDS} fields "
+            f"({nbytes} bytes, made in {gen_s:.2f} s); run_ingest "
+            f"{res.ingested} ingested, {res.failed} failed in "
+            f"{ingest_s:.2f} s = "
+            f"{ing['rows_per_s']:.4g} rows/s, {ing['bytes_per_s']:.4g} B/s "
+            f"(job setup {spans['setup']:.1f} ms, ingest "
+            f"{spans['ingest']:.1f} ms of which {timed.write_s:.3f} s in "
+            f"{timed.writes} writes); 40 queries equal to the oracle, first "
+            f"z3 {first_ms['z3']:.1f} ms, first z2 {first_ms['z2']:.1f} ms, "
+            f"p50 {np.median(lat):.2f} ms, max {lat.max():.2f} ms; rdd "
+            f"{rdd.count()} rows in {rdd.num_partitions} partitions, saved "
+            f"{saved}; converter rdd {len(got2)} rows in {conv_rdd_s:.2f} s; "
+            f"distributed {dres.ingested} rows, {len(hits)} hits in "
+            f"{dist_s:.2f} s; formats "
+            + ", ".join(f"{k} {v['hits']}/{v['rows']}"
+                        for k, v in formats.items())
+            + f"; exports of {exports['rows']} rows read back equal")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def other_formats_part(rng, centres, qs, dev, root) -> dict:
+    """Each other converter type (JSON, GeoJSON, XML, fixed-width, Avro,
+    JDBC, shapefile, OSM) on a small file of GDELT-like points through
+    ``run_ingest`` into its own schema on the card; a continent query
+    (BBOX over 2018 through z3, BBOX alone through z2 on the dtg-less OSM
+    schema) against the oracle."""
+    import json as _json
+    import sqlite3
+    from xml.sax.saxutils import quoteattr
+
+    import numpy as np
+    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch.features.batch import FeatureBatch
+    from geomesa_tpu_torch.features.feature_type import parse_spec
+    from geomesa_tpu_torch.io.avro import to_avro
+    from geomesa_tpu_torch.io.export import to_shapefile
+    from geomesa_tpu_torch.jobs import run_ingest
+
+    n = 4000
+    x, y, t = gdelt_like(rng, n, centres)
+    x, y = np.round(x, 4), np.round(y, 4)
+    eid = [f"e{i}" for i in range(n)]
+    spec = "name:String,dtg:Date,*geom:Point"
+    geom = {"name": "geom", "transform": "point(toDouble($lon), "
+                                         "toDouble($lat))"}
+    dtg = {"name": "dtg", "transform": "toLong($t)"}
+    name = {"name": "name", "transform": "toString($n)"}
+
+    def write(fname, text):
+        path = os.path.join(root, fname)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    cases = {
+        "json": (spec, write("p.json", "\n".join(_json.dumps(
+            {"id": eid[i], "n": f"n{i % 7}", "t": int(t[i]), "lon": x[i],
+             "lat": y[i]}) for i in range(n))),
+            {"type": "json", "id-field": "$id",
+             "fields": [name, dtg, geom]}),
+        "geojson": (spec, write("p.geojson", _json.dumps({
+            "type": "FeatureCollection", "features": [
+                {"type": "Feature", "id": eid[i],
+                 "geometry": {"type": "Point", "coordinates": [x[i], y[i]]},
+                 "properties": {"n": f"n{i % 7}", "t": int(t[i])}}
+                for i in range(n)]})),
+            {"type": "geojson", "id-field": "$id",
+             "fields": [name, dtg, {"name": "geom",
+                                    "transform": "$geometry"}]}),
+        "xml": (spec, write("p.xml", "<events>" + "".join(
+            f"<event id={quoteattr(eid[i])}><n>n{i % 7}</n><t>{t[i]}</t>"
+            f"<pos lon=\"{float(x[i])!r}\" lat=\"{float(y[i])!r}\"/>"
+            "</event>"
+            for i in range(n)) + "</events>"),
+            {"type": "xml", "feature-path": "event", "id-field": "$@id",
+             "fields": [{"name": "name", "transform": "$n"},
+                        {"name": "dtg", "transform": "toLong($t)"},
+                        {"name": "geom", "transform":
+                         "point(toDouble($pos/@lon), toDouble($pos/@lat))"}]}),
+        "fixed-width": (spec, write("p.txt", "".join(
+            f"{eid[i]:<10}{x[i]:>12.4f}{y[i]:>12.4f}{t[i]:>16d}\n"
+            for i in range(n))),
+            {"type": "fixed-width", "id-field": "$eid",
+             "fields": [{"name": "eid", "start": 0, "width": 10},
+                        {"name": "name", "transform": "substr($eid, 0, 2)"},
+                        {"name": "geom", "transform":
+                         "point(toDouble($lon), toDouble($lat))"},
+                        {"name": "lon", "start": 10, "width": 12},
+                        {"name": "lat", "start": 22, "width": 12},
+                        {"name": "dtg", "start": 34, "width": 16,
+                         "transform": "toLong($dtg)"}]}),
+        "osm": ("name:String,*geom:Point", write("p.osm", "<osm>" + "".join(
+            f"<node id=\"{i}\" lon=\"{float(x[i])!r}\" "
+            f"lat=\"{float(y[i])!r}\">"
+            f"<tag k=\"name\" v=\"n{i % 7}\"/></node>" for i in range(n))
+            + "</osm>"),
+            {"type": "osm", "id-field": "concat('e', $id)",
+             "fields": [{"name": "name"},
+                        {"name": "geom", "transform": "point($lon, $lat)"}]}),
+    }
+    sft = parse_spec("avro", spec)
+    batch = FeatureBatch.from_dict(sft, {
+        "name": np.array([f"n{i % 7}" for i in range(n)], dtype=object),
+        "dtg": t, "geom": (x, y)}, ids=eid)
+    to_avro(batch, os.path.join(root, "p.avro"))
+    cases["avro"] = (spec, os.path.join(root, "p.avro"), {"type": "avro"})
+    db = os.path.join(root, "p.db")
+    with contextlib.closing(sqlite3.connect(db)) as conn:
+        conn.execute("CREATE TABLE ev (id TEXT, n TEXT, t INT, x REAL, "
+                     "y REAL)")
+        conn.executemany("INSERT INTO ev VALUES (?,?,?,?,?)",
+                         [(eid[i], f"n{i % 7}", int(t[i]), float(x[i]),
+                           float(y[i])) for i in range(n)])
+        conn.commit()
+    cases["jdbc"] = (spec, db, {
+        "type": "jdbc", "query": "SELECT id, n, t, x, y FROM ev",
+        "id-field": "$id", "fields": [name, dtg, {
+            "name": "geom", "transform": "point($x, $y)"}]})
+    shp_sft = parse_spec("shp", "eid:String,name:String,dtg:Date,*geom:Point")
+    to_shapefile(FeatureBatch.from_dict(shp_sft, {
+        "eid": np.array(eid, dtype=object), "name": batch.column("name"),
+        "dtg": t, "geom": (x, y)}), os.path.join(root, "p.shp"))
+    cases["shapefile"] = (spec, os.path.join(root, "p.shp"), {
+        "type": "shp", "id-field": "$eid",
+        "fields": [{"name": "name"}, {"name": "dtg",
+                                      "transform": "toLong($dtg)"},
+                   {"name": "geom", "transform": "$geometry"}]})
+
+    box = next(q for q in qs if q[0] == "continent")[1]
+    ds = TpuDataStore(device=dev)
+    out = {}
+    ids = np.array(eid, dtype=object)
+    for kind, (sch, path, config) in cases.items():
+        schema = kind.replace("-", "_")
+        ds.create_schema(schema, sch)
+        t0 = time.perf_counter()
+        res = run_ingest(ds, schema, config, [path], workers=1)
+        ingest_ms = (time.perf_counter() - t0) * 1e3
+        has_dtg = "dtg" in sch
+        q = (_ecql(box, MS_2018, MS_2019 - 1) if has_dtg
+             else _bbox_ecql(box))
+        r = ds.query_result(schema, q)
+        want = (oracle(x, y, t, box, MS_2018, MS_2019 - 1) if has_dtg
+                else box_oracle(x, y, box))
+        if (res.ingested != n or res.failed
+                or r.strategy.index != ("z3" if has_dtg else "z2")
+                or sorted(r.batch.ids) != sorted(ids[want])
+                or len(want) == 0):
+            raise AssertionError(
+                f"ingest format {kind}: {res.ingested} ingested, "
+                f"{res.failed} failed {res.errors[:2]}, "
+                f"{r.strategy.index} {len(r.batch)} hits, oracle {len(want)}")
+        out[kind] = {"rows": res.ingested, "hits": int(len(want)),
+                     "ingest_ms": ingest_ms, "index": r.strategy.index}
+    return out
+
+
+def exports_part(batch, root) -> dict:
+    """CSV, GeoJSON, GML, Leaflet and shapefile exports of a query's
+    batch; CSV, GeoJSON and the shapefile read back equal to it."""
+    import csv as _csv
+    import io as _io
+    import json as _json
+    import xml.etree.ElementTree as ET
+
+    import numpy as np
+    from geomesa_tpu_torch.io.export import (
+        to_csv, to_geojson, to_gml, to_leaflet, to_shapefile,
+    )
+    from geomesa_tpu_torch.io.formats import read_shapefile
+
+    n = len(batch)
+    x, y = batch.geom_xy()
+    ids = [str(i) for i in batch.ids]
+    actor, score = batch.column("actor"), batch.column("score")
+    dtg = batch.column("dtg")
+    ms = {}
+    t0 = time.perf_counter()
+    text = to_csv(batch)
+    ms["csv"] = (time.perf_counter() - t0) * 1e3
+    rows = list(_csv.reader(_io.StringIO(text)))
+    pts = [r[5][len("POINT ("):-1].split() for r in rows[1:]]
+    if (rows[0] != ["id", "actor", "code", "score", "dtg", "geom"]
+            or [r[0] for r in rows[1:]] != ids
+            or [float(p[0]) for p in pts] != list(x)
+            or [float(p[1]) for p in pts] != list(y)
+            or [float(r[3]) for r in rows[1:]] != list(score)
+            or [int(np.datetime64(r[4], "ms").astype(np.int64))
+                for r in rows[1:]] != list(dtg)):
+        raise AssertionError("ingest export: the CSV does not read back")
+    t0 = time.perf_counter()
+    fc = _json.loads(to_geojson(batch))
+    ms["geojson"] = (time.perf_counter() - t0) * 1e3
+    feats = fc["features"]
+    if ([f["id"] for f in feats] != ids
+            or [f["geometry"]["coordinates"] for f in feats]
+            != [[float(a), float(b)] for a, b in zip(x, y)]
+            or [f["properties"].get("actor") for f in feats] != list(actor)
+            or [f["properties"]["score"] for f in feats] != list(score)):
+        raise AssertionError("ingest export: the GeoJSON does not read back")
+    t0 = time.perf_counter()
+    gml = to_gml(batch)
+    html = to_leaflet(batch)
+    ms["gml_leaflet"] = (time.perf_counter() - t0) * 1e3
+    members = ET.fromstring(gml).findall(
+        "{http://www.opengis.net/gml}featureMember")
+    if len(members) != n or html.count('"type": "Feature"') != n:
+        raise AssertionError(f"ingest export: GML {len(members)} members, "
+                             f"Leaflet {html.count('Feature')} of {n}")
+    t0 = time.perf_counter()
+    to_shapefile(batch, os.path.join(root, "city.shp"))
+    ms["shapefile"] = (time.perf_counter() - t0) * 1e3
+    geoms, attrs = read_shapefile(os.path.join(root, "city.shp"))
+    if ([g.x for g in geoms] != list(x) or [g.y for g in geoms] != list(y)
+            or list(attrs["dtg"]) != list(dtg)
+            or list(attrs["score"]) != list(score)
+            or [a or None for a in attrs["actor"]]
+            != [a or None for a in actor]):
+        raise AssertionError("ingest export: the shapefile does not read "
+                             "back")
+    return {"rows": n, "ms": ms}
+
+
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
                  row: dict) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line."""
@@ -5935,6 +6506,10 @@ def main(argv=None) -> int:
                     help="rows of the mesh lifecycle phase")
     ap.add_argument("--fsds-rows", type=int, default=1_000_000,
                     help="rows of the FileSystemDataStore phase")
+    ap.add_argument("--ingest-files", type=int, default=8,
+                    help="GDELT event files of the ingest phase")
+    ap.add_argument("--ingest-rows", type=int, default=250_000,
+                    help="rows of each ingest file (0.1%% of them bad)")
     ap.add_argument("--mh-rows", type=int, default=8_000_000,
                     help="rows per worker of the multihost phase's default "
                          "profile (worker 1 writes 1%% more)")
@@ -6351,6 +6926,21 @@ def main(argv=None) -> int:
     report["persist_path_launches"] = persist_launches
     log(f"persistence paths: launches {persist_launches}; "
         + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in persist_launches))
+
+    # 23, ingest: counts set to 0 just before, read just after; its
+    # BBOX+DURING queries must launch z3_mask, its BBOX ones z2_mask
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ingest_phase(rng, args, centres, qs, dev, report)
+    phase_s["ingest"] = time.perf_counter() - t0
+    ingest_launches = {k: fn.launches for k, fn in counters.items()}
+    if min(ingest_launches["z3_mask"], ingest_launches["z2_mask"]) <= 0:
+        raise AssertionError(f"a kernel of the ingest path was never "
+                             f"launched on it: {ingest_launches}")
+    report["ingest_path_launches"] = ingest_launches
+    log(f"ingest path: launches {ingest_launches}, "
+        f"{phase_s['ingest']:.1f} s")
     z3s = report["z3_sweeps"]
     log(f"polygon paths: launches {xz_launches}; "
         + ", ".join(f"{k} {phase_s[k]:.1f} s" for k in xz_launches)

@@ -9,8 +9,9 @@ processes run the multi-controller mode of :mod:`.multihost`: each joins
 a ``torch.distributed`` group (``initialize_distributed``), drives its
 own devices (``global_device_mesh``) and feeds its own rows through the
 ``build_multihost`` builds and multihost stores; hit lists allgather and
-device partials all-reduce.  The JAX package's Arrow reducer is not
-ported.
+device partials all-reduce.  :mod:`.rdd` partitions a store's query
+result, converted files or a ``FileSystemDataStore``'s partitions into a
+``SpatialRDD``.
 """
 
 from ..process.stats_process import stats_process
@@ -22,6 +23,10 @@ from .mesh import DeviceMesh, device_mesh, pad_to_multiple, shard_batch
 from .multihost import (
     global_device_mesh, initialize_distributed, process_count, process_index,
     shutdown_distributed,
+)
+from .rdd import (
+    ConverterRDDProvider, FileSystemRDDProvider, SpatialRDD,
+    SpatialRDDProvider, TpuStoreRDDProvider, save_rdd, spatial_rdd,
 )
 from .scan import (
     ShardedZ3Index, ring_range_counts, sharded_density, sharded_range_count,
@@ -40,4 +45,7 @@ __all__ = ["DeviceMesh", "device_mesh", "pad_to_multiple", "shard_batch",
            "sharded_stats_scan", "sharded_frequency_scan", "merged_stats",
            "merged_arrow",
            "stats_process", "initialize_distributed", "shutdown_distributed",
-           "global_device_mesh", "process_index", "process_count"]
+           "global_device_mesh", "process_index", "process_count",
+           "SpatialRDD", "SpatialRDDProvider", "TpuStoreRDDProvider",
+           "ConverterRDDProvider", "FileSystemRDDProvider", "spatial_rdd",
+           "save_rdd"]

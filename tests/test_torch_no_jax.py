@@ -19,7 +19,9 @@ storage report and EXPLAIN ANALYZE, a lean store's heat report, a
 ``CompactionJob``, the Prometheus text and the SLO report, and the Arrow
 results (``query_arrow`` on a default and a lean store,
 ``query_arrow_table``, the conversion processes, a reprojected query and
-the index registry), loads neither ``jax`` nor
+the index registry), and a converter ingest of TSV files
+(``run_ingest``) with its query, a ``spatial_rdd`` over the ingested
+store and the CSV and GeoJSON exports, loads neither ``jax`` nor
 any module of ``geomesa_tpu``, and its sources import neither.  Checked in a subprocess, because this test process has
 jax loaded by the suite's conftest."""
 
@@ -324,6 +326,36 @@ arrow = {"default": [ds.query_arrow("s", aq, chunk_rows=64).to_table()
          "crs": float(abs(ds.query_result("s", TQ.of(aq, crs="EPSG:3857"))
                           .batch.geom_xy()[0]).max()),
          "registry": available_indices()}
+from geomesa_tpu_torch.io import to_csv, to_geojson
+from geomesa_tpu_torch.jobs import run_ingest
+from geomesa_tpu_torch.parallel import spatial_rdd
+idir = tempfile.mkdtemp()
+ipaths = []
+for f in range(2):
+    ipaths.append(os.path.join(idir, f"e{f}.tsv"))
+    with open(ipaths[-1], "w") as fh:
+        fh.write("".join(f"{f}_{i}\t2018010{1 + i % 9}\t{i % 20 - 10}.5\t"
+                         f"{i % 10 - 5}.25\n" for i in range(200))
+                 + "bad\trow\n")
+ing = TpuDataStore(device="cpu")
+ing.create_schema("e", "dtg:Date,*geom:Point")
+ires = run_ingest(ing, "e", {
+    "type": "tsv", "id-field": "$0",
+    "fields": [{"name": "dtg", "transform": "basicDate($1)"},
+               {"name": "geom",
+                "transform": "point(toDouble($2), toDouble($3))"}],
+    "options": {"validators": ["z-index"]}}, ipaths, workers=2)
+shutil.rmtree(idir)
+iq = ing.query_result("e", "BBOX(geom, -5, -5, 5, 5) AND dtg DURING "
+                           "2018-01-01T00:00:00Z/2018-01-05T00:00:00Z")
+irdd = spatial_rdd({"store": ing}, "e", "BBOX(geom, -5, -5, 5, 5)",
+                   num_partitions=3)
+ingest = {"counts": [ires.ingested, ires.failed, ires.files],
+          "hits": [iq.strategy.index, int(len(iq.positions))],
+          "rdd": [irdd.num_partitions, irdd.count(), int(len(
+              ing.query_result("e", "BBOX(geom, -5, -5, 5, 5)").positions))],
+          "csv": to_csv(iq.batch).count("\n"),
+          "geojson": len(json.loads(to_geojson(iq.batch))["features"])}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -351,7 +383,7 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "attr": attr, "poly": poly, "life": life,
                   "persist": persist, "mesh_lean": mesh_lean,
                   "multihost": multihost, "serving": serving,
-                  "obs": obs, "arrow": arrow}))
+                  "obs": obs, "arrow": arrow, "ingest": ingest}))
 """
 
 
@@ -452,6 +484,18 @@ def test_import_and_query_load_no_jax():
         == arrow["default"][1]
     assert 1e5 < arrow["crs"] < 6e5      # Mercator meters, not degrees
     assert {"z3", "z2", "xz2", "xz3", "id", "attr"} <= set(arrow["registry"])
+    ing = out["ingest"]
+    assert ing["counts"] == [400, 2, 2]
+    assert ing["hits"][0] == "z3" and ing["hits"][1] > 0
+    assert ing["rdd"][0] == 3 and ing["rdd"][1] == ing["rdd"][2] > 0
+    assert ing["csv"] == ing["geojson"] + 1 == ing["hits"][1] + 1
+
+
+def test_source_scan_covers_the_ingest_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"io/converters.py", "io/expressions.py", "io/enrichment.py",
+            "io/formats.py", "io/avro.py", "io/export.py",
+            "geometry/geojson.py", "parallel/rdd.py", "jobs.py"} <= scanned
 
 
 def test_source_scan_covers_the_serving_modules():
