@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py [--seed 0] [--points 100000000]
                           [--facade-rows 16000000] [--places-rows 4000000]
-                          [--mesh-rows 16000000] [--lean-rows 80000000]
+                          [--mesh-rows 16000000] [--lean-rows 48000000]
                           [--lean-slots 8388608] [--attr-rows 8000000]
                           [--attr-mesh-rows 4000000]
                           [--lean-attr-rows 64000000]
                           [--lean-attr-slots 8388608]
                           [--mesh-lean-rows 32000000]
                           [--mesh-lean-slots 4194304]
-                          [--poly-rows 8000000] [--poly-mesh-rows 8000000]
+                          [--poly-rows 6000000] [--poly-mesh-rows 6000000]
                           [--lean-poly-rows 16000000]
                           [--lean-poly3-rows 16000000]
                           [--lean-poly3-slots 2097152]
@@ -25,6 +25,8 @@
                           [--res-rows 8000000] [--res-slots 1048576]
                           [--ingest-files 8] [--ingest-rows 250000]
                           [--vessel-rows 2000000] [--raster-lat-tiles 90]
+                          [--blob-count 10000] [--geojson-docs 200000]
+                          [--view-rows 1000000]
                           [--profile] [--out FILE]
 
 Phases, each of which fails the run (non-zero exit) when it fails:
@@ -420,6 +422,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    4,096 x 2,048 from the coarsest level, each bit for bit against a
    numpy float64 mosaic with NaN in the same places; ``get_tiles``,
    ``bounds``, ``grid_range`` and a ``save``/``load`` of 256 tiles.
+25. the front ends.  25a (after 24a, on the facade's stores): the port's
+   ``WebApp`` behind ``make_bounded_server`` on 127.0.0.1, driven over
+   HTTP with urllib: the 20 queries through ``/api/data`` as CSV (ids
+   and points in the oracle's order), three ``places`` BBOX queries,
+   ``/api/stats`` count, bounds and minmax, 8 ``/tiles`` at z 2-8 over
+   city centres (each grid equal to the snapped oracle hits, each PNG's
+   pixels to the same grid), 4 ``/query`` Arrow streams, ``/explain`` by
+   CQL and the 20 queries' ``COUNT(*)`` through ``/explain?sql=``,
+   ``/metrics.prom``, ``/debug/storage`` (device bytes equal to the
+   store's report), ``/debug/heat``, ``/debug/slo``, ``/traces``, a
+   10,000-feature GeoJSON POST into a new schema read back by id, and a
+   burst of 64 concurrent ``/api/data`` requests against 8 slots (each a
+   200 equal to the oracle or a 503 with Retry-After; the gates ``ok``
+   and no admission token held after).  25c (after 25a): a blob store of
+   ``--blob-count`` 1 KB blobs (100 through ``POST /api/blob``) with its
+   BBOX query and byte reads over HTTP, a ``GeoJsonIndex`` of
+   ``--geojson-docs`` point documents with three mongo-style queries
+   through ``/geojson/``, and a ``MergedDataStoreView`` over the facade's
+   store and a ``--view-rows`` store with scope filters.  25b (inside
+   24e): ``/wcs`` GetCapabilities, DescribeCoverage and GetCoverage of
+   the web tile and the continent, the ``npy`` grids bit for bit equal to
+   the store's mosaic and the oracle.  25d (last): the CLI's ``main`` on
+   the card in two processes, one running ``create-schema`` and
+   ``ingest`` of two of phase 23's files into a fresh catalog, the other
+   ``stats-count``, a ``sql`` ``COUNT(*)``, a CSV ``export`` and
+   ``explain`` over it, each against the generator's rows; each
+   command's z3_mask/z2_mask/density_grid launches are counted in its
+   process, and ``sql``, ``export`` and ``explain`` must launch z3_mask.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 6b (which must
@@ -446,7 +476,9 @@ which must launch every kernel (19) and z3_mask and z2_mask (21), and
 around phase 23, which must launch z3_mask and z2_mask, and around
 24a, which must launch z3_mask and z2_mask, 24b and 24c (each inside its
 phase, set to 0 and read around it, the host phase's counts resuming
-after) and 24e, which are reported; phase 20's and 22's are reported.
+after) and 24e, which are reported, and around 25a, which must launch
+z3_mask, z2_mask and density_grid, 25c and 25b (inside 24e), which are
+reported; phase 20's and 22's are reported.
 Each multihost worker (phase 3b) sets its own counts to 0 just before
 its run and reads them just after (24d reads them around itself as
 well); the parent reports them as ``multihost_path_launches``.  The
@@ -6084,7 +6116,7 @@ def _ids_of(batch):
     return np.sort(np.asarray(batch.ids).astype(np.int64))
 
 
-def ingest_phase(rng, args, centres, qs, dev, report) -> None:
+def ingest_phase(rng, args, centres, qs, dev, report, keep=None):
     """Phase 23: converter ingest of a week of GDELT 1.0 event files
     (``--ingest-files`` TSV files of ``--ingest-rows`` rows, 58 fields,
     0.1% bad) through ``run_ingest`` (skip mode, ``z-index`` validator,
@@ -6093,7 +6125,9 @@ def ingest_phase(rng, args, centres, qs, dev, report) -> None:
     oracle over the good rows; ``spatial_rdd`` and ``save_rdd``; the
     converter RDD provider and ``run_distributed_ingest`` over two of the
     files; each other converter type on a small file; and the CSV,
-    GeoJSON, GML, Leaflet and shapefile exports of a city query."""
+    GeoJSON, GML, Leaflet and shapefile exports of a city query.  With a
+    ``keep`` directory, two of the files are copied there and returned
+    with their good rows (``{"paths", "good", "failed"}``); else None."""
     import numpy as np
     import torch
     from geomesa_tpu_torch import TpuDataStore, convert, device_mesh
@@ -6247,6 +6281,13 @@ def ingest_phase(rng, args, centres, qs, dev, report) -> None:
                 f"oracle {len(opos)}")
         del didx, st, two
 
+        kept = None
+        if keep is not None:
+            # two of the files and their good rows outlive the phase: the
+            # CLI part (25d) ingests them again
+            kept = {"paths": [shutil.copy(p, keep) for p in paths[:2]],
+                    "good": [np.concatenate(c) for c in zip(*good[:2])],
+                    "failed": 2 * n_bad}
         formats = other_formats_part(rng, centres, qs, dev, root)
         exports = exports_part(city_res.batch, root)
         report["ingest"] = {
@@ -6288,6 +6329,7 @@ def ingest_phase(rng, args, centres, qs, dev, report) -> None:
             + f"; exports of {exports['rows']} rows read back equal")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return kept
 
 
 def other_formats_part(rng, centres, qs, dev, root) -> dict:
@@ -7328,13 +7370,15 @@ def same_mosaic(label: str, got, want) -> None:
                              f"oracle")
 
 
-def raster_phase(rng, args, centres, dev, report):
+def raster_phase(rng, args, centres, dev, report, wcs=None):
     """24e: a raster store of its own at the published grid of GTOPO30
     (30 arc-seconds, 43,200 x 21,600 cells) as ``--raster-lat-tiles``
     rows of 180 tiles of 240 x 240 float32, 2 x 2 degrees each, on the
     card; a 3-level pyramid; three mosaics against numpy oracles; the
-    other reads and a save/load round trip.  The store is dropped at the
-    end."""
+    other reads and a save/load round trip.  ``wcs(store, checks)``, when
+    given, serves the web tile and continent windows (each ``(name,
+    bbox, width, height, resolution, oracle grid)``) over ``/wcs``.  The
+    store is dropped at the end."""
     import numpy as np
     import torch
     from geomesa_tpu_torch.index.pyramid import tile_env
@@ -7432,6 +7476,7 @@ def raster_phase(rng, args, centres, dev, report):
             break
     coarsest = res[-1]
     mosaics = []
+    wcs_checks = []
     for name, bbox, w, h, r in (
             ("web_tile", web, 256, 256, None),
             ("continent", (-10.0, 35.0, 50.0, 75.0), 2048, 2048, None),
@@ -7450,6 +7495,8 @@ def raster_phase(rng, args, centres, dev, report):
         oracle_s = time.perf_counter() - t0
         same_mosaic(name, got, want)
         same_mosaic(f"{name} (again)", again, want)
+        if name != "world":
+            wcs_checks.append((name, bbox, w, h, r, want))
         mosaics.append({"mosaic": name, "bbox": list(bbox), "width": w,
                         "height": h, "level_tiles": len(lvl.tiles),
                         "tile_shape": list(lvl.tile_shape),
@@ -7458,6 +7505,10 @@ def raster_phase(rng, args, centres, dev, report):
                         "nan_share": float(np.isnan(want).mean()),
                         "launches": device_launches(lambda: store.mosaic(
                             bbox, w, h, resolution=r)) if cuda else None})
+    if wcs is not None:
+        # 25b: the WCS front end over this store, timed apart
+        wcs(store, wcs_checks)
+    del wcs_checks
     # the other reads
     boxes = np.asarray(level.bboxes)
     hit = ((boxes[:, 0] < web[2]) & (boxes[:, 2] > web[0])
@@ -7531,6 +7582,698 @@ def raster_phase(rng, args, centres, dev, report):
         torch.cuda.empty_cache()
 
 
+class _Web:
+    """A port ``WebApp`` behind ``make_bounded_server`` on 127.0.0.1 (an
+    ephemeral port), served from a thread, with requests through urllib
+    and no proxy.  A context manager: the server stops and closes on
+    exit.  ``times`` holds each named route's wall times, ms."""
+
+    def __init__(self, app, max_concurrent: int = 32):
+        self.app, self.max_concurrent = app, max_concurrent
+        self.times: dict = {}
+
+    def __enter__(self):
+        import threading
+        import urllib.request
+        from wsgiref import simple_server
+
+        from geomesa_tpu_torch.web.wsgi import make_bounded_server
+        # wsgiref logs every request to stderr: quiet while it serves
+        self._log = simple_server.WSGIRequestHandler.log_message
+        simple_server.WSGIRequestHandler.log_message = lambda *a: None
+        self.httpd = make_bounded_server("127.0.0.1", 0, self.app,
+                                         max_concurrent=self.max_concurrent)
+        self.base = f"http://127.0.0.1:{self.httpd.server_port}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.opener = urllib.request.build_opener(
+            urllib.request.ProxyHandler({}))
+        return self
+
+    def __exit__(self, *exc):
+        from wsgiref import simple_server
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(timeout=60)
+        simple_server.WSGIRequestHandler.log_message = self._log
+
+    def request(self, method: str, path: str, body: bytes | None = None,
+                route: str | None = None, ctype: str = "application/json",
+                timeout: float = 600.0):
+        """``(status, headers, body)``; an error status is returned, not
+        raised."""
+        import urllib.error
+        import urllib.request
+        req = urllib.request.Request(self.base + path, data=body,
+                                     method=method)
+        if body is not None:
+            req.add_header("Content-Type", ctype)
+        t0 = time.perf_counter()
+        try:
+            with self.opener.open(req, timeout=timeout) as r:
+                out = (r.status, dict(r.headers), r.read())
+        except urllib.error.HTTPError as e:
+            out = (e.code, dict(e.headers), e.read())
+        if route is not None:
+            self.times.setdefault(route, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def get(self, path: str, route: str | None = None, want: int = 200):
+        status, headers, body = self.request("GET", path, route=route)
+        if status != want:
+            raise AssertionError(f"web GET {path[:160]}: {status}, not "
+                                 f"{want}: {body[:300]!r}")
+        return headers, body
+
+    def summary(self) -> dict:
+        import numpy as np
+        return {k: {"n": len(v), "p50_ms": float(np.median(v)),
+                    "max_ms": float(max(v))} for k, v in self.times.items()}
+
+
+def _q(text: str) -> str:
+    from urllib.parse import quote
+    return quote(text, safe="")
+
+
+def _csv_points(body: bytes):
+    """The ids (strings) and the POINT x, y of a CSV export's rows."""
+    import csv
+    import io
+    import numpy as np
+    rows = [r for r in csv.reader(io.StringIO(body.decode())) if r]
+    header, rows = rows[0], rows[1:]
+    gi = header.index("geom")
+    xy = np.array([r[gi][len("POINT ("):-1].split(" ") for r in rows],
+                  dtype=np.float64).reshape(-1, 2)
+    return [r[0] for r in rows], xy[:, 0], xy[:, 1]
+
+
+def _check_csv(label: str, body: bytes, ids, x, y) -> int:
+    import numpy as np
+    got_ids, gx, gy = _csv_points(body)
+    if not (got_ids == [str(v) for v in ids] and np.array_equal(gx, x)
+            and np.array_equal(gy, y)):
+        raise AssertionError(f"web {label}: {len(got_ids)} CSV rows disagree "
+                             f"with the oracle's {len(ids)}")
+    return len(got_ids)
+
+
+def _png_check(label: str, png: bytes, grid, flip: bool) -> None:
+    """A PNG body well-formed (signature, chunk CRCs, IHDR of an 8-bit
+    gray image of the grid's size, one IDAT of unfiltered rows) with the
+    pixels of ``grid`` (north up: flipped when row 0 is south) min-max
+    scaled to 8 bits."""
+    import struct
+    import zlib
+    import numpy as np
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"web {label}: no PNG signature")
+    chunks, pos = {}, 8
+    while pos < len(png):
+        n, = struct.unpack(">I", png[pos:pos + 4])
+        tag, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", png[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + data) != crc:
+            raise AssertionError(f"web {label}: bad CRC on {tag!r}")
+        chunks[tag] = data
+        pos += 12 + n
+    g = np.asarray(grid, dtype=np.float64)
+    if flip:
+        g = g[::-1]
+    h, w = g.shape
+    if (set(chunks) != {b"IHDR", b"IDAT", b"IEND"}
+            or struct.unpack(">IIBBBBB", chunks[b"IHDR"])
+            != (w, h, 8, 0, 0, 0, 0)):
+        raise AssertionError(f"web {label}: PNG header {chunks.get(b'IHDR')}")
+    img = np.frombuffer(zlib.decompress(chunks[b"IDAT"]),
+                        np.uint8).reshape(h, w + 1)
+    lo, hi = float(np.nanmin(g)), float(np.nanmax(g))
+    scale = (g - lo) / (hi - lo) if hi > lo else np.zeros_like(g)
+    want = np.nan_to_num(scale * 255.0).astype(np.uint8)
+    if img[:, 0].any() or not np.array_equal(img[:, 1:], want):
+        raise AssertionError(f"web {label}: PNG pixels disagree with the grid")
+
+
+def _tile_of(z: int, cx: float, cy: float):
+    n = 1 << z
+    return (min(n - 1, int((cx + 180.0) / (360.0 / n))),
+            min(n - 1, int((90.0 - cy) / (180.0 / n))))
+
+
+def frontend_facade_part(rng, args, centres, qs, ds, report) -> dict:
+    """25a: the port's ``WebApp`` over the facade's store behind
+    ``make_bounded_server``, driven over HTTP: the 20 queries through
+    ``/api/data`` as CSV, ``places`` boxes, the stats routes, 8 tiles
+    (JSON and PNG), 4 ``/query`` Arrow streams, ``/explain`` by CQL and
+    the 20 queries' ``COUNT(*)`` through ``/explain?sql=``, the
+    observability routes, a 64-request burst against 8 slots and a
+    10,000-feature GeoJSON POST read back by id — every answer against
+    an oracle that does not go through the web app."""
+    import concurrent.futures as cf
+    import json as _json
+    import numpy as np
+    import pyarrow as pa
+    from geomesa_tpu_torch.index.pyramid import tile_env
+    from geomesa_tpu_torch.ops.gate import kernel_health
+    from geomesa_tpu_torch.ops.z3_mask import z3_mask
+    from geomesa_tpu_torch.resilience import admission_gate
+    from geomesa_tpu_torch.web import WebApp
+
+    b = ds._store("gdelt").batch
+    x, y = b.geom_xy()
+    t = b.column("dtg")
+    ids = b.ids
+    pb = ds._store("places").batch
+    px, py = pb.geom_xy()
+    pids = pb.ids
+
+    def want_of(q):
+        # DURING takes whole seconds: the oracle reads the bounds as parsed
+        return oracle(x, y, t, q[1], q[2] - q[2] % 1000, q[3] - q[3] % 1000)
+
+    out = {}
+    app = WebApp(ds)
+    with _Web(app) as web:
+        # the 20 queries as CSV: ids and points in the oracle's order
+        rows = 0
+        for q in qs:
+            _, body = web.get(f"/api/data/gdelt?format=csv&cql="
+                              f"{_q(_ecql(q[1], q[2], q[3]))}", route="data")
+            pos = want_of(q)
+            rows += _check_csv(f"data {q[0]}", body, ids[pos], x[pos], y[pos])
+        out["data_rows"] = rows
+        # BBOX-only on places (z2), the boxes of the places phase
+        cx, cy = centres[5]
+        bx, by = centres[6]
+        for boxes in ([(cx - 3, cy - 3, cx + 3, cy + 3)],
+                      [(bx - 1, by - 1, bx + 1, by + 1)],
+                      [(cx - 3, cy - 3, cx + 3, cy + 3),
+                       (bx - 1, by - 1, bx + 1, by + 1)]):
+            _, body = web.get(f"/api/data/places?format=csv&cql="
+                              f"{_q(_bbox_ecql(boxes))}", route="data_places")
+            pos = box_oracle(px, py, boxes)
+            _check_csv("places", body, pids[pos], px[pos], py[pos])
+        # the stats routes against numpy
+        count = _json.loads(web.get("/api/stats/gdelt/count",
+                                    route="stats")[1])["count"]
+        qcount = _json.loads(web.get(
+            f"/api/stats/gdelt/count?cql={_q(_ecql(*qs[8][1:]))}",
+            route="stats")[1])["count"]
+        bounds = _json.loads(web.get("/api/stats/gdelt/bounds",
+                                     route="stats")[1])["bounds"]
+        mm = _json.loads(web.get("/api/stats/gdelt/minmax?attribute=dtg",
+                                 route="stats")[1])["bounds"]
+        if (count != len(x) or qcount != len(want_of(qs[8]))
+                or bounds != {"minx": float(x.min()), "miny": float(y.min()),
+                              "maxx": float(x.max()), "maxy": float(y.max())}
+                or mm != [int(t.min()), int(t.max())]):
+            raise AssertionError(f"web stats: count {count}, {qcount}; "
+                                 f"bounds {bounds}; dtg {mm}")
+        # 8 tiles at z 2-8 over city centres: grids against the snapped
+        # oracle hits, the PNG bodies against the same grid
+        tiles = []
+        for i in range(8):
+            z = 2 + i % 7
+            tx, ty = _tile_of(z, *centres[i])
+            env = tile_env(z, tx, ty)
+            pos = box_oracle(x, y, [env])
+            want = snap_counts(x[pos], y[pos], env, 256, 256)
+            _, body = web.get(f"/tiles/{z}/{tx}/{ty}?schema=gdelt"
+                              f"&format=json", route="tiles")
+            doc = _json.loads(body)
+            grid = np.asarray(doc["grid"], dtype=np.float64)
+            if (doc["z"], doc["x"], doc["y"]) != (z, tx, ty) or \
+                    not np.array_equal(grid, want) or \
+                    doc["total"] != float(len(pos)):
+                raise AssertionError(f"web tile {z}/{tx}/{ty}: "
+                                     f"{doc['total']} points, oracle "
+                                     f"{len(pos)}")
+            headers, png = web.get(f"/tiles/{z}/{tx}/{ty}?schema=gdelt"
+                                   f"&format=png", route="tiles_png")
+            if headers.get("Content-Type") != "image/png":
+                raise AssertionError(f"web tile png: {headers}")
+            _png_check(f"tile {z}/{tx}/{ty}", png, want, flip=True)
+            tiles.append({"z": z, "x": tx, "y": ty, "points": int(len(pos))})
+        out["tiles"] = tiles
+        # /query Arrow streams of four queries
+        arrow_rows = 0
+        for q in (qs[0], qs[8], qs[14], qs[18]):
+            headers, blob = web.get(f"/query?schema=gdelt&format=arrow&cql="
+                                    f"{_q(_ecql(q[1], q[2], q[3]))}",
+                                    route="query_arrow")
+            if (headers.get("Content-Type")
+                    != "application/vnd.apache.arrow.stream"
+                    or "Content-Length" in headers):
+                raise AssertionError(f"web /query headers: {headers}")
+            table = pa.ipc.open_stream(blob).read_all()
+            pos = want_of(q)
+            _check_rows(f"web /query {q[0]}", table, ids[pos], x[pos], y[pos],
+                        t[pos])
+            arrow_rows += table.num_rows
+        out["arrow_rows"] = arrow_rows
+        # /explain by CQL, and each query's COUNT(*) through ?sql=
+        doc = _json.loads(web.get(
+            f"/explain?schema=gdelt&cql={_q(_ecql(*qs[0][1:]))}",
+            route="explain")[1])
+        if (doc["summary"]["strategy"] != "z3"
+                or doc["summary"]["actual_matched"] != len(want_of(qs[0]))):
+            raise AssertionError(f"web /explain: {doc['summary']}")
+        _, text = web.get(f"/explain?schema=gdelt&format=text&cql="
+                          f"{_q(_ecql(*qs[0][1:]))}", route="explain")
+        if not text.startswith(b"EXPLAIN ANALYZE schema:gdelt"):
+            raise AssertionError(f"web /explain text: {text[:120]!r}")
+        for q in qs:
+            sql = (f"SELECT COUNT(*) FROM gdelt WHERE "
+                   f"{_ecql(q[1], q[2], q[3])}")
+            doc = _json.loads(web.get(f"/explain?sql={_q(sql)}",
+                                      route="explain_sql")[1])
+            if doc["target"] != "sql" or \
+                    doc["result"].get("value") != len(want_of(q)):
+                raise AssertionError(f"web /explain?sql= {q[0]}: "
+                                     f"{doc['result']}, oracle "
+                                     f"{len(want_of(q))}")
+        # the observability routes
+        _, prom = web.get("/metrics.prom", route="metrics")
+        lines = prom_lines(prom.decode())
+        if b"geomesa_query_gdelt_count_total" not in prom:
+            raise AssertionError("web /metrics.prom: no gdelt query counter")
+        storage = _json.loads(web.get("/debug/storage",
+                                      route="debug_storage")[1])
+        own = ds.storage_report()
+        if storage["totals"]["device_bytes"] != own["totals"]["device_bytes"]:
+            raise AssertionError(f"web /debug/storage: "
+                                 f"{storage['totals']['device_bytes']} "
+                                 f"device bytes, the store "
+                                 f"{own['totals']['device_bytes']}")
+        heat = _json.loads(web.get("/debug/heat?limit=8", route="debug")[1])
+        slo = _json.loads(web.get("/debug/slo", route="debug")[1])
+        traces = _json.loads(web.get("/traces?schema=gdelt&limit=5",
+                                     route="traces")[1])
+        if ("generations" not in heat or "classes" not in slo or not traces
+                or any(tr["attributes"].get("schema") != "gdelt"
+                       for tr in traces)):
+            raise AssertionError("web debug routes: heat, slo or traces")
+        out["prom_lines"] = lines
+        out["device_bytes"] = storage["totals"]["device_bytes"]
+        # a 10,000-feature GeoJSON POST into a new schema, read back by id
+        n_post = 10_000
+        fx, fy, ft = gdelt_like(rng, n_post, centres)
+        fc = {"type": "FeatureCollection", "features": [
+            {"type": "Feature", "id": f"p{i}",
+             "geometry": {"type": "Point",
+                          "coordinates": [float(fx[i]), float(fy[i])]},
+             "properties": {"actor": "POSTED", "dtg": int(ft[i])}}
+            for i in range(n_post)]}
+        status, _, body = web.request(
+            "POST", "/api/schemas", _json.dumps(
+                {"name": "posted",
+                 "spec": "actor:String,dtg:Date,*geom:Point"}).encode(),
+            route="post_schema")
+        if status != 201:
+            raise AssertionError(f"web POST /api/schemas: {status} {body!r}")
+        status, _, body = web.request("POST", "/api/data/posted",
+                                      _json.dumps(fc).encode(),
+                                      route="post_data")
+        if status != 200 or _json.loads(body) != {"ingested": n_post,
+                                                  "errors": []}:
+            raise AssertionError(f"web POST /api/data: {status} {body[:200]!r}")
+        pick = np.sort(rng.choice(n_post, 100, replace=False))
+        in_ids = ", ".join(f"'p{i}'" for i in pick)
+        _, body = web.get(f"/api/data/posted?format=csv&cql="
+                          f"{_q(f'IN ({in_ids})')}", route="data_by_id")
+        got_ids, gx, gy = _csv_points(body)
+        order = np.argsort([int(v[1:]) for v in got_ids])
+        if ([got_ids[k] for k in order] != [f"p{i}" for i in pick]
+                or not np.array_equal(gx[order], fx[pick])
+                or not np.array_equal(gy[order], fy[pick])):
+            raise AssertionError(f"web POST read-back: {len(got_ids)} rows")
+        if _json.loads(web.get("/api/stats/posted/count",
+                               route="stats")[1])["count"] != n_post:
+            raise AssertionError("web POST: the count is not 10,000")
+        out["times"] = web.summary()
+
+    # 64 concurrent /api/data requests against 8 slots: each answer a 200
+    # equal to the oracle or a 503 with Retry-After, never anything else
+    burst = qs[:8]
+    launches0 = z3_mask.launches
+    with _Web(WebApp(ds), max_concurrent=8) as web:
+        def one(k):
+            q = burst[k % len(burst)]
+            status, headers, body = web.request(
+                "GET", f"/api/data/gdelt?format=csv&cql="
+                       f"{_q(_ecql(q[1], q[2], q[3]))}", route="burst")
+            if status == 200:
+                pos = want_of(q)
+                _check_csv(f"burst {k}", body, ids[pos], x[pos], y[pos])
+            elif status != 503 or not headers.get("Retry-After"):
+                raise AssertionError(f"web burst {k}: {status} {headers} "
+                                     f"{body[:200]!r}")
+            return status
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(64) as pool:
+            statuses = list(pool.map(one, range(64)))
+        burst_s = time.perf_counter() - t0
+        burst_times = web.summary()
+    # no gate fell back under the burst (a gate no kernel passed yet reads
+    # None; the end of the run requires every one ok)
+    health = kernel_health()
+    bad = {k: v for k, v in health.items()
+           if (k.endswith("_ok") and v is False)
+           or (k.endswith("_failures") and v)}
+    if bad or admission_gate.inflight != 0:
+        raise AssertionError(f"web burst: gates {bad}, admission in flight "
+                             f"{admission_gate.inflight}")
+    # each answer scanned on the card (the CPU's plain scans count none)
+    if (ds.device.type == "cuda"
+            and z3_mask.launches - launches0 < statuses.count(200)):
+        raise AssertionError(f"web burst: {statuses.count(200)} answers, "
+                             f"{z3_mask.launches - launches0} z3 launches")
+    out["burst"] = {"ok": statuses.count(200), "shed": statuses.count(503),
+                    "s": burst_s, "times": burst_times.get("burst")}
+    report["frontend"] = {"facade": out}
+    tm = out["times"]
+    log(f"frontend (25a): 20 /api/data queries ({rows} rows), places, "
+        f"stats, 8 tiles and their PNGs, 4 /query streams ({arrow_rows} "
+        f"rows), /explain and 20 COUNT(*) through ?sql=, /metrics.prom "
+        f"({lines} lines), /debug/* and /traces, a 10,000-feature POST — "
+        f"all equal to the oracle; burst of 64 against 8 slots: "
+        f"{out['burst']['ok']} answered, {out['burst']['shed']} shed 503 in "
+        f"{burst_s:.2f} s; p50 / max ms: "
+        + ", ".join(f"{k} {v['p50_ms']:.1f} / {v['max_ms']:.1f}"
+                    for k, v in tm.items()))
+    return out
+
+
+def frontend_other_part(rng, args, centres, qs, ds, dev, report) -> dict:
+    """25c: the blob store (``--blob-count`` 1 KB blobs at WKT points,
+    100 through ``POST /api/blob`` and the rest through the API) with
+    its BBOX query and byte reads over HTTP; a ``GeoJsonIndex`` of
+    ``--geojson-docs`` point documents with a nested property and three
+    mongo-style queries through ``/geojson/index/{name}/query``; a
+    ``MergedDataStoreView`` over the facade's store and a second store of
+    ``--view-rows`` rows with scope filters — each against an oracle."""
+    import json as _json
+    import numpy as np
+    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch.blob import GeoIndexedBlobStore
+    from geomesa_tpu_torch.filters import parse_ecql
+    from geomesa_tpu_torch.geojson import GeoJsonIndex
+    from geomesa_tpu_torch.geometry.types import Point
+    from geomesa_tpu_torch.views import MergedDataStoreView
+    from geomesa_tpu_torch.web import WebApp
+
+    out = {}
+    n_blob = args.blob_count
+    bx, by, bt = gdelt_like(rng, n_blob, centres)
+    payloads = [rng.bytes(1024) for _ in range(n_blob)]
+    blobs = GeoIndexedBlobStore(TpuDataStore(device=dev))
+    n_docs = args.geojson_docs
+    gx, gy, _ = gdelt_like(rng, n_docs, centres)
+    kind = rng.integers(0, 50, n_docs)
+    gj = GeoJsonIndex()
+    gj.create_index("events", points=True)
+    t0 = time.perf_counter()
+    gj.add("events", {"type": "FeatureCollection", "features": [
+        {"type": "Feature", "id": f"g{i}",
+         "geometry": {"type": "Point",
+                      "coordinates": [float(gx[i]), float(gy[i])]},
+         "properties": {"meta": {"kind": int(kind[i])}}}
+        for i in range(n_docs)]})
+    out["geojson_add_s"] = time.perf_counter() - t0
+    with _Web(WebApp(TpuDataStore(device=dev), blob=blobs,
+                     geojson=gj)) as web:
+        bid = {}
+        t0 = time.perf_counter()
+        for i in range(n_blob):
+            if i < 100:
+                status, _, body = web.request(
+                    "POST", f"/api/blob?wkt={_q(f'POINT ({bx[i]} {by[i]})')}"
+                            f"&dtg={int(bt[i])}&filename=b{i}",
+                    payloads[i], route="blob_post",
+                    ctype="application/octet-stream")
+                if status != 201:
+                    raise AssertionError(f"web POST /api/blob: {status}")
+                bid[_json.loads(body)["id"]] = i
+            else:
+                bid[blobs.put(payloads[i], geometry=Point(bx[i], by[i]),
+                              dtg=int(bt[i]), filename=f"b{i}")] = i
+        out["blob_put_s"] = time.perf_counter() - t0
+        for c in range(4):
+            cx, cy = centres[c]
+            box = (cx - 4, cy - 4, cx + 4, cy + 4)
+            _, body = web.get(f"/api/blob?cql={_q(_bbox_ecql([box]))}",
+                              route="blob_query")
+            got = sorted(bid[v] for v in _json.loads(body)["ids"])
+            want = box_oracle(bx, by, [box]).tolist()
+            if got != want:
+                raise AssertionError(f"web blob query {c}: {len(got)} ids, "
+                                     f"oracle {len(want)}")
+        inv = {i: k for k, i in bid.items()}
+        for i in rng.choice(n_blob, 32, replace=False):
+            headers, body = web.get(f"/api/blob/{inv[int(i)]}",
+                                    route="blob_get")
+            if body != payloads[int(i)]:
+                raise AssertionError(f"web blob {i}: the bytes differ")
+        # three mongo-style queries: spatial, property and both
+        cx, cy = centres[0]
+        box = [cx - 3, cy - 3, cx + 3, cy + 3]
+        inbox = (gx >= box[0]) & (gx <= box[2]) & (gy >= box[1]) & \
+            (gy <= box[3])
+        for name, q, want in (
+                ("spatial", {"geometry": {"$bbox": box}}, inbox),
+                ("property", {"$.properties.meta.kind": 7}, kind == 7),
+                ("both", {"geometry": {"$bbox": box},
+                          "$.properties.meta.kind": {"$lt": 25}},
+                 inbox & (kind < 25))):
+            _, body = web.get(f"/geojson/index/events/query?q="
+                              f"{_q(_json.dumps(q))}", route="geojson")
+            got = [f["id"] for f in _json.loads(body)["features"]]
+            if got != [f"g{i}" for i in np.flatnonzero(want)]:
+                raise AssertionError(f"web geojson {name}: {len(got)} "
+                                     f"documents, oracle {int(want.sum())}")
+        out["times"] = web.summary()
+    del blobs, gj
+
+    # the merged view over the facade's store and a second store
+    b = ds._store("gdelt").batch
+    x, y = b.geom_xy()
+    t = b.column("dtg")
+    ds2 = TpuDataStore(device=dev)
+    ds2.create_schema("gdelt", "actor:String,dtg:Date,*geom:Point")
+    x2, y2, t2 = gdelt_like(rng, args.view_rows, centres)
+    ds2.write("gdelt", {"actor": np.full(len(x2), "VIEW", dtype=object),
+                        "dtg": t2, "geom": (x2, y2)})
+    half = MS_2018 + 181 * DAY
+    view = MergedDataStoreView(
+        [ds, ds2], filters=[parse_ecql("BBOX(geom, -180, -90, 0, 90)"),
+                            parse_ecql(f"dtg DURING {iso(half)}/"
+                                       f"{iso(MS_2019 - 1000)}")])
+    view_ms = []
+    for q in (qs[0], qs[8], qs[14], qs[18]):
+        lo, hi = q[2] - q[2] % 1000, q[3] - q[3] % 1000
+        a = oracle(x, y, t, q[1], lo, hi)
+        a = a[x[a] <= 0.0]
+        c = oracle(x2, y2, t2, q[1], lo, hi)
+        c = c[(t2[c] >= half) & (t2[c] <= MS_2019 - 1000)]
+        t0 = time.perf_counter()
+        got = view.query("gdelt", _ecql(q[1], q[2], q[3]))
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        vx, vy = got.geom_xy()
+        if not (np.array_equal(vx, np.concatenate([x[a], x2[c]]))
+                and np.array_equal(vy, np.concatenate([y[a], y2[c]]))):
+            raise AssertionError(f"view {q[0]}: {len(got)} rows, oracle "
+                                 f"{len(a)} + {len(c)}")
+    out["view_ms"] = view_ms
+    del ds2, view
+    report.setdefault("frontend", {})["other"] = out
+    tm = out["times"]
+    log(f"frontend (25c): {n_blob} blobs put in {out['blob_put_s']:.2f} s "
+        f"(100 through POST), {n_docs} GeoJSON documents added in "
+        f"{out['geojson_add_s']:.2f} s, a {args.view_rows}-row second store "
+        f"under the merged view — all equal to the oracle; p50 / max ms: "
+        + ", ".join(f"{k} {v['p50_ms']:.1f} / {v['max_ms']:.1f}"
+                    for k, v in tm.items())
+        + f", view {np.median(view_ms):.1f} / {max(view_ms):.1f}")
+    return out
+
+
+def frontend_wcs_part(store, checks, dev, report) -> dict:
+    """25b: ``/wcs`` over 24e's raster store: ``GetCapabilities``,
+    ``DescribeCoverage`` and ``GetCoverage`` (``npy`` and ``png``) for
+    the web tile and the continent, each grid bit for bit equal to the
+    store's own ``mosaic`` and to ``mosaic_oracle``."""
+    import io
+    import numpy as np
+    from geomesa_tpu_torch import TpuDataStore
+    from geomesa_tpu_torch.web import WebApp
+
+    out = {}
+    with _Web(WebApp(TpuDataStore(device=dev), raster=store)) as web:
+        _, caps = web.get("/wcs?request=GetCapabilities", route="wcs_caps")
+        _, desc = web.get(f"/wcs?request=DescribeCoverage&coverage="
+                          f"{store.name}", route="wcs_describe")
+        b = store.bounds()
+        res = ",".join(str(r) for r in store.available_resolutions)
+        if (f"<name>{store.name}</name>".encode() not in caps
+                or f"<lonLatEnvelope>{b[0]} {b[1]} {b[2]} {b[3]}"
+                   f"</lonLatEnvelope>".encode() not in desc
+                or f"<resolutions>{res}</resolutions>".encode() not in desc):
+            raise AssertionError(f"web wcs: {caps[:200]!r} {desc[:300]!r}")
+        for name, bbox, w, h, r, want in checks:
+            box = ",".join(repr(float(v)) for v in bbox)
+            path = (f"/wcs?request=GetCoverage&coverage={store.name}&bbox="
+                    f"{box}&width={w}&height={h}")
+            if r is not None:
+                path += f"&resolution={r!r}"
+            _, body = web.get(path + "&format=npy", route=f"wcs_{name}")
+            grid = np.load(io.BytesIO(body))
+            own = store.mosaic(bbox, w, h, resolution=r)
+            if grid.dtype != own.dtype or not np.array_equal(
+                    grid, own, equal_nan=True):
+                raise AssertionError(f"web wcs {name}: the npy grid differs "
+                                     f"from the store's mosaic")
+            same_mosaic(f"wcs {name}", grid, want)
+            headers, png = web.get(path + "&format=png",
+                                   route=f"wcs_{name}_png")
+            _png_check(f"wcs {name}", png, want, flip=False)
+        out["times"] = web.summary()
+    report.setdefault("frontend", {})["wcs"] = out
+    log("frontend (25b): /wcs GetCapabilities, DescribeCoverage and "
+        "GetCoverage (npy bit-equal to the store's mosaic and the oracle, "
+        "png) ; p50 / max ms: "
+        + ", ".join(f"{k} {v['p50_ms']:.1f} / {v['max_ms']:.1f}"
+                    for k, v in out["times"].items()))
+    return out
+
+
+#: 25d's runner: each argv of the JSON list in argv[1] through the CLI's
+#: ``main`` in turn, in one process, with the kernels' launch counts set to
+#: 0 just before each command and read just after; one JSON list of
+#: {stdout, s, launches} on stdout
+_CLI_RUNNER = """
+import contextlib, io, json, sys, time
+from geomesa_tpu_torch.cli.main import main
+from geomesa_tpu_torch.ops.density_kernel import density_grid_kernel
+from geomesa_tpu_torch.ops.z2_mask import z2_mask
+from geomesa_tpu_torch.ops.z3_mask import z3_mask
+counters = {"z3_mask": z3_mask, "z2_mask": z2_mask,
+            "density_grid": density_grid_kernel}
+out = []
+for argv in json.loads(sys.argv[1]):
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    out.append({"stdout": buf.getvalue(), "s": time.perf_counter() - t0,
+                "launches": {k: fn.launches for k, fn in counters.items()}})
+json.dump(out, sys.stdout)
+"""
+
+
+def frontend_cli_part(args, kept, qs, dev, report) -> dict:
+    """25d: the command line in two processes, each calling the CLI's
+    ``main`` (``--device <card>``) once a command: the first runs
+    ``create-schema`` and an ``ingest`` of two of phase 23's GDELT files
+    into a fresh catalog; the second opens that catalog for
+    ``stats-count``, a ``sql`` ``COUNT(*)`` of a region query, an
+    ``export`` of a continent month as CSV and ``explain`` — each
+    against the generator's rows.  Each command's launch counts, read in
+    its process, come back under ``launches``."""
+    import numpy as np
+
+    ids, x, y, t = kept["good"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    out = {}
+    try:
+        conv = os.path.join(root, "gdelt.json")
+        with open(conv, "w") as f:
+            json.dump(INGEST_CONFIG, f)
+        cat = os.path.join(root, "catalog")
+
+        def cli(calls):
+            argvs = [["--device", str(dev), *a] for a in calls.values()]
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-c", _CLI_RUNNER, json.dumps(argvs)],
+                capture_output=True, text=True, timeout=900, cwd=here)
+            s = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"cli {list(calls)}: exit "
+                                     f"{res.returncode}: {res.stderr[-2000:]}")
+            last = res.stdout.strip().splitlines()[-1]
+            return dict(zip(calls, json.loads(last))), s
+
+        wrote, s_write = cli({
+            "create-schema": ("create-schema", "-c", cat, "-f", "gdelt",
+                              "-s", INGEST_SPEC),
+            "ingest": ("ingest", "-c", cat, "-f", "gdelt", "-C", conv,
+                       *kept["paths"])})
+        std = wrote["ingest"]["stdout"]
+        if std.strip() != (f"ingested {len(ids)} features "
+                           f"({kept['failed']} failed)"):
+            raise AssertionError(f"cli ingest: {std.strip()!r}, the generator "
+                                 f"made {len(ids)} good and "
+                                 f"{kept['failed']} bad rows")
+        region = next(q for q in qs if q[0] == "region")
+        # the continent month with the most rows: the export's query
+        wide = max((q for q in qs if q[0] == "continent"),
+                   key=lambda q: len(oracle(x, y, t, q[1], q[2], q[3])))
+        done, queries_s = cli({
+            "stats-count": ("stats-count", "-c", cat, "-f", "gdelt"),
+            "sql": ("sql", "-c", cat, "SELECT COUNT(*) FROM gdelt WHERE "
+                    + _ecql(region[1], region[2], region[3])),
+            "export": ("export", "-c", cat, "-f", "gdelt", "-F", "csv",
+                       "-q", _ecql(wide[1], wide[2], wide[3])),
+            "explain": ("explain", "-c", cat, "-f", "gdelt", "-q",
+                        _ecql(wide[1], wide[2], wide[3]))})
+        want_r = oracle(x, y, t, region[1], region[2] - region[2] % 1000,
+                        region[3] - region[3] % 1000)
+        want_c = oracle(x, y, t, wide[1], wide[2] - wide[2] % 1000,
+                        wide[3] - wide[3] % 1000)
+        text = {k: v["stdout"] for k, v in done.items()}
+        got_ids, gx, gy = _csv_points(text["export"].encode())
+        if (text["stats-count"].strip() != str(len(ids))
+                or text["sql"].strip() != str(len(want_r))
+                or not np.array_equal(np.array(got_ids).astype(np.int64),
+                                      ids[want_c])
+                or not np.array_equal(gx, x[want_c])
+                or "chosen: z3" not in text["explain"]):
+            raise AssertionError(
+                f"cli: count {text['stats-count'].strip()} "
+                f"({len(ids)}), sql {text['sql'].strip()} "
+                f"({len(want_r)}), export {len(got_ids)} rows "
+                f"({len(want_c)}), explain {text['explain'][:200]!r}")
+        out = {"rows": int(len(ids)), "write_s": s_write,
+               "create_s": wrote["create-schema"]["s"],
+               "ingest_s": wrote["ingest"]["s"],
+               "rows_per_s": len(ids) / wrote["ingest"]["s"],
+               "queries_s": queries_s,
+               "query_s": {k: v["s"] for k, v in done.items()},
+               "launches": {k: v["launches"] for d in (wrote, done)
+                            for k, v in d.items()},
+               "export_rows": len(got_ids), "sql_count": int(len(want_r))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    report.setdefault("frontend", {})["cli"] = out
+    log(f"frontend (25d): CLI writer process {out['write_s']:.1f} s "
+        f"(create-schema {out['create_s']:.1f} s, ingest of {out['rows']} "
+        f"rows from 2 files {out['ingest_s']:.1f} s, "
+        f"{out['rows_per_s']:.4g} rows/s); reader process "
+        f"{out['queries_s']:.1f} s for stats-count, sql ({out['sql_count']}), "
+        f"export ({out['export_rows']} rows) and explain ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["query_s"].items())
+        + " s) — all equal to the generator's rows; launches "
+        f"{out['launches']}")
+    return out
+
+
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
                  row: dict) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line."""
@@ -7550,7 +8293,7 @@ def main(argv=None) -> int:
     ap.add_argument("--facade-rows", type=int, default=16_000_000)
     ap.add_argument("--places-rows", type=int, default=4_000_000)
     ap.add_argument("--mesh-rows", type=int, default=16_000_000)
-    ap.add_argument("--lean-rows", type=int, default=80_000_000,
+    ap.add_argument("--lean-rows", type=int, default=48_000_000,
                     help="rows of the lean phase: a first write of the "
                          "lean switch's 32M rows, then the rest in 3")
     ap.add_argument("--lean-slots", type=int, default=1 << 23,
@@ -7570,9 +8313,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-lean-slots", type=int, default=1 << 22,
                     help="per-shard slots per generation of the mesh lean "
                          "phase (8 generations at the default rows)")
-    ap.add_argument("--poly-rows", type=int, default=8_000_000,
+    ap.add_argument("--poly-rows", type=int, default=6_000_000,
                     help="rows of the default-profile polygon phase")
-    ap.add_argument("--poly-mesh-rows", type=int, default=8_000_000,
+    ap.add_argument("--poly-mesh-rows", type=int, default=6_000_000,
                     help="rows of the mesh polygon phase")
     ap.add_argument("--lean-poly-rows", type=int, default=16_000_000,
                     help="rows of the lean XZ2 polygon phase")
@@ -7606,6 +8349,13 @@ def main(argv=None) -> int:
     ap.add_argument("--vessel-rows", type=int, default=2_000_000,
                     help="rows of phase 24a's vessels schema (a heading a "
                          "row), which the route search reads")
+    ap.add_argument("--blob-count", type=int, default=10_000,
+                    help="1 KB blobs of the front-end phase's blob store")
+    ap.add_argument("--geojson-docs", type=int, default=200_000,
+                    help="point documents of the front-end phase's GeoJSON "
+                         "index")
+    ap.add_argument("--view-rows", type=int, default=1_000_000,
+                    help="rows of the second store under the merged view")
     ap.add_argument("--raster-lat-tiles", type=int, default=90,
                     help="rows of 180 two-degree tiles of phase 24e's "
                          "raster store, from the north (90: the whole "
@@ -7848,6 +8598,36 @@ def main(argv=None) -> int:
     def analytics_part(label, part):
         return counted_part("analytics", label, part, analytics_launches)
 
+    # 25a, the front ends: the web app over the facade's store, driven over
+    # HTTP (counts set to 0 just before, read just after: its BBOX+DURING
+    # requests launch z3_mask, the places boxes z2_mask, the tiles
+    # density_grid); 25c, the blob store, the GeoJSON index and the merged
+    # view, counted apart.  Phase 25 draws from a generator of its own, so
+    # the later phases' rows stay those of the seed
+    rng25 = np.random.default_rng(args.seed + 25)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    frontend_facade_part(rng25, args, centres, qs, ds, report)
+    phase_s["frontend_facade"] = time.perf_counter() - t0
+    frontend_launches = {"facade": {k: fn.launches
+                                    for k, fn in counters.items()}}
+    report["frontend_path_launches"] = frontend_launches
+    log(f"frontend (facade) path: launches {frontend_launches['facade']}, "
+        f"{phase_s['frontend_facade']:.1f} s")
+    if min(frontend_launches["facade"].values()) <= 0:
+        raise AssertionError(f"a kernel of the front-end path was never "
+                             f"launched on it: {frontend_launches['facade']}")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    frontend_other_part(rng25, args, centres, qs, ds, dev, report)
+    phase_s["frontend_other"] = time.perf_counter() - t0
+    frontend_launches["other"] = {k: fn.launches
+                                  for k, fn in counters.items()}
+    log(f"frontend (other) path: launches {frontend_launches['other']}, "
+        f"{phase_s['frontend_other']:.1f} s")
+
     del ds
     torch.cuda.empty_cache()
 
@@ -8059,8 +8839,9 @@ def main(argv=None) -> int:
     # BBOX+DURING queries must launch z3_mask, its BBOX ones z2_mask
     for fn in counters.values():
         fn.launches = 0
+    cli_files = tempfile.mkdtemp(prefix="chip_smoke_cli_files_")
     t0 = time.perf_counter()
-    ingest_phase(rng, args, centres, qs, dev, report)
+    kept = ingest_phase(rng, args, centres, qs, dev, report, keep=cli_files)
     phase_s["ingest"] = time.perf_counter() - t0
     ingest_launches = {k: fn.launches for k, fn in counters.items()}
     if min(ingest_launches["z3_mask"], ingest_launches["z2_mask"]) <= 0:
@@ -8078,10 +8859,35 @@ def main(argv=None) -> int:
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    raster_phase(rng, args, centres, dev, report)
-    phase_s["raster"] = time.perf_counter() - t0
+    # 25b inside it: /wcs over its store, counted and timed apart
+    raster_phase(rng, args, centres, dev, report, wcs=counted_part(
+        "frontend", "wcs", lambda store, checks, rep: frontend_wcs_part(
+            store, checks, dev, rep), frontend_launches))
+    phase_s["raster"] = (time.perf_counter() - t0
+                         - phase_s["frontend_wcs"])
     analytics_launches["raster"] = {k: fn.launches
                                     for k, fn in counters.items()}
+
+    # 25d, the command line in two processes on the card, over two of
+    # phase 23's files (each command's launches counted in its process)
+    try:
+        t0 = time.perf_counter()
+        cli_out = frontend_cli_part(args, kept, qs, dev, report)
+        phase_s["frontend_cli"] = time.perf_counter() - t0
+        frontend_launches["cli"] = cli_out["launches"]
+        # the three commands that scan ran z3_mask in their process
+        unlaunched = [k for k in ("sql", "export", "explain")
+                      if cli_out["launches"][k]["z3_mask"] <= 0]
+        if unlaunched:
+            raise AssertionError(f"the CLI's {unlaunched} launched no "
+                                 f"z3_mask: {cli_out['launches']}")
+    finally:
+        shutil.rmtree(cli_files, ignore_errors=True)
+    log("phase 25: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in phase_s.items()
+        if k.startswith("frontend")) + f"; total "
+        f"{sum(v for k, v in phase_s.items() if k.startswith('frontend')):.1f}"
+        f" s; card: {smi}")
     log(f"raster path: launches {analytics_launches['raster']}, "
         f"{phase_s['raster']:.1f} s; phase 24 "
         f"{sum(v for k, v in phase_s.items() if k.startswith('analytics') or k == 'raster'):.1f} s")

@@ -37,7 +37,13 @@ processes (``process``: kNN, proximity, tube select, route search and
 the rest, with the ``SAMPLING`` / ``SAMPLE_BY`` query hints), the SQL
 front end (``sql.sql_query``, ``sql.sql_join``) and the raster coverage
 store (``raster.RasterStore``, whose tile stacks and mosaics are on the
-card unless ``device="cpu"``).
+card unless ``device="cpu"``).  In front of it all sit the REST app
+(``web.WebApp`` / ``web.serve``: data, Arrow streams, tiles, EXPLAIN,
+WCS, blobs and the mounted GeoJSON API of ``geojson``), the blob store
+(``blob.GeoIndexedBlobStore``), the merged view
+(``views.MergedDataStoreView``) and the command line
+(``python -m geomesa_tpu_torch.cli``, which opens its catalog on the
+card unless ``--device cpu`` is given).
 """
 
 from .datastore import TpuDataStore

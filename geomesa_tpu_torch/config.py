@@ -361,9 +361,8 @@ class ObsProperties:
     HEAT_MAX_ENTRIES = SystemProperty("geomesa.obs.heat.max.entries", 8192)
     #: finished job records the job registry keeps (obs/jobs.py)
     JOBS_CAPACITY = SystemProperty("geomesa.obs.jobs.capacity", 128)
-    #: scrape cache of the web front end: a scrape younger than this many
-    #: ms is reused; <= 0 disables (declared for the JAX name; the port's
-    #: web front end is ROADMAP A11)
+    #: scrape cache of ``/metrics.prom`` (web/app.py): a scrape younger
+    #: than this many ms is reused; <= 0 disables
     SCRAPE_MIN_INTERVAL_MS = SystemProperty(
         "geomesa.obs.scrape.min.interval.ms", 0.0)
 

@@ -190,13 +190,40 @@ def _canonical_geom(g) -> tuple:
 def _prop_column(batch: FeatureBatch, prop: str) -> np.ndarray:
     """Resolve a property reference to a column.
 
-    ``$.attr.path`` json-path references (the reference's json
-    attribute queries) are not ported and raise.
+    ``$.attr.path.to.value`` digs into a json-typed attribute (the
+    reference's json-path attribute queries, features/kryo/json/*):
+    the first path segment names the attribute, the rest walks the
+    parsed document of each row.
     """
     if not prop.startswith("$."):
         return batch.column(prop)
-    raise NotImplementedError(
-        f"json-path property {prop!r}: json attributes are not ported")
+    import json as _json
+
+    # imported here: geojson.query imports the filter AST, and through
+    # it this package
+    from ..geojson.query import json_path_get
+    rest = prop[2:]
+    first, _, inner = rest.partition(".")
+    # a bracket on the first segment indexes into the attribute's value:
+    # $.props[0].name → attribute "props", path "[0].name"
+    attr, bracket, idx = first.partition("[")
+    if bracket:
+        inner = f"[{idx}.{inner}" if inner else f"[{idx}"
+    col = batch.column(attr)
+
+    def parse(v):
+        if not (isinstance(v, (str, bytes)) and v):
+            return v
+        try:
+            return _json.loads(v)
+        except ValueError:
+            return None  # malformed json row: non-matching, not fatal
+
+    docs = [parse(v) for v in col]
+    if not inner:
+        return np.asarray(docs, dtype=object)
+    return np.asarray([None if d is None else json_path_get(d, "$." + inner)
+                       for d in docs], dtype=object)
 
 
 def _safe_compare(col: np.ndarray, value, op: str) -> np.ndarray:

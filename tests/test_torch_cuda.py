@@ -1003,3 +1003,39 @@ def test_traced_query_builds_no_kernel_after_build_all(cuda_device):
     assert obs.compile_count() == n0
     spans = [s for t in cap.traces() for s in t.spans]
     assert spans and not any("jax.recompiles" in s.attributes for s in spans)
+
+
+def test_web_tile_on_card_runs_the_density_kernel(cuda_device):
+    """``GET /tiles/{z}/{x}/{y}`` on a store on the card answers through
+    the density kernel, with the CPU store's grid and PNG bytes."""
+    import io
+    import json
+
+    from geomesa_tpu_torch.web import WebApp
+    rng = np.random.default_rng(13)
+    n = 50_000
+    data = {"dtg": rng.integers(MS_2018, MS_2018 + 30 * DAY, n),
+            "geom": (rng.uniform(-20, 20, n), rng.uniform(-10, 10, n))}
+    bodies = []
+    before = density_grid_kernel.launches
+    for dev in (cuda_device, "cpu"):
+        ds = TpuDataStore(device=dev)
+        ds.create_schema("s", "dtg:Date,*geom:Point")
+        ds.write("s", data)
+        app = WebApp(ds)
+        for qs in ("schema=s&tile=64", "schema=s&tile=64&format=png"):
+            seen = []
+            out = b"".join(app({"REQUEST_METHOD": "GET",
+                                "PATH_INFO": "/tiles/2/1/1",
+                                "QUERY_STRING": qs, "CONTENT_LENGTH": "0",
+                                "wsgi.input": io.BytesIO(b"")},
+                               lambda s, h: seen.append(s)))
+            assert seen == ["200 OK"]
+            bodies.append(out)
+        if dev is cuda_device:
+            assert density_grid_kernel.launches >= before + 2
+    assert bodies[1] == bodies[3] and bodies[1][:4] == b"\x89PNG"
+    g, c = (json.loads(b) for b in (bodies[0], bodies[2]))
+    assert g["total"] == c["total"] > 0
+    np.testing.assert_array_equal(np.asarray(g["grid"]),
+                                  np.asarray(c["grid"]))

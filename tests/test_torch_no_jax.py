@@ -371,6 +371,53 @@ analytics = {"knn": [int(len(kpos)), bool(np.all(np.diff(kdist) >= 0))],
                                    "BBOX(geom, -5, -5, 5, 5)"),
                      int(len(r2.positions))],
              "mosaic": [list(mos.shape), float(mos.sum())]}
+import contextlib, io as _io
+from geomesa_tpu_torch.blob import GeoIndexedBlobStore
+from geomesa_tpu_torch.cli.main import main as cli_main
+from geomesa_tpu_torch.geojson import GeoJsonIndex
+from geomesa_tpu_torch.views import MergedDataStoreView
+from geomesa_tpu_torch.web import WebApp
+
+
+def _get(app, path):
+    seen = []
+    p, _, qs = path.partition("?")
+    out = b"".join(app({"REQUEST_METHOD": "GET", "PATH_INFO": p,
+                        "QUERY_STRING": qs, "CONTENT_LENGTH": "0",
+                        "wsgi.input": _io.BytesIO(b"")},
+                       lambda st, h: seen.append(st)))
+    return seen[0], out
+
+
+gj = GeoJsonIndex()
+gj.create_index("g", points=True)
+gj.add("g", {"type": "Feature", "id": "a", "properties": {"k": 1},
+             "geometry": {"type": "Point", "coordinates": [1.0, 1.0]}})
+web = WebApp(ds, blob=GeoIndexedBlobStore(TpuDataStore(device="cpu")),
+             geojson=gj)
+st_data, body_data = _get(web, "/api/data/s?format=csv&cql=BBOX(geom,"
+                               "%20-5,%20-5,%205,%205)")
+st_tile, body_tile = _get(web, "/tiles/1/1/0?schema=s&tile=8")
+st_gj, body_gj = _get(web, "/geojson/index/g/query?q=%7B%22k%22:%201%7D")
+view = MergedDataStoreView([ds, ds])
+cdir = tempfile.mkdtemp()
+cli = TpuDataStore(device="cpu", catalog_dir=cdir)
+cli.create_schema("s", "actor:String,dtg:Date,*geom:Point")
+cli.write("s", {"actor": np.array(["a"] * n, dtype=object),
+                "dtg": ds.query("s").column("dtg"),
+                "geom": ds.query("s").geom_xy()})
+cli.flush("s")
+buf = _io.StringIO()
+with contextlib.redirect_stdout(buf):
+    cli_rc = cli_main(["--device", "cpu", "sql", "-c", cdir,
+                       "SELECT count(*) FROM s WHERE "
+                       "BBOX(geom, -5, -5, 5, 5)"])
+shutil.rmtree(cdir)
+frontends = {"data": [st_data, body_data.decode().count("\n")],
+             "tile": [st_tile, json.loads(body_tile)["total"]],
+             "geojson": [st_gj, len(json.loads(body_gj)["features"])],
+             "view": view.count("s", "BBOX(geom, -5, -5, 5, 5)"),
+             "cli": [cli_rc, buf.getvalue().strip()]}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "geomesa_tpu" or m.startswith("geomesa_tpu."))
@@ -399,7 +446,7 @@ print(json.dumps({"bad": bad, "strategy": r.strategy.index,
                   "persist": persist, "mesh_lean": mesh_lean,
                   "multihost": multihost, "serving": serving,
                   "obs": obs, "arrow": arrow, "ingest": ingest,
-                  "analytics": analytics}))
+                  "analytics": analytics, "frontends": frontends}))
 """
 
 
@@ -509,6 +556,21 @@ def test_import_and_query_load_no_jax():
     assert an["knn"] == [7, True]
     assert an["sql"][0] == an["sql"][1] == out["serving"]["solo"][1] > 0
     assert an["mosaic"] == [[4, 16], 4.0 * (0 + 1 + 2 + 3) * 4]
+    fe = out["frontends"]
+    hits = out["serving"]["solo"][1]
+    assert fe["data"] == ["200 OK", hits + 1]        # a header and the rows
+    assert fe["tile"][0] == "200 OK" and fe["tile"][1] > 0
+    assert fe["geojson"] == ["200 OK", 1]
+    assert fe["view"] == 2 * hits
+    assert fe["cli"] == [0, str(hits)]
+
+
+def test_source_scan_covers_the_front_end_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"web/__init__.py", "web/app.py", "web/wsgi.py",
+            "geojson/__init__.py", "geojson/query.py", "geojson/index.py",
+            "geojson/servlet.py", "blob.py", "views.py", "cli/__init__.py",
+            "cli/__main__.py", "cli/main.py"} <= scanned
 
 
 def test_source_scan_covers_the_analytics_modules():
