@@ -479,6 +479,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    26c one BBOX+DURING query of 26a's default-profile store under
    ``torch.profiler`` with CUDA activity: the planner's ``query.plan``
    and ``query.scan`` ranges, and a ``z3_mask`` kernel inside the scan's.
+27. gm-lint on the card's machine (after 6c, on the facade's store).
+   27a: ``python -m geomesa_tpu_torch.analysis --fail-on-new`` over the
+   port's tree in a subprocess with a timeout; it prints the new
+   findings, the baselined ones and the seconds taken, and a new finding
+   or a stale baseline entry fails the run.  27b, a reading and not a
+   gate: four of the index phase's queries as BBOX+DURING ECQL, each
+   under the tracer with ``torch.cuda.set_sync_debug_mode("warn")``;
+   the synchronizing calls torch reports are counted inside and outside
+   an open ``device_span``, and each outside site's ``file:line`` is
+   printed with whether the static host-sync check flags it, baselines
+   it or misses it.
 
 The kernel launch counts are set to 0 just before phase 4 and read just
 after phase 6, and again just before and after phase 6b (which must
@@ -511,7 +522,8 @@ reported; phase 20's and 22's are reported.  They are set to 0 and read
 around each part of phase 26: 26a's default-profile part must launch
 z3_mask at least once a merged read, 26b at least once a point query,
 26c at least once; 26a's lean part is reported (the lean scans run no
-kernel, as the JAX lean programs reach no Pallas kernel).  The
+kernel, as the JAX lean programs reach no Pallas kernel).  They are
+set to 0 and read around 27b, which must launch z3_mask.  The
 ``kernels`` line's launches are the main path's (hist1d's the mesh
 path's) and phase 26's.
 Each multihost worker (phase 3b) sets its own counts to 0 just before
@@ -8729,6 +8741,122 @@ def stream_phase(args, centres, dev, report, counters, phase_s,
     return stream_launches
 
 
+def lint_phase(report, timeout: float = 120.0) -> dict:
+    """Phase 27a: the port's gm-lint over its own tree as a user runs it,
+    ``python -m geomesa_tpu_torch.analysis --fail-on-new`` (JSON out), in
+    a subprocess with a timeout.  A new finding, a stale baseline entry
+    or a non-zero exit fails the run.  Returns the analyzer's JSON (its
+    findings and the baselined ones, each with file and line)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "geomesa_tpu_torch.analysis", "--fail-on-new",
+         "--format", "json"],
+        capture_output=True, text=True, timeout=timeout, cwd=here)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"gm-lint exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    if out["findings"] or out["stale_baseline"]:
+        raise AssertionError(f"gm-lint: new findings {out['findings']}, "
+                             f"stale entries {out['stale_baseline']}")
+    rep = {"findings": len(out["findings"]),
+           "baselined": len(out["baselined"]),
+           "analyzer_s": out["elapsed_s"], "wall_s": wall}
+    report["lint"] = rep
+    log(f"27a gm-lint: {rep['findings']} new finding(s), "
+        f"{rep['baselined']} baselined, analyzer {rep['analyzer_s']:.2f} s, "
+        f"{wall:.2f} s with the interpreter")
+    return out
+
+
+def _sync_verdict(rel: str, line: int, fn: str, lint: dict) -> str:
+    """What 27a's static check says of one synchronizing site: it flags
+    it, baselines it (on its line, or in its function), or misses it."""
+    for key, word in (("findings", "flags"), ("baselined", "baselines")):
+        for f in lint[key]:
+            if f["file"] != rel or f["check"] != "host-sync":
+                continue
+            if f["line"] == line:
+                return word
+            if f"(in `{fn}`)" in f["message"]:
+                return f"{word} (its function, line {f['line']})"
+    from geomesa_tpu_torch.analysis.walker import HOT_PATH_PARTS
+    if rel.split("/")[0] not in HOT_PATH_PARTS:
+        return "misses (outside the hot-path directories)"
+    return "misses"
+
+
+def sync_reading(qs, ds, lint, report, n_queries: int = 4) -> None:
+    """Phase 27b, a reading and not a gate: ``n_queries`` of the index
+    phase's queries (every fifth) as BBOX+DURING ECQL on the facade's
+    ``gdelt`` store, each under the tracer, with
+    ``torch.cuda.set_sync_debug_mode("warn")``.  Each synchronizing call
+    torch reports counts inside an open device span (the recording span,
+    ``obs.trace.current_span``, is a ``device_span``) or outside it;
+    an outside call is attributed to the innermost frame in the port's
+    package, and each such site is printed with what 27a's static
+    host-sync check says of it (:func:`_sync_verdict`)."""
+    import warnings
+
+    import torch
+    from geomesa_tpu_torch.obs import tracer
+    from geomesa_tpu_torch.obs.trace import current_span
+
+    port = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "geomesa_tpu_torch") + os.sep
+    picked = qs[::5][:n_queries]
+    qsql = [_ecql(boxes, lo, hi) for _, boxes, lo, hi in picked]
+    counts = {"inside": 0, "outside": 0}
+    sites: dict = {}
+    hits = []
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def hook(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                return shown(message, category, filename, lineno, file, line)
+            sp = current_span()
+            if sp is not None and sp.attributes.get("kind") == "device":
+                counts["inside"] += 1
+                return None
+            counts["outside"] += 1
+            frame = sys._getframe(1)
+            while frame is not None \
+                    and not frame.f_code.co_filename.startswith(port):
+                frame = frame.f_back
+            key = (("<outside the package>", 0, "")
+                   if frame is None else
+                   (frame.f_code.co_filename[len(port):].replace(os.sep, "/"),
+                    frame.f_lineno, frame.f_code.co_name))
+            sites[key] = sites.get(key, 0) + 1
+            return None
+
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for q in qsql:
+                with tracer.capture():
+                    hits.append(int(len(ds.query_result("gdelt",
+                                                        q).positions)))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rows = [{"site": f"{rel}:{line}", "function": fn, "count": n,
+             "verdict": _sync_verdict(rel, line, fn, lint)}
+            for (rel, line, fn), n in sorted(sites.items())]
+    report["sync"] = {"queries": len(qsql), "hits": hits, **counts,
+                      "outside_sites": rows}
+    log(f"27b sync reading: {len(qsql)} queries ({sum(hits)} hits), "
+        f"{counts['inside']} synchronizing call(s) inside a device span, "
+        f"{counts['outside']} outside at {len(rows)} site(s)")
+    for r in rows:
+        log(f"27b   outside {r['site']} ({r['function']}) x{r['count']}: "
+            f"the static check {r['verdict']}")
+
+
 def kernel_entry(name: str, replaces: str, launches: int, rows: list,
                  row: dict) -> dict:
     """One kernel's entry of the ``{"kernels": [...]}`` line."""
@@ -8976,6 +9104,27 @@ def main(argv=None) -> int:
     if report["trace_path_launches"]["z3_mask"] <= 0:
         raise AssertionError(f"z3_mask was never launched on the traced "
                              f"queries: {report['trace_path_launches']}")
+
+    # 27, gm-lint on the card's machine: 27a the analyzer over the port's
+    # tree (no kernel), 27b the synchronizing calls of a few traced
+    # queries on the facade's store (counts set to 0 just before, read
+    # just after: its BBOX+DURING queries launch z3_mask)
+    t0 = time.perf_counter()
+    lint = lint_phase(report)
+    phase_s["lint"] = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    sync_reading(qs, ds, lint, report)
+    phase_s["sync"] = time.perf_counter() - t0
+    report["sync_path_launches"] = {k: fn.launches
+                                    for k, fn in counters.items()}
+    if report["sync_path_launches"]["z3_mask"] <= 0:
+        raise AssertionError(f"z3_mask was never launched on the sync "
+                             f"reading's queries: "
+                             f"{report['sync_path_launches']}")
+    log(f"phase 27: 27a {phase_s['lint']:.1f} s, 27b {phase_s['sync']:.1f} s "
+        f"(launches {report['sync_path_launches']}); card: {smi}")
 
     # 6d, obs: the SLO plane, the Prometheus text and the build watch on
     # the facade's store (counts set to 0 just before, read just after);

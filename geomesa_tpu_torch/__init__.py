@@ -46,20 +46,27 @@ WCS, blobs and the mounted GeoJSON API of ``geojson``), the blob store
 card unless ``--device cpu`` is given).
 """
 
-from .datastore import TpuDataStore
-from .index.xz2 import XZ2Index
-from .index.xz2_lean import LeanXZ2Index, LeanXZ3Index
-from .index.xz3 import XZ3Index
-from .index.z2 import Z2PointIndex
-from .index.z3 import Z3PointIndex
-from .index.z3_lean import LeanZ3Index
-from .parallel import (
-    ShardedXZ2Index, ShardedXZ3Index, ShardedZ2Index, ShardedZ3Index,
-    device_mesh, merged_stats, sharded_frequency_scan, sharded_stats_scan,
-)
-from .planning.planner import Query, QueryResult
-from .process.density import density_process
-from .process.stats_process import stats_process
+import importlib as _importlib
+
+__version__ = "0.1.0"
+
+#: the package's exports and the submodule each lives in: resolved at
+#: first use, so importing a stdlib-only subpackage (``analysis``, the
+#: gm-lint analyzer) loads neither torch nor numpy
+_EXPORTS = {
+    "TpuDataStore": ".datastore", "XZ2Index": ".index.xz2",
+    "LeanXZ2Index": ".index.xz2_lean", "LeanXZ3Index": ".index.xz2_lean",
+    "XZ3Index": ".index.xz3", "Z2PointIndex": ".index.z2",
+    "Z3PointIndex": ".index.z3", "LeanZ3Index": ".index.z3_lean",
+    "ShardedXZ2Index": ".parallel", "ShardedXZ3Index": ".parallel",
+    "ShardedZ2Index": ".parallel", "ShardedZ3Index": ".parallel",
+    "device_mesh": ".parallel", "merged_stats": ".parallel",
+    "sharded_frequency_scan": ".parallel",
+    "sharded_stats_scan": ".parallel",
+    "Query": ".planning.planner", "QueryResult": ".planning.planner",
+    "density_process": ".process.density",
+    "stats_process": ".process.stats_process",
+}
 
 __all__ = ["TpuDataStore", "Z2PointIndex", "Z3PointIndex", "LeanZ3Index",
            "XZ2Index", "XZ3Index", "LeanXZ2Index", "LeanXZ3Index",
@@ -67,4 +74,12 @@ __all__ = ["TpuDataStore", "Z2PointIndex", "Z3PointIndex", "LeanZ3Index",
            "QueryResult", "density_process", "stats_process",
            "device_mesh", "ShardedZ3Index", "ShardedZ2Index",
            "sharded_stats_scan", "sharded_frequency_scan", "merged_stats"]
-__version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(_importlib.import_module(module, __name__), name)
+    globals()[name] = value
+    return value

@@ -722,10 +722,11 @@ class LeanAttrIndex:
             return 1
         return int((totals > 0).sum())
 
-    def _gather(self, batch, jqid, pos_bits: int) -> np.ndarray:
+    def _gather(self, batch, jqid, pos_bits: int) -> torch.Tensor:
         """Coded ``qid << pos_bits | gid`` candidates of the device
-        generations' ``(gen, seek, total)`` entries, read with one
-        device→host copy."""
+        generations' ``(gen, seek, total)`` entries, left on the device:
+        the caller reads them back with one copy inside its device
+        span."""
         coded = []
         for g, (starts, counts), t in batch:
             if not int(t):
@@ -738,8 +739,8 @@ class LeanAttrIndex:
             c = (jqid[rid] << pos_bits) | g.gid[idx].to(torch.int64)
             coded.append(c[valid])
         if not coded:
-            return np.empty(0, np.int64)
-        return torch.cat(coded).cpu().numpy()
+            return torch.empty(0, dtype=torch.int64)
+        return torch.cat(coded)
 
     def _dispatch_failed(self, gens, exc, qklo, qkhi, qslo, qshi, qqid,
                          pos_bits):
@@ -826,7 +827,7 @@ class LeanAttrIndex:
                                      runs=len(dev_gens)):
                         flat = self._gather(list(zip(dev_gens, seeks,
                                                      totals)),
-                                            jqid, pos_bits)
+                                            jqid, pos_bits).cpu().numpy()
                 except Exception as e:  # noqa: BLE001 — classified
                     flat = self._dispatch_failed(
                         dev_gens, e, qklo, qkhi, qslo, qshi, qqid,

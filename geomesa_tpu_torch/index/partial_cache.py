@@ -71,7 +71,7 @@ class PartialCache:
             self._specs.clear()
 
     # -- policy --------------------------------------------------------
-    # holds self._lock (internal sum; public paths lock first)
+    # gm-lint: holds: self._lock (internal sum; public paths lock first)
     def _cached_bytes(self) -> int:
         return sum(p.nbytes for c in self._specs.values()
                    for p in c.values())

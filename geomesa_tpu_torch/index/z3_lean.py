@@ -1214,9 +1214,11 @@ class LeanZ3Index:
             with device_span("query.scan.device", tier=tier,
                              runs=len(live), rows=rows,
                              bytes=rows * row_bytes):
-                flat = (self._gather_full(live, rq, pos_bits, *exact)
-                        if exact is not None
-                        else self._gather_keys(live, rq, pos_bits))
+                if exact is not None:
+                    flat = self._gather_full(live, rq, pos_bits, *exact)
+                else:
+                    flat = self._gather_keys(live, rq, pos_bits).cpu().numpy()
+                    flat = flat[flat >= 0].astype(np.int64)
         except Exception as e:  # noqa: BLE001 — classified below
             coded = self._dispatch_failed(gens_l, e, ra, pos_bits, tier)
             if coded is None:
@@ -1261,11 +1263,12 @@ class LeanZ3Index:
             return stack.candidates(ra["rbin"], ra["rzlo"], ra["rzhi"],
                                     ra["rqid"], pos_bits)
 
-    def _gather_keys(self, group, rq, pos_bits) -> np.ndarray:
+    def _gather_keys(self, group, rq, pos_bits) -> torch.Tensor:
         """CANDIDATE gather over one tier's ``keys``-tier generations:
         per generation, expand + gather global positions coded as
-        ``qid << pos_bits | pos``; one device→host copy.  The exact mask
-        runs on the host payload."""
+        ``qid << pos_bits | pos`` (-1 for an invalid slot), left on the
+        device: the caller reads them back with one copy inside its
+        device span.  The exact mask runs on the host payload."""
         dt = wire_dtype(pos_bits)
         parts = []
         for gen, (starts, counts), tot in group:
@@ -1280,9 +1283,8 @@ class LeanZ3Index:
                                      torch.full_like(coded, -1)))
             self.dispatch_count += 1
         if not parts:
-            return np.empty(0, np.int64)
-        flat = torch.cat(parts).cpu().numpy()
-        return flat[flat >= 0].astype(np.int64)
+            return torch.empty(0, dtype=torch.int64)
+        return torch.cat(parts)
 
     def _gather_full(self, group, rq, pos_bits, boxes, bqid, qtlo,
                      qthi) -> np.ndarray:
@@ -1519,22 +1521,24 @@ class LeanZ3Index:
         lon, lat = self.sfc.lon, self.sfc.lat
         acc = torch.zeros(width * height, dtype=torch.float64,
                           device=self.device)
-        for gen, (starts, counts), tot in zip(gens, seeks, totals):
-            if not int(tot):
-                continue
-            cap = gather_capacity(int(tot), minimum=self.DEFAULT_CAPACITY)
-            idx, valid, _rid = expand_ranges(starts, counts, cap)
-            local = torch.clamp(gen.pos[idx].to(torch.int64) - gen.base,
-                                min=0)
-            xc, yc, tc = gen.x[local], gen.y[local], gen.t[local]
-            ok = (valid & _in_boxes(xc, yc, boxes).any(dim=1)
-                  & (tc >= lo) & (tc <= hi))
-            gx, gy = _grid_cells(lon.denormalize(lon.normalize(xc)),
-                                 lat.denormalize(lat.normalize(yc)),
-                                 env, width, height)
-            acc += _grid_count(gx, gy, ok, width, height)
-            self.dispatch_count += 1
-        return acc.reshape(height, width).cpu().numpy()
+        with device_span("query.scan.device", tier="full", runs=len(gens)):
+            for gen, (starts, counts), tot in zip(gens, seeks, totals):
+                if not int(tot):
+                    continue
+                cap = gather_capacity(int(tot),
+                                      minimum=self.DEFAULT_CAPACITY)
+                idx, valid, _rid = expand_ranges(starts, counts, cap)
+                local = torch.clamp(gen.pos[idx].to(torch.int64) - gen.base,
+                                    min=0)
+                xc, yc, tc = gen.x[local], gen.y[local], gen.t[local]
+                ok = (valid & _in_boxes(xc, yc, boxes).any(dim=1)
+                      & (tc >= lo) & (tc <= hi))
+                gx, gy = _grid_cells(lon.denormalize(lon.normalize(xc)),
+                                     lat.denormalize(lat.normalize(yc)),
+                                     env, width, height)
+                acc += _grid_count(gx, gy, ok, width, height)
+                self.dispatch_count += 1
+            return acc.reshape(height, width).cpu().numpy()
 
     def _density_keys(self, gens, seeks, totals, ixy, tb, env,
                       width: int, height: int) -> list[np.ndarray]:
@@ -1548,26 +1552,32 @@ class LeanZ3Index:
         cache."""
         lon, lat = self.sfc.lon, self.sfc.lat
         b_lo, c_lo, b_hi, c_hi = (int(v) for v in tb)
+        if not any(int(t) for t in totals):
+            # no candidates: zero partials, no dispatch (as in the JAX
+            # index, which opens no device span for them either)
+            return [np.zeros((height, width), np.float64) for _ in gens]
         zero = torch.zeros(width * height, dtype=torch.float64,
                            device=self.device)
-        grids = []
-        for gen, (starts, counts), tot in zip(gens, seeks, totals):
-            if not int(tot):
-                grids.append(zero)
-                continue
-            cap = gather_capacity(int(tot), minimum=self.DEFAULT_CAPACITY)
-            idx, valid, _rid = expand_ranges(starts, counts, cap)
-            bc = gen.bins[idx].to(torch.int64)
-            ix, iy, it = deinterleave3(gen.z[idx])
-            in_box = _in_boxes(ix, iy, ixy).any(dim=1)
-            after = (bc > b_lo) | ((bc == b_lo) & (it >= c_lo))
-            before = (bc < b_hi) | ((bc == b_hi) & (it <= c_hi))
-            ok = valid & in_box & after & before
-            gx, gy = _grid_cells(lon.denormalize(ix), lat.denormalize(iy),
-                                 env, width, height)
-            grids.append(_grid_count(gx, gy, ok, width, height))
-            self.dispatch_count += 1
-        stacked = torch.stack(grids).cpu().numpy()
+        with device_span("query.scan.device", tier="keys", runs=len(gens)):
+            grids = []
+            for gen, (starts, counts), tot in zip(gens, seeks, totals):
+                if not int(tot):
+                    grids.append(zero)
+                    continue
+                cap = gather_capacity(int(tot),
+                                      minimum=self.DEFAULT_CAPACITY)
+                idx, valid, _rid = expand_ranges(starts, counts, cap)
+                bc = gen.bins[idx].to(torch.int64)
+                ix, iy, it = deinterleave3(gen.z[idx])
+                in_box = _in_boxes(ix, iy, ixy).any(dim=1)
+                after = (bc > b_lo) | ((bc == b_lo) & (it >= c_lo))
+                before = (bc < b_hi) | ((bc == b_hi) & (it <= c_hi))
+                ok = valid & in_box & after & before
+                gx, gy = _grid_cells(lon.denormalize(ix),
+                                     lat.denormalize(iy), env, width, height)
+                grids.append(_grid_count(gx, gy, ok, width, height))
+                self.dispatch_count += 1
+            stacked = torch.stack(grids).cpu().numpy()
         return [stacked[i].reshape(height, width)
                 for i in range(len(gens))]
 

@@ -144,6 +144,7 @@ class HeatTracker:
             if len(self._entries) > self._max_entries():
                 self._evict_coldest(now, tau)
 
+    # gm-lint: holds: self._lock (record() evicts inside its fold)
     def _evict_coldest(self, now: float, tau: float) -> None:
         """Drop the coldest ~10% (lock held) — amortized so a store
         with churning generations never grows the table unbounded."""

@@ -622,6 +622,17 @@ def test_source_scan_covers_the_streaming_modules():
             "utils/profiling.py"} <= scanned
 
 
+def test_source_scan_covers_the_analysis_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"analysis/__init__.py", "analysis/__main__.py",
+            "analysis/baseline.py", "analysis/model.py", "analysis/walker.py",
+            "analysis/checks/__init__.py", "analysis/checks/config_options.py",
+            "analysis/checks/fault_points.py", "analysis/checks/host_sync.py",
+            "analysis/checks/lock_discipline.py",
+            "analysis/checks/recompile_hazard.py",
+            "analysis/checks/taxonomy.py"} <= scanned
+
+
 def test_source_scan_covers_the_front_end_modules():
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"web/__init__.py", "web/app.py", "web/wsgi.py",
